@@ -1,0 +1,230 @@
+"""Pooled multiscale attention over separate (patch grid | cls + object)
+streams (counterpart of ``svit_tpu/models/attention.py``, its
+``use_pallas=True`` path at exact widths).
+
+The residual stream is carried as two tensors: the patch grid
+``[B, T, H, W, C]`` and the small ``extras [B, 1 + O*T, C]`` (cls and object
+tokens).  Keys and values are ``[patches | extras]``; softmax does not care
+about key order, so this is the reference's joint attention.
+
+The grid goes through the hand-written kernels (``use_kernels=True``) or
+their plain twins (``use_kernels=False``):
+
+- norm1 + q and k|v projections: ``fused_ln_qkv`` (K1);
+- q pool and the fused k|v pool: ``fused_pool_ln`` (K2);
+- attention + residual pooling: ``pooled_attention`` (K4), then the
+  out-projection (K1), for the grid queries and again for the extras;
+- stage transitions: ``fused_ln_dense`` (K1) and ``fused_pool_max`` (K3);
+- residual tail: ``fused_ffn_residual`` (K1, two launches).
+
+The extras' projections, pools and FFN are tiny and stay plain PyTorch, as
+the JAX package leaves them to XLA.  The port is a serving forward:
+dropout and drop-path are identities.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from svit_tpu_torch.models.common import LayerNorm, Mlp
+from svit_tpu_torch.ops import attention as attn_ops
+from svit_tpu_torch.ops import ln_linear as ll
+from svit_tpu_torch.ops import pool, pooling
+
+Triple = Tuple[int, ...]
+
+
+def _ops(use_kernels: bool) -> SimpleNamespace:
+    """The grid-stream ops: the kernel wrappers or their plain twins
+    (looked up at call time)."""
+    if use_kernels:
+        return SimpleNamespace(
+            ln_qkv=ll.fused_ln_qkv, ln_dense=ll.fused_ln_dense,
+            ffn_residual=ll.fused_ffn_residual, pool_ln=pool.fused_pool_ln,
+            pool_max=pool.fused_pool_max,
+            attention_proj=attn_ops.fused_attention_proj)
+    return SimpleNamespace(
+        ln_qkv=ll.ln_qkv_reference, ln_dense=ll.ln_dense_reference,
+        ffn_residual=ll.ffn_residual_reference,
+        pool_ln=pool.pool_ln_reference, pool_max=pool.pool_max_reference,
+        attention_proj=attn_ops.attention_proj_reference)
+
+
+def _needs_pool(kernel, stride) -> bool:
+    """Pooling is skipped for kernel = stride = 1."""
+    if not kernel or not stride:
+        return False
+    return int(np.prod(kernel)) != 1 or int(np.prod(stride)) != 1
+
+
+def _dense_extras(x, w, b, ln=None):
+    """Plain dense layer on the extras: product rounded, bias added in the IO
+    dtype (XLA's bf16 dot + bias)."""
+    B, E, _ = x.shape
+    return ll.ln_linear_reference(x.reshape(B * E, -1), w, b, ln=ln,
+                                  round_then_bias=True).view(B, E, -1)
+
+
+class _PoolConv(nn.Module):
+    """A depthwise pool filter ``[head_dim, 1, kT, kH, kW]`` (``pool_*.weight``)."""
+
+    def __init__(self, head_dim: int, kernel: Triple):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(head_dim, 1, *kernel))
+
+
+class MultiScaleAttention(nn.Module):
+    def __init__(self, dim, dim_out, num_heads, input_size, *, qkv_bias,
+                 kernel_q, kernel_kv, stride_q, stride_kv, mode, has_cls,
+                 rel_pos_spatial, rel_pos_temporal, residual_pooling,
+                 separate_qkv):
+        super().__init__()
+        if mode != "conv":
+            raise NotImplementedError(f"pool mode {mode!r}: the port pools "
+                                      "by depthwise conv only")
+        if separate_qkv:
+            raise NotImplementedError("MVIT.SEPARATE_QKV is not ported")
+        self.dim_out = dim_out
+        self.num_heads = num_heads
+        self.head_dim = dim_out // num_heads
+        self.use_qkv_bias = qkv_bias
+        self.stride_q, self.stride_kv = tuple(stride_q), tuple(stride_kv)
+        self.has_cls = has_cls
+        self.residual_pooling = residual_pooling
+        if not (_needs_pool(kernel_q, stride_q)
+                and _needs_pool(kernel_kv, stride_kv)):
+            raise NotImplementedError("the port expects q and k|v pooling "
+                                      "in every block")
+        hd = self.head_dim
+        # the qkv bias always exists (the JAX tree has it); it is used only
+        # under MVIT.QKV_BIAS
+        self.qkv = nn.Linear(dim, 3 * dim_out)
+        self.proj = nn.Linear(dim_out, dim_out)
+        for n, k in (("q", kernel_q), ("k", kernel_kv), ("v", kernel_kv)):
+            setattr(self, f"pool_{n}", _PoolConv(hd, tuple(k)))
+            setattr(self, f"norm_{n}", LayerNorm(hd))
+        if rel_pos_spatial:
+            assert input_size[1] == input_size[2]
+            size = input_size[1]
+            sp_dim = 2 * max(size // stride_q[1], size // stride_kv[1]) - 1
+            self.rel_pos_h = nn.Parameter(torch.zeros(sp_dim, hd))
+            self.rel_pos_w = nn.Parameter(torch.zeros(sp_dim, hd))
+        else:
+            self.rel_pos_h = self.rel_pos_w = None
+        if rel_pos_temporal:
+            self.rel_pos_t = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
+        else:
+            self.rel_pos_t = None
+
+    def forward(self, grid, extras, ln1, use_kernels, dtype):
+        """grid [B, T, H, W, C_in] and extras [B, E, C_in] are the RAW
+        streams: norm1 (``ln1``) is applied here, fused into the projection.
+        Returns (grid_out [B, To, Ho, Wo, C], extras_out [B, E, C])."""
+        ops = _ops(use_kernels)
+        B, E = grid.shape[0], extras.shape[1]
+        C, heads, hd = self.dim_out, self.num_heads, self.head_dim
+        scale = hd ** -0.5
+        w = self.qkv.weight.to(dtype)
+        b = self.qkv.bias if self.use_qkv_bias else None
+
+        qg, kvg = ops.ln_qkv(grid, ln1[0], ln1[1], w, b, C)
+        en = ll.layer_norm(extras, ln1[0], ln1[1])
+        qe = _dense_extras(en, w[:C], None if b is None else b[:C])
+        kve = _dense_extras(en, w[C:], None if b is None else b[C:])
+
+        # q pool: conv + per-head LN on the grid; the exact per-channel
+        # multiplier and the same LN on the object tokens (cls passes)
+        wq = self.pool_q.weight.repeat(heads, 1, 1, 1, 1)
+        qg = ops.pool_ln(qg, wq, self.norm_q.weight, self.norm_q.bias,
+                         self.stride_q, hd)
+        qe = self._pool_extras(qe, wq, self.stride_q, self.norm_q.weight,
+                               self.norm_q.bias)
+        # ONE pool for the fused k|v grid: conv and per-head LN are
+        # channel-local, so pool_k | pool_v tiled over heads is exact
+        wkv = torch.cat([self.pool_k.weight.repeat(heads, 1, 1, 1, 1),
+                         self.pool_v.weight.repeat(heads, 1, 1, 1, 1)])
+        ls = torch.cat([self.norm_k.weight.repeat(heads),
+                        self.norm_v.weight.repeat(heads)])
+        lb = torch.cat([self.norm_k.bias.repeat(heads),
+                        self.norm_v.bias.repeat(heads)])
+        kvg = ops.pool_ln(kvg, wkv, ls, lb, self.stride_kv, hd)
+        kve = self._pool_extras(kve, wkv, self.stride_kv, ls, lb)
+
+        q_shape = tuple(qg.shape[1:4])
+        k_shape = tuple(kvg.shape[1:4])
+        q_l, k_l = int(np.prod(q_shape)), int(np.prod(k_shape))
+        kv_all = torch.cat([kvg.view(B, k_l, 2 * C), kve], dim=1)
+        bias_src = attn_ops.build_bias_inputs_grid(
+            qg, heads, q_shape, k_shape, rel_pos_h=self.rel_pos_h,
+            rel_pos_w=self.rel_pos_w, rel_pos_t=self.rel_pos_t)
+        wp = self.proj.weight.to(dtype)
+        og = ops.attention_proj(qg.view(B, q_l, C), kv_all, bias_src,
+                                k_shape, wp, self.proj.bias, scale, heads,
+                                self.residual_pooling)
+        # extras queries: no rel-pos bias, same keys and values
+        oe = ops.attention_proj(qe, kv_all, None, k_shape, wp, self.proj.bias,
+                                scale, heads, self.residual_pooling)
+        if self.residual_pooling and self.has_cls:
+            # the reference adds the q residual to all rows but cls; the
+            # kernel adds it to every row, so remove the cls row's projected q
+            cls_q = ll.ln_linear_reference(qe[:, 0], wp)
+            oe = torch.cat([(oe[:, 0] - cls_q)[:, None], oe[:, 1:]], dim=1)
+        return og.view(B, *q_shape, C), oe
+
+    def _pool_extras(self, x, weight, stride, ln_w, ln_b):
+        mult = pooling.conv_obj_multiplier(weight, stride).to(x.dtype)
+        if self.has_cls:
+            x = torch.cat([x[:, :1], x[:, 1:] * mult], dim=1)
+        else:
+            x = x * mult
+        return pool.group_layer_norm(x, ln_w, ln_b, self.head_dim)
+
+
+class MultiScaleBlock(nn.Module):
+    def __init__(self, dim, dim_out, num_heads, input_size, *, mlp_ratio,
+                 qkv_bias, kernel_q, kernel_kv, stride_q, stride_kv, mode,
+                 has_cls, rel_pos_spatial, rel_pos_temporal, residual_pooling,
+                 dim_mul_in_att, separate_qkv):
+        super().__init__()
+        if not dim_mul_in_att:
+            raise NotImplementedError("MVIT.DIM_MUL_IN_ATT=False is not ported")
+        self.dim, self.dim_out = dim, dim_out
+        self.stride_q = tuple(stride_q)
+        self.norm1 = LayerNorm(dim)
+        self.attn = MultiScaleAttention(
+            dim, dim_out, num_heads, input_size, qkv_bias=qkv_bias,
+            kernel_q=kernel_q, kernel_kv=kernel_kv, stride_q=stride_q,
+            stride_kv=stride_kv, mode=mode, has_cls=has_cls,
+            rel_pos_spatial=rel_pos_spatial, rel_pos_temporal=rel_pos_temporal,
+            residual_pooling=residual_pooling, separate_qkv=separate_qkv)
+        self.norm2 = LayerNorm(dim_out)
+        self.mlp = Mlp(dim_out, int(dim_out * mlp_ratio), dim_out)
+        self.proj = nn.Linear(dim, dim_out) if dim != dim_out else None
+
+    def forward(self, grid, extras, use_kernels: bool, dtype):
+        ops = _ops(use_kernels)
+        ln1 = (self.norm1.weight, self.norm1.bias)
+        ag, ae = self.attn(grid, extras, ln1, use_kernels, dtype)
+        if self.proj is not None:
+            # norm1 again inside the dim-change projection (the attention's
+            # copy stays fused in its qkv launch)
+            wpj = self.proj.weight.to(dtype)
+            grid = ops.ln_dense(grid, ln1[0], ln1[1], wpj, self.proj.bias)
+            extras = _dense_extras(extras, wpj, self.proj.bias, ln=ln1)
+        if self.stride_q and int(np.prod(self.stride_q)) > 1:
+            # residual skip: max pool with kernel s+1 where the q stride is s
+            kernel_skip = tuple(s + 1 if s > 1 else s for s in self.stride_q)
+            grid = ops.pool_max(grid, kernel_skip, self.stride_q)
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        w1, w2 = fc1.weight.to(dtype), fc2.weight.to(dtype)
+        out_g = ops.ffn_residual(grid, ag, self.norm2.weight, self.norm2.bias,
+                                 w1, fc1.bias, w2, fc2.bias)
+        ex = extras + ae
+        out_e = ex + ll.ffn_reference(ex, self.norm2.weight, self.norm2.bias,
+                                      w1, fc1.bias, w2, fc2.bias)
+        return out_g, out_e

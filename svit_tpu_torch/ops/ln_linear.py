@@ -1,0 +1,202 @@
+"""LayerNorm-prologue GEMM: kernel K1 and its uses (counterpart of
+``svit_tpu/ops/pallas_ffn.py``).
+
+``ln_linear`` computes ``epilogue(prologue(x) @ w.T)`` in one launch of
+``csrc/ln_linear.cu``:
+
+- prologue: ``s = x (+ x_add)`` in the IO dtype; with ``ln`` the row is
+  normalised in f32 (eps 1e-6) and rounded to the IO dtype before the
+  product;
+- epilogue: either ``acc + bias`` in f32, optionally exact GELU, then one
+  rounding to the IO dtype; or (``round_then_bias``) the f32 product is
+  rounded first and the bias added in the IO dtype, as the attention
+  projection does; then optionally ``+ residual`` in the IO dtype.
+
+Weights keep the PyTorch ``[out, in]`` layout.  On a CPU tensor the wrapper
+runs the plain version ``ln_linear_reference``; on a CUDA tensor it launches
+the kernel or raises.  The uses below are the JAX package's fused kernels:
+``fused_ln_qkv``, ``fused_ln_dense`` and ``fused_ffn_residual`` (two
+launches: the hidden activation goes through device memory).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from svit_tpu_torch.ops import _lib
+
+EPS = 1e-6
+
+_BIAS_NONE, _BIAS_F32, _BIAS_IO = 0, 1, 2
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = EPS) -> torch.Tensor:
+    """Last-axis LN computed in f32, returned in ``x``'s dtype (eps 1e-6,
+    not torch's default 1e-5)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def _split(y: torch.Tensor, split: Optional[int]):
+    if split is None:
+        return y
+    return y[..., :split].contiguous(), y[..., split:].contiguous()
+
+
+def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
+                        round_then_bias=False, residual=None, split=None):
+    """Plain PyTorch twin of ``ln_linear`` with the kernel's rounding.
+
+    x: [M, K]; w: [N, K]; bias: [N] (f32); ln: (weight, bias) of size K;
+    x_add, residual: like x and like the output.  Returns ``y`` ([M, N], or
+    the pair ``y[:, :split], y[:, split:]``), and ``(y, s)`` when ``x_add``
+    is given, ``s = x + x_add``."""
+    dt = x.dtype
+    s = x if x_add is None else x + x_add
+    xn = s if ln is None else layer_norm(s, ln[0], ln[1])
+    acc = xn.float() @ w.to(dt).float().t()
+    if round_then_bias:
+        y = acc.to(dt)
+        if bias is not None:
+            y = y + bias.to(dt)
+    else:
+        if bias is not None:
+            acc = acc + bias.float()
+        if gelu:
+            acc = F.gelu(acc)
+        y = acc.to(dt)
+    if residual is not None:
+        y = y + residual
+    y = _split(y, split)
+    return y if x_add is None else (y, s)
+
+
+def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
+              round_then_bias=False, residual=None, split=None):
+    """Kernel K1 (``csrc/ln_linear.cu``); same contract as
+    ``ln_linear_reference``.  Takes bf16 activations and weights, f32 LN
+    parameters and bias."""
+    if x.device.type == "cpu":
+        return ln_linear_reference(
+            x, w, bias, ln=ln, x_add=x_add, gelu=gelu,
+            round_then_bias=round_then_bias, residual=residual, split=split)
+    if gelu and round_then_bias:
+        raise ValueError("gelu applies before the rounding; "
+                         "round_then_bias has none")
+    M, K = x.shape
+    N = w.shape[0]
+    dt = torch.bfloat16
+    _lib.check(x, "x", dt)
+    _lib.check(w, "w", dt, (N, K), x.device)
+    if K % 8 or N % 8:
+        raise ValueError(f"ln_linear needs K and N multiples of 8 (K={K}, N={N})")
+    if x_add is not None:
+        _lib.check(x_add, "x_add", dt, (M, K), x.device)
+    if residual is not None:
+        _lib.check(residual, "residual", dt, (M, N), x.device)
+    if bias is not None:
+        _lib.check(bias, "bias", torch.float32, (N,), x.device)
+    if ln is not None:
+        _lib.check(ln[0], "ln weight", torch.float32, (K,), x.device)
+        _lib.check(ln[1], "ln bias", torch.float32, (K,), x.device)
+    n_split = N if split is None else int(split)
+    if n_split % 8 or not 0 < n_split <= N:
+        raise ValueError(f"split {split} must be a multiple of 8 in (0, {N}]")
+    out0 = torch.empty((M, n_split), dtype=dt, device=x.device)
+    out1 = (torch.empty((M, N - n_split), dtype=dt, device=x.device)
+            if n_split < N else None)
+    s = torch.empty_like(x) if x_add is not None else None
+    mode = (_BIAS_NONE if bias is None
+            else _BIAS_IO if round_then_bias else _BIAS_F32)
+    if M:
+        _lib.launch(
+            "svit_ln_linear", "ln_linear",
+            _lib.ptr(x), _lib.ptr(x_add), _lib.ptr(s),
+            _lib.ptr(ln[0]) if ln else None, _lib.ptr(ln[1]) if ln else None,
+            EPS, _lib.ptr(w), _lib.ptr(bias), mode, int(gelu),
+            _lib.ptr(residual), _lib.ptr(out0), _lib.ptr(out1), n_split,
+            M, N, K, _lib.stream())
+    y = out0 if split is None else (out0, out1)
+    return y if x_add is None else (y, s)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's fused kernels as uses of K1, each with its plain twin.
+# Activations are [B, N, C]; weights [out, in] in the IO dtype; LN params and
+# biases f32.
+# ---------------------------------------------------------------------------
+
+def _flat(x):
+    return x.reshape(-1, x.shape[-1])
+
+
+def _fused_ln_qkv(op, x, ln_w, ln_b, w_qkv, b_qkv, dim_out
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    q, kv = op(_flat(x), w_qkv, b_qkv, ln=(ln_w, ln_b), split=dim_out)
+    lead = x.shape[:-1]
+    return q.view(*lead, dim_out), kv.view(*lead, 2 * dim_out)
+
+
+def fused_ln_qkv(x, ln_w, ln_b, w_qkv, b_qkv, dim_out):
+    """norm1 + the q and k|v projections in one launch over ``[Wq | Wkv]``:
+    x is read once, q and kv are written as two outputs."""
+    return _fused_ln_qkv(ln_linear, x, ln_w, ln_b, w_qkv, b_qkv, dim_out)
+
+
+def ln_qkv_reference(x, ln_w, ln_b, w_qkv, b_qkv, dim_out):
+    return _fused_ln_qkv(ln_linear_reference, x, ln_w, ln_b, w_qkv, b_qkv,
+                         dim_out)
+
+
+def fused_ln_dense(x, ln_w, ln_b, w, b):
+    """LN + one dense layer (bias added in f32, then rounded)."""
+    return ln_linear(_flat(x), w, b, ln=(ln_w, ln_b)).view(
+        *x.shape[:-1], w.shape[0])
+
+
+def ln_dense_reference(x, ln_w, ln_b, w, b):
+    return ln_linear_reference(_flat(x), w, b, ln=(ln_w, ln_b)).view(
+        *x.shape[:-1], w.shape[0])
+
+
+def _fused_ffn_residual(op, x_res, a, ln_w, ln_b, w1, b1, w2, b2):
+    h, s = op(_flat(x_res), w1, b1, ln=(ln_w, ln_b), x_add=_flat(a),
+              gelu=True)
+    return op(h, w2, b2, residual=s).view(*x_res.shape[:-1], w2.shape[0])
+
+
+def fused_ffn_residual(x_res, a, ln_w, ln_b, w1, b1, w2, b2):
+    """The block's residual tail ``x = x_res + a; out = x + mlp(ln2(x))`` as
+    two K1 launches: (x_res + a) -> LN -> fc1 + b1 -> GELU writes h and x;
+    then h @ W2 + b2 is rounded and x added in the IO dtype."""
+    return _fused_ffn_residual(ln_linear, x_res, a, ln_w, ln_b, w1, b1, w2, b2)
+
+
+def ffn_residual_reference(x_res, a, ln_w, ln_b, w1, b1, w2, b2):
+    return _fused_ffn_residual(ln_linear_reference, x_res, a, ln_w, ln_b,
+                               w1, b1, w2, b2)
+
+
+def ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2):
+    """LN + MLP without residual, in plain PyTorch (the extras' FFN)."""
+    h = ln_linear_reference(_flat(x), w1, b1, ln=(ln_w, ln_b), gelu=True)
+    return ln_linear_reference(h, w2, b2).view(*x.shape[:-1], w2.shape[0])
+
+
+def linear_proj(x, w, b):
+    """The attention out-projection: the f32 product is rounded to the IO
+    dtype, then the bias is added in the IO dtype."""
+    return ln_linear(_flat(x), w, b, round_then_bias=True).view(
+        *x.shape[:-1], w.shape[0])
+
+
+def linear_proj_reference(x, w, b):
+    return ln_linear_reference(_flat(x), w, b, round_then_bias=True).view(
+        *x.shape[:-1], w.shape[0])

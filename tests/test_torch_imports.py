@@ -1,0 +1,78 @@
+"""The PyTorch port imports without JAX and without the JAX package, and
+its entry points refuse to run on the CPU unless asked to."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# A meta-path finder that refuses jax, flax, optax, orbax and the JAX
+# package (``svit_tpu`` or ``svit_tpu.*``, not ``svit_tpu_torch``).
+_BLOCKER = r'''
+import importlib.abc, sys
+
+BLOCKED_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+def blocked(name):
+    return (name.split(".")[0] in BLOCKED_ROOTS or name == "svit_tpu"
+            or name.startswith("svit_tpu."))
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+'''
+
+_IMPORT_ALL = _BLOCKER + r'''
+import importlib, pkgutil
+try:
+    import svit_tpu
+    raise SystemExit("the blocker let svit_tpu through")
+except ImportError:
+    pass
+import svit_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    svit_tpu_torch.__path__, "svit_tpu_torch."))
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+print(len(names))
+'''
+
+
+def test_port_imports_with_jax_and_svit_tpu_blocked():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    # every module of the port: config (4), data (2), models (7), ops (7),
+    # serving (3), utils (3) and the package itself
+    assert int(r.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_build_model_without_device_raises_when_cuda_absent(monkeypatch):
+    from svit_tpu_torch.config import get_cfg
+    from svit_tpu_torch.models import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "ssv2.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+
+
+def test_chip_smoke_exits_nonzero_without_cuda():
+    """Without a card the smoke run fails and prints no result line."""
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
