@@ -24,10 +24,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forward at each: device time by kernel, the hand-written kernels' share
    and the device's idle share of the wall time;
 6. serving: ``make_server`` (what ``serve()`` runs) on localhost, GET
-   /healthz and three concurrent POST /predict of 16 JPEG frames.
+   /healthz and three concurrent POST /predict of 16 JPEG frames;
+7. train: the fused train step (``engine/steps.py``) of the same model at
+   full size with ``SVIT.CONSISTENCY_LOSS = "l1"``: video batch 8, image
+   batch 8 and the 128-frame consistency forward, drop-path 0.4 and head
+   dropout 0.5 on, built from seed 0 as ``bench.py`` builds its train batch.
+   Three models from the same seed (kernels in bf16, plain in bf16, plain
+   in f32 with TF32 off) take one step each on the same batch and the same
+   masks (one generator seed, one draw order); the loss and the global
+   gradient vector must pass the gate above, and the worst leaf by excess
+   is printed.  The kernel step's launch counts must equal what the
+   architecture implies; every distinct call of the backward kernels (K5,
+   K6, K7), K2's bare mode and K1's masked mode is replayed against its
+   plain version, timed beside its bound and a library yardstick.  Then
+   five timed steps of the kernel model: median step time, clips/s, peak
+   memory, a profiled step's device time by kernel and idle share, a finite
+   loss and parameters that move.
 
-It prints the ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Per-call details go to
+It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
+kernels count the serving forward, those of the train step's new kernels
+and modes the train step; ``train_launches`` counts the train step for
+all), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Per-call details go to
 ``chiprun_out/chip_smoke_detail.json``.  Without a card it exits 2.
 """
 
@@ -48,6 +66,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(REPO, "configs", "ssv2.yaml")
 BATCH = 8
+TRAIN_VIDEO, TRAIN_IMAGE = 8, 8          # bench.py:43-44, per card
 SEED = 0
 TOL_RATIO, TOL_ABS = 3.0, 2e-3
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core flop/s,
@@ -66,6 +85,24 @@ KERNELS = {  # counter name -> (source, TPU kernels it replaces)
                  "svit_tpu/ops/pallas_pool.py:695 _kernel_strided_max"),
     "pooled_attention": ("svit_tpu_torch/csrc/attention.cu",
                          "svit_tpu/ops/pallas_attention.py:167 _attn_kernel"),
+}
+TRAIN_KERNELS = {  # the train step's new kernels and modes
+    "ln_linear_masked": ("svit_tpu_torch/csrc/ln_linear.cu",
+                         "svit_tpu/ops/pallas_ffn.py:322 _ffn_res_kernel "
+                         "(masked, fused_ffn_residual_masked :469)"),
+    "pool_conv": ("svit_tpu_torch/csrc/pool.cu",
+                  "svit_tpu/ops/pallas_pool.py:175 _kernel_s1; "
+                  "svit_tpu/ops/pallas_pool.py:250 _kernel_strided "
+                  "(apply_ln=False, pallas_depthwise_conv :1095)"),
+    "pool_conv_dx": ("svit_tpu_torch/csrc/pool.cu",
+                     "svit_tpu/ops/pallas_pool.py:175 _kernel_s1 (dx of "
+                     "_pdc_bwd :1115, flipped filter)"),
+    "pool_conv_dk": ("svit_tpu_torch/csrc/pool.cu",
+                     "svit_tpu/ops/pallas_pool.py:898 _kernel_dk_s1; "
+                     "svit_tpu/ops/pallas_pool.py:935 _kernel_dk_strided"),
+    "pooled_attention_bwd": ("svit_tpu_torch/csrc/attention.cu",
+                             "svit_tpu/ops/pallas_attention.py:317 "
+                             "_attn_bwd_kernel"),
 }
 
 
@@ -91,7 +128,7 @@ def flat_outputs(out):
 
     if torch.is_tensor(out):
         return [out]
-    return [t for o in out for t in flat_outputs(o)]
+    return [t for o in out if o is not None for t in flat_outputs(o)]
 
 
 def cat_outputs(out):
@@ -126,13 +163,23 @@ def signature(obj):
 
 def cuda_ms(fn, reps):
     """Milliseconds per call of ``fn``: CUDA events around ``reps`` calls
-    back to back, the median of three such windows."""
+    back to back, the median of three such windows.  ``reps=None`` picks
+    1 to 10 calls so that a window lasts about 30 ms, and one window for a
+    call slower than 100 ms (the slow yardsticks)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    windows = 3
+    if reps is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        probe = time.perf_counter() - t0
+        reps = max(1, min(10, int(0.03 / max(probe, 1e-6))))
+        windows = 3 if probe < 0.1 else 1
     times = []
-    for _ in range(3):
+    for _ in range(windows):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -152,16 +199,34 @@ class Recorder:
         self.calls = collections.OrderedDict()
 
     def wrap(self, name, fn):
+        """``name`` is the counter, or a function of the call's arguments
+        that gives it (None: not recorded)."""
         def recorded(*args, **kwargs):
-            key = (name, signature(args), signature(kwargs))
-            if key in self.calls:
-                self.calls[key]["count"] += 1
-            else:
-                self.calls[key] = dict(name=name, args=args, kwargs=kwargs,
-                                       count=1)
+            n = name(args, kwargs) if callable(name) else name
+            if n is not None:
+                key = (n, signature(args), signature(kwargs))
+                if key in self.calls:
+                    self.calls[key]["count"] += 1
+                else:
+                    self.calls[key] = dict(name=n, args=args, kwargs=kwargs,
+                                           count=1)
             return fn(*args, **kwargs)
 
         return recorded
+
+    def patch(self, table):
+        """Wrap every ``(module, attribute, name)`` of ``table``; returns
+        the originals for ``restore``."""
+        originals = []
+        for mod, attr, name in table:
+            originals.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, self.wrap(name, getattr(mod, attr)))
+        return originals
+
+    @staticmethod
+    def restore(originals):
+        for mod, attr, fn in reversed(originals):
+            setattr(mod, attr, fn)
 
 
 def wrappers():
@@ -174,8 +239,37 @@ def wrappers():
         "ln_linear": (ll, "ln_linear", ll.ln_linear_reference),
         "pool_ln": (pool, "fused_pool_ln", pool.pool_ln_reference),
         "pool_max": (pool, "fused_pool_max", pool.pool_max_reference),
-        "pooled_attention": (attn_ops, "pooled_attention",
+        "pooled_attention": (attn_ops, "pooled_attention_fwd",
                              attn_ops.pooled_attention_reference),
+    }
+
+
+def _masked(args, kwargs):
+    masked = (kwargs.get("mask_add") is not None
+              or kwargs.get("mask_out") is not None)
+    return "ln_linear_masked" if masked else None
+
+
+def train_wrappers():
+    """The train step's new kernels: counter name -> (module, attribute,
+    plain twin with the kernel's signature, recorder name)."""
+    from svit_tpu_torch.ops import attention as attn_ops
+    from svit_tpu_torch.ops import ln_linear as ll
+    from svit_tpu_torch.ops import pool
+
+    return {
+        "ln_linear_masked": (ll, "ln_linear", ll.ln_linear_reference,
+                             _masked),
+        "pool_conv": (pool, "depthwise_conv",
+                      lambda x, w, stride, hd: pool.depthwise_conv_reference(
+                          x, w, stride), "pool_conv"),
+        "pool_conv_dx": (pool, "depthwise_conv_dx",
+                         pool.depthwise_conv_dx_reference, "pool_conv_dx"),
+        "pool_conv_dk": (pool, "depthwise_conv_dk",
+                         pool.depthwise_conv_dk_reference, "pool_conv_dk"),
+        "pooled_attention_bwd": (attn_ops, "pooled_attention_bwd",
+                                 attn_ops.pooled_attention_bwd_reference,
+                                 "pooled_attention_bwd"),
     }
 
 
@@ -186,6 +280,35 @@ def cost(name, args, kwargs):
     def nb(t):
         return 0 if t is None else t.numel() * t.element_size()
 
+    if name in ("pool_conv", "pool_conv_dx", "pool_conv_dk"):
+        # the taps of a depthwise conv: one multiply-add per (output
+        # element, tap) in f32 on the CUDA cores
+        if name == "pool_conv":
+            x, w, stride, _ = args
+            B, T, H, W, C = x.shape
+            g_numel = B * C * math.prod(
+                (d + 2 * (k // 2) - k) // s + 1
+                for d, k, s in zip((T, H, W), w.shape[2:], stride))
+            byts = nb(x) + nb(w) + 2 * g_numel
+            taps = math.prod(w.shape[2:])
+        elif name == "pool_conv_dx":
+            g, w, stride, in_shape = args
+            g_numel, taps = g.numel(), math.prod(w.shape[2:])
+            byts = nb(g) + nb(w) + 2 * math.prod(in_shape)
+        else:
+            x, g, kernel, stride = args
+            g_numel, taps = g.numel(), math.prod(kernel)
+            byts = nb(x) + nb(g) + 4 * taps * x.shape[-1]
+        return byts, 0.0, 2.0 * taps * g_numel
+    if name == "pooled_attention_bwd":
+        # five Nq x Nk x head_dim products per head: S, dP, dq, dK, dV
+        q, kv, bias_src, do = args[:4]
+        B, Nq, C = q.shape
+        Nk = kv.shape[1]
+        byts = 2 * (nb(q) + nb(kv) + nb(bias_src)) + nb(do)
+        return byts, 10.0 * B * Nq * Nk * C, 0.0
+    if name == "ln_linear_masked":
+        name = "ln_linear"
     if name == "ln_linear":
         x, w = args[0], args[1]
         bias = args[2] if len(args) > 2 else kwargs.get("bias")
@@ -228,6 +351,49 @@ def library_call(name, args, kwargs):
     import torch
     import torch.nn.functional as F
 
+    if name in ("pool_conv", "pool_conv_dx", "pool_conv_dk"):
+        # cuDNN's grouped conv3d and its two gradients, channels-last
+        cf = (lambda t: t.permute(0, 4, 1, 2, 3))
+        if name == "pool_conv":
+            x, w, stride, _ = args
+            wb = w.to(x.dtype)
+            pad = tuple(k // 2 for k in w.shape[2:])
+            return lambda: F.conv3d(cf(x), wb, None, stride, pad,
+                                    groups=x.shape[-1])
+        if name == "pool_conv_dx":
+            g, w, stride, in_shape = args
+            B, T, H, W, C = in_shape
+            wb = w.to(g.dtype)
+            pad = tuple(k // 2 for k in w.shape[2:])
+            return lambda: torch.nn.grad.conv3d_input(
+                (B, C, T, H, W), wb, cf(g), stride, pad, groups=C)
+        x, g, kernel, stride = args
+        C = x.shape[-1]
+        pad = tuple(k // 2 for k in kernel)
+        return lambda: torch.nn.grad.conv3d_weight(
+            cf(x), (C, 1, *kernel), cf(g), stride, pad, groups=C)
+    if name == "pooled_attention_bwd":
+        from svit_tpu_torch.ops.attention import _gather_bias
+
+        q, kv, bias_src, do, k_shape, scale, heads = args[:7]
+        B, Nq, C = q.shape
+        Nk = kv.shape[1]
+        hd = C // heads
+
+        def leaf(t):
+            return t.view(B, t.shape[1], heads, hd).transpose(1, 2).detach(
+                ).requires_grad_()
+
+        qh, kh, vh = leaf(q), leaf(kv[..., :C]), leaf(kv[..., C:])
+        doh = do.view(B, Nq, heads, hd).transpose(1, 2)
+        mask = (None if bias_src is None
+                else _gather_bias(bias_src, k_shape, Nk).to(q.dtype))
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                             scale=scale)
+        return lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                           retain_graph=True)
+    if name == "ln_linear_masked":
+        name = "ln_linear"
     if name == "ln_linear":
         x, w = args[0], args[1]
         bias = args[2] if len(args) > 2 else kwargs.get("bias")
@@ -288,6 +454,18 @@ def library_call(name, args, kwargs):
 
 def use_of(name, args, kwargs):
     """The JAX package's fused function that a recorded call stands for."""
+    if name == "ln_linear_masked":
+        return ("fused_ffn_residual_masked (fc1)"
+                if kwargs.get("x_add") is not None
+                else "fused_ffn_residual_masked (fc2)")
+    if name == "pooled_attention_bwd":
+        return ("pooled_attention_bwd (grid queries)" if args[2] is not None
+                else "pooled_attention_bwd (extras queries)")
+    if name in ("pool_conv", "pool_conv_dx", "pool_conv_dk"):
+        stride = tuple(args[2]) if name != "pool_conv_dk" else tuple(args[3])
+        what = {"pool_conv": "pallas_depthwise_conv (recompute)",
+                "pool_conv_dx": "_pdc_bwd dx", "pool_conv_dk": "_dk_pallas"}
+        return f"{what[name]} stride {stride}"
     if name == "ln_linear":
         if kwargs.get("split") is not None:
             return "fused_ln_qkv"
@@ -326,10 +504,8 @@ def run_model_phase(model, arch, torch):
     x = torch.randn((BATCH, arch.num_frames, arch.crop_size, arch.crop_size, 3),
                     generator=gen).cuda()
     rec = Recorder()
-    originals = {}
-    for name, (mod, attr, _) in wrappers().items():
-        originals[name] = getattr(mod, attr)
-        setattr(mod, attr, rec.wrap(name, originals[name]))
+    originals = rec.patch((mod, attr, name)
+                          for name, (mod, attr, _) in wrappers().items())
     try:
         model.dtype, model.use_kernels = torch.bfloat16, True
         _lib.reset_launch_counts()
@@ -338,8 +514,7 @@ def run_model_phase(model, arch, torch):
         torch.cuda.synchronize()
         launches = dict(_lib.LAUNCHES)
     finally:
-        for name, (mod, attr, _) in wrappers().items():
-            setattr(mod, attr, originals[name])
+        Recorder.restore(originals)
     with torch.inference_mode():
         model.use_kernels = False
         _, e16 = model(x)
@@ -368,19 +543,244 @@ def run_model_phase(model, arch, torch):
     return rec, result
 
 
-def run_kernel_phase(rec, torch):
-    """Phase 4: replay each recorded call: gate, times, bound.  Returns
-    the totals per kernel and per JAX function, and the per-call rows."""
+def expected_train_launches(arch, forwards=3, backwards=2):
+    """Launches of one train step: three train-mode forwards (the
+    consistency frames, the video, the image) and two backward passes.  A
+    block with a drop-path rate runs its residual tail in K1's masked mode;
+    each fused_pool_ln backward runs K2 bare, K6 and K7, each attention
+    backward K5.  With a cls token the head reads only the extras, so the
+    last block's grid output feeds nothing: its grid attention and its q
+    pool take no backward."""
+    n = collections.Counter()
+    for i, s in enumerate(arch.blocks):
+        masked = 2 * (s.drop_path > 0)
+        n["ln_linear"] += forwards * (5 + (s.dim != s.dim_out) - masked)
+        n["ln_linear_masked"] += forwards * masked
+        n["pool_ln"] += forwards * 2
+        n["pooled_attention"] += forwards * 2
+        n["pool_max"] += forwards * (int(np.prod(s.stride_q)) > 1)
+        dead = int(arch.cls_embed_on and i == len(arch.blocks) - 1)
+        for k in ("pool_conv", "pool_conv_dx", "pool_conv_dk",
+                  "pooled_attention_bwd"):
+            n[k] += backwards * (2 - dead)
+    return n
+
+
+def train_batch(cfg, torch):
+    """The train batch of bench.py:171-192, from seed 0, on the card."""
+    S, T = cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.NUM_FRAMES
+    rs = np.random.RandomState(SEED)
+    video = {
+        "clips": rs.randn(TRAIN_VIDEO, T, S, S, 3).astype(np.float32),
+        "labels": rs.randint(0, cfg.MODEL.NUM_CLASSES, TRAIN_VIDEO),
+        "weight": np.ones((TRAIN_VIDEO,), np.float32),
+    }
+    image = {
+        "frames": rs.randn(TRAIN_IMAGE, 1, S, S, 3).astype(np.float32),
+        "haog_bboxes": (rs.rand(TRAIN_IMAGE, 1, cfg.SVIT.O, 4) * 0.5
+                        + 0.1).astype(np.float32),
+        "contact_state": rs.randint(-1, 5, (TRAIN_IMAGE, 2)),
+        "weight": np.ones((TRAIN_IMAGE,), np.float32),
+    }
+    return ({k: torch.as_tensor(v).cuda() for k, v in video.items()},
+            {k: torch.as_tensor(v).cuda() for k, v in image.items()})
+
+
+def train_setup(cfg, torch, dtype, use_kernels):
+    from svit_tpu_torch.engine import steps
+    from svit_tpu_torch.models import build_model
+    from svit_tpu_torch.models.losses import get_loss_func
+    from svit_tpu_torch.models.optimizer import construct_optimizer
+
+    model, arch = build_model(cfg, dtype=dtype, use_kernels=use_kernels,
+                              train=True)
+    state = steps.create_train_state(
+        model, construct_optimizer(cfg, model, steps_per_epoch=1000)[0])
+    step = steps.make_train_step(
+        model, get_loss_func(cfg), state.tx, video_weight=7 / 8,
+        image_weight=1 / 8, with_image=True, with_consistency=True)
+    return state, step, arch
+
+
+def raw_grads(state, metrics):
+    """The step's gradients before the clip, by parameter name (the clip
+    scaled them in place by max / norm when the norm reached max)."""
+    clip = state.tx.clip_l2norm
+    norm = float(metrics["grad_norm"])
+    undo = norm / clip if clip and norm >= clip else 1.0
+    return {n: p.grad.float() * undo
+            for n, p in state.model.named_parameters()}
+
+
+def run_train_phase(cfg, torch):
+    """Phase 7.  Returns its results and the kernel step's launch counts."""
+    from svit_tpu_torch.ops import _lib
+
+    video, image = train_batch(cfg, torch)
+    result, grads, losses = {}, {}, {}
+    rec = Recorder()
+    for name, dtype, kernels in (("kernels", torch.bfloat16, True),
+                                 ("plain_bf16", torch.bfloat16, False),
+                                 ("plain_f32", torch.float32, False)):
+        state, step, arch = train_setup(cfg, torch, dtype, kernels)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        originals = []
+        if kernels:
+            originals = rec.patch((mod, attr, rname) for mod, attr, _, rname
+                                  in train_wrappers().values())
+        try:
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, video, image, gen)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = dict(_lib.LAUNCHES)
+        finally:
+            Recorder.restore(originals)
+        losses[name] = {k: float(v) for k, v in metrics.items()}
+        grads[name] = raw_grads(state, metrics)
+        log(f"train step [{name}]: loss {losses[name]['loss']:.6f} "
+            f"grad_norm {losses[name]['grad_norm']:.4f} first step "
+            f"{first_s:.2f} s")
+        if kernels:
+            kernel_state, kernel_step = state, step
+            result["launches"] = launches
+            result["metrics"] = losses[name]
+        else:
+            del state, step
+        torch.cuda.empty_cache()
+
+    # the gate: the loss and the global gradient vector against f32
+    for key in ("loss",):
+        vk, v16, v32 = (torch.tensor(losses[n][key], dtype=torch.float64)
+                        for n in ("kernels", "plain_bf16", "plain_f32"))
+        err_k, err_p = rel_err(vk, v32), rel_err(v16, v32)
+        ok = err_k <= TOL_RATIO * err_p + TOL_ABS
+        log(f"train gate {key}: err(kernels)={err_k:.3e} "
+            f"err(plain bf16)={err_p:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"train gate failed on {key}")
+        result[f"gate_{key}"] = {"err_kernels": err_k, "err_plain_bf16": err_p}
+    names = list(grads["plain_f32"])
+    flat = {n: torch.cat([g[k].flatten() for k in names])
+            for n, g in grads.items()}
+    err_k = rel_err(flat["kernels"], flat["plain_f32"])
+    err_p = rel_err(flat["plain_bf16"], flat["plain_f32"])
+    ok = err_k <= TOL_RATIO * err_p + TOL_ABS
+    log(f"train gate grads_global: err(kernels)={err_k:.3e} "
+        f"err(plain bf16)={err_p:.3e} {'ok' if ok else 'FAIL'}")
+    # a leaf whose f32 gradient is below 1e-4 of the global norm (the k LN
+    # bias: softmax ignores a per-row constant, so its true gradient is 0)
+    # holds rounding noise, and its relative error says nothing
+    floor = 1e-4 * float(flat["plain_f32"].norm())
+    noise = [k for k in names if float(grads["plain_f32"][k].norm()) < floor]
+    worst = (0.0, None, 0.0, 0.0, 0.0)
+    for k in names:
+        if k in noise:
+            continue
+        e_k = rel_err(grads["kernels"][k], grads["plain_f32"][k])
+        e_p = rel_err(grads["plain_bf16"][k], grads["plain_f32"][k])
+        if e_k - e_p > worst[0]:
+            worst = (e_k - e_p, k, e_k, e_p,
+                     float(grads["plain_f32"][k].norm()))
+    log(f"train worst leaf by excess: {worst[1]} excess={worst[0]:.3e} "
+        f"err(kernels)={worst[2]:.3e} err(plain bf16)={worst[3]:.3e} "
+        f"f32 grad norm={worst[4]:.3e} ({len(noise)} leaves under "
+        f"{floor:.2e} skipped as noise)")
+    result["gate_grads_global"] = {"err_kernels": err_k, "err_plain_bf16": err_p}
+    result["worst_leaf"] = dict(zip(
+        ("excess", "name", "err_kernels", "err_plain_bf16", "f32_norm"), worst))
+    if not ok:
+        raise SystemExit("train gate failed on the global gradient")
+    del grads, flat
+
+    want = dict(expected_train_launches(arch))
+    log(f"launches in one train step: {result['launches']} (expected {want})")
+    if result["launches"] != want:
+        raise SystemExit("train step launch counts differ from the step's")
+
+    fns = {n: (getattr(mod, attr), plain)
+           for n, (mod, attr, plain, _) in train_wrappers().items()}
+    # the masked K1 launches go through the ln_linear wrapper
+    table, uses, details = run_kernel_phase(rec, torch, fns, unit="train step")
+    del rec
+
+    # five timed steps of the kernel model
+    params = dict(kernel_state.model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    times, step_losses = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        kernel_state, metrics = kernel_step(kernel_state, video, image, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        step_losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(step_losses)):
+        raise SystemExit(f"train: non-finite loss {step_losses}")
+    moved = sum(int(not torch.equal(before[k], p.detach()))
+                for k, p in params.items())
+    if moved < len(params) // 2:
+        raise SystemExit(f"train: only {moved} of {len(params)} parameters "
+                         "changed over five steps")
+    ms = statistics.median(times)
+    log(f"train step (video {TRAIN_VIDEO} + image {TRAIN_IMAGE} + "
+        f"{TRAIN_VIDEO * cfg.DATA.NUM_FRAMES} consistency frames): "
+        f"{ms:.1f} ms median of 5 {[round(t, 1) for t in times]}, "
+        f"{TRAIN_VIDEO / ms * 1e3:.2f} clips/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, losses {[round(v, 4) for v in step_losses]}, "
+        f"{moved}/{len(params)} parameters moved")
+    result["timed"] = {"ms": times, "median_ms": ms,
+                       "clips_per_s": TRAIN_VIDEO / ms * 1e3,
+                       "peak_bytes": peak, "losses": step_losses,
+                       "params_moved": moved, "params": len(params)}
+    result["profile"] = profile_step(kernel_step, kernel_state, video, image,
+                                     torch, ms)
+    return result, table, uses, details
+
+
+def profile_step(step, state, video, image, torch, step_ms):
+    """One train step under torch.profiler: device time by kernel, the
+    hand-written kernels' share and the idle share against ``step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, video, image, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof, torch)
+    device_ms = sum(r[2] for r in rows)
+    ours_ms = sum(r[2] for r in rows if any(k in r[0] for k in OUR_KERNELS))
+    idle = max(0.0, 1 - device_ms / step_ms)
+    log(f"profile train step: wall {wall_ms:.1f} ms (profiled), device "
+        f"{device_ms:.1f} ms, hand-written kernels {ours_ms:.1f} ms, idle "
+        f"share {idle:.3f} against the unprofiled {step_ms:.1f} ms")
+    for name, count, ms in rows[:16]:
+        log(f"  {ms:9.3f} ms x{count:<5d} {name[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels_ms": ours_ms,
+            "idle_share": idle,
+            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:30]]}
+
+
+def run_kernel_phase(rec, torch, fns, unit="forward"):
+    """Phases 4 and 7: replay each recorded call: gate, times, bound.
+    ``fns`` maps a counter name to (kernel, plain twin).  Returns the
+    totals per kernel and per JAX function, and the per-call rows."""
     table = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                      library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-             for n in KERNELS}
+             for n in fns}
     uses = collections.defaultdict(collections.Counter)
     details = []
     for call in rec.calls.values():
         name, args, kwargs, count = (call["name"], call["args"],
                                      call["kwargs"], call["count"])
-        mod, attr, plain = wrappers()[name]
-        kernel = getattr(mod, attr)
+        kernel, plain = fns[name]
         with torch.inference_mode():
             yk = kernel(*args, **kwargs)
             y16 = plain(*args, **kwargs)
@@ -393,10 +793,10 @@ def run_kernel_phase(rec, torch):
             max_abs = float((k_ - p_).abs().max())
             ok = err_k <= TOL_RATIO * err_p + TOL_ABS
             del yk, y16, y32, k_, p_, f_
-            big = name == "pooled_attention" or args[0].numel() > 2 ** 24
             ms = cuda_ms(lambda: kernel(*args, **kwargs), 10)
-            plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 3 if big else 10)
-            lib_ms = cuda_ms(library_call(name, args, kwargs), 10)
+            plain_ms = cuda_ms(lambda: plain(*args, **kwargs), None)
+        with torch.enable_grad():   # the attention yardstick's backward
+            lib_ms = cuda_ms(library_call(name, args, kwargs), None)
         byts, tflops, cflops = cost(name, args, kwargs)
         bytes_ms = byts / HBM_BPS * 1e3
         ops_ms = max(tflops / TENSOR_FLOPS, cflops / CORE_FLOPS) * 1e3
@@ -423,7 +823,7 @@ def run_kernel_phase(rec, torch):
                             err=err_k, plain_err=err_p, max_abs_err=max_abs,
                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bytes_ms=bytes_ms, ops_ms=ops_ms))
-    log("per forward, by the JAX function each call stands for:")
+    log(f"per {unit}, by the JAX function each call stands for:")
     for key, u in uses.items():
         log(f"  {key}: launches {u['launches']} ms={u['ms']:.4f} "
             f"plain_ms={u['plain_ms']:.4f} library_ms={u['library_ms']:.4f} "
@@ -451,7 +851,22 @@ def time_forward(model, arch, torch, batch):
 
 
 OUR_KERNELS = ("ln_linear_kernel", "pool_ln_kernel", "pool_max_kernel",
-               "attn_kernel")
+               "attn_kernel", "attn_bwd_", "conv_dx_kernel", "conv_dk_")
+
+
+def device_rows(prof, torch):
+    """(kernel name, launches, device ms) of a profile, busiest first.  A
+    user annotation's device range (``Optimizer.step#AdamW.step``) spans
+    kernels that have rows of their own and is left out."""
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if (dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            rows.append((e.key, e.count, dev_us / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    return rows
 
 
 def profile_forward(model, arch, torch, batch, fwd_ms):
@@ -471,13 +886,7 @@ def profile_forward(model, arch, torch, batch, fwd_ms):
             model(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.key, e.count, dev_us / 1e3))
-    rows.sort(key=lambda r: -r[2])
+    rows = device_rows(prof, torch)
     device_ms = sum(r[2] for r in rows)
     ours_ms = sum(r[2] for r in rows if any(k in r[0] for k in OUR_KERNELS))
     idle = max(0.0, 1 - device_ms / wall_ms)
@@ -558,6 +967,7 @@ def run_serving_phase(cfg, torch):
         httpd.shutdown()
         httpd.predictor.stop()
         httpd.server_close()
+        thread.join(timeout=60)
 
 
 def main():
@@ -598,7 +1008,9 @@ def main():
         f"depth {arch.depth}, {sum(p.numel() for p in model.parameters())} "
         f"params, batch {BATCH}")
     rec, model_result = run_model_phase(model, arch, torch)
-    table, uses, details = run_kernel_phase(rec, torch)
+    fns = {n: (getattr(mod, attr), plain)
+           for n, (mod, attr, plain) in wrappers().items()}
+    table, uses, details = run_kernel_phase(rec, torch, fns)
     del rec
     fwd = [time_forward(model, arch, torch, b) for b in (BATCH, 1)]
     prof = [profile_forward(model, arch, torch, f["batch"], f["ms"])
@@ -606,26 +1018,35 @@ def main():
     del model
     torch.cuda.empty_cache()
     serving = run_serving_phase(cfg, torch)
+    torch.cuda.empty_cache()
+
+    cfg.SVIT.CONSISTENCY_LOSS = "l1"
+    train, train_table, train_uses, train_details = run_train_phase(cfg, torch)
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        row = table[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": model_result["launches"].get(name, 0),
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"]
-            else "operations",
-            "library_ms": row["library_ms"],
-        })
+    for names, rows, launches in (
+            (KERNELS, table, model_result["launches"]),
+            (TRAIN_KERNELS, train_table, train["launches"])):
+        for name, (source, replaces) in names.items():
+            row = rows[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches.get(name, 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"]
+                else "operations",
+                "library_ms": row["library_ms"],
+                "train_launches": train["launches"].get(name, 0),
+            })
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_detail.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, model=model_result,
                        forward=fwd, profile=prof, serving=serving, uses=uses,
-                       calls=details, kernels=kernels), f, indent=1)
+                       calls=details, train=train, train_uses=train_uses,
+                       train_calls=train_details, kernels=kernels), f,
+                  indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

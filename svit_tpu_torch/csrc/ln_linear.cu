@@ -8,7 +8,15 @@
 //                                           -> fc1 + b1 -> GELU writes h and
 //                                           x; then h . W2 + b2, rounded,
 //                                           + x.  The attention
-//                                           out-projection is a third use.
+//                                           out-projection is a third use;
+//   _ffn_res_kernel with the SMEM drop-path mask (fused_ffn_residual_masked)
+//                                        -> the same two launches in masked
+//                                           mode: fc1's prologue takes
+//                                           x_res + a / keep * ma, fc2's
+//                                           epilogue round(fc2 + b2) / keep
+//                                           * my + x, every op rounded to
+//                                           bf16 as the TPU kernel's IO-dtype
+//                                           ops are (ma, my: per-sample 0/1).
 //
 // What bounds it on the H100: at the early stages (K = 96..192, N <= 4K)
 // the product does about K/2 flops per byte of X and Y moved, far below the
@@ -49,6 +57,10 @@ struct Params {
   bf16* out1;
   int n_split;
   int M, N, K;
+  const float* mask_add;  // [M / rows] 0/1: x_add becomes x_add / keep * mask
+  const float* mask_out;  // [M / rows] 0/1: output becomes out / keep * mask
+  float keep;             // the keep probability, rounded to bf16
+  int rows;               // rows per sample (mask index = m / rows)
 };
 
 // 8 consecutive values of the (rounded) prologue sum x (+ x_add) at (m, k)
@@ -59,6 +71,11 @@ __device__ __forceinline__ void load_row8(const Params& p, int m, int k,
   if (p.x_add) {
     float a[8];
     unpack8(*reinterpret_cast<const uint4*>(p.x_add + off), a);
+    if (p.mask_add) {  // a / keep * ma: two bf16 ops (the mask is exact)
+      const float ma = p.mask_add[m / p.rows];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i] / p.keep) * ma;
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = round_bf16(v[i] + a[i]);
   }
@@ -193,6 +210,11 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(Params p) {
           v0 = round_bf16(v0 + round_bf16(p.bias[n]));
           v1 = round_bf16(v1 + round_bf16(p.bias[n + 1]));
         }
+        if (p.mask_out) {
+          const float my = p.mask_out[m / p.rows];
+          v0 = round_bf16(v0 / p.keep) * my;
+          v1 = round_bf16(v1 / p.keep) * my;
+        }
         if (p.residual) {
           float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
               p.residual + (size_t)m * p.N + n));
@@ -219,9 +241,11 @@ extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
                               const bf16* w, const float* bias, int bias_mode,
                               int gelu, const bf16* residual, bf16* out0,
                               bf16* out1, int n_split, int M, int N, int K,
-                              cudaStream_t stream) {
+                              const float* mask_add, const float* mask_out,
+                              float keep, int rows, cudaStream_t stream) {
   Params p{x, x_add, s_out, ln_g, ln_b, eps, w, bias, bias_mode, gelu,
-           residual, out0, out1, n_split, M, N, K};
+           residual, out0, out1, n_split, M, N, K, mask_add, mask_out, keep,
+           rows};
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   ln_linear_kernel<<<grid, THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -15,11 +15,22 @@ their plain twins (``use_kernels=False``):
 - attention + residual pooling: ``pooled_attention`` (K4), then the
   out-projection (K1), for the grid queries and again for the extras;
 - stage transitions: ``fused_ln_dense`` (K1) and ``fused_pool_max`` (K3);
-- residual tail: ``fused_ffn_residual`` (K1, two launches).
+- residual tail: ``fused_ffn_residual`` (K1, two launches), or in train
+  mode under stochastic depth ``fused_ffn_residual_masked`` (K1 masked).
 
 The extras' projections, pools and FFN are tiny and stay plain PyTorch, as
-the JAX package leaves them to XLA.  The port is a serving forward:
-dropout and drop-path are identities.
+the JAX package leaves them to XLA.
+
+Train mode follows the JAX package's ``use_pallas`` path
+(``svit_tpu/models/attention.py:752-807``): a block with a drop-path rate
+draws two per-sample keep masks, ``mask1`` then ``mask2``, scales the
+extras' attention output by ``mask1 / keep`` and the extras' FFN by
+``mask2 / keep`` and runs the masked tail on the grid; a block with rate 0
+runs the unmasked tail.  With ``MVIT.DROPOUT_RATE > 0`` the attention
+outputs and the MLP take dropout and the tail is unfused, as in JAX.
+Every op here is differentiable: the kernels' backward passes are K5 (the
+attention), K2 bare + K6 + K7 (the pools) and the plain twins' autograd
+(the LN-linear uses and the max pool).
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from svit_tpu_torch.models.common import LayerNorm, Mlp
+from svit_tpu_torch.models.common import LayerNorm, Mlp, dropout, keep_mask
 from svit_tpu_torch.ops import attention as attn_ops
 from svit_tpu_torch.ops import ln_linear as ll
 from svit_tpu_torch.ops import pool, pooling
@@ -45,12 +56,15 @@ def _ops(use_kernels: bool) -> SimpleNamespace:
     if use_kernels:
         return SimpleNamespace(
             ln_qkv=ll.fused_ln_qkv, ln_dense=ll.fused_ln_dense,
-            ffn_residual=ll.fused_ffn_residual, pool_ln=pool.fused_pool_ln,
+            ffn_residual=ll.fused_ffn_residual,
+            ffn_residual_masked=ll.fused_ffn_residual_masked,
+            pool_ln=pool.fused_pool_ln,
             pool_max=pool.fused_pool_max,
             attention_proj=attn_ops.fused_attention_proj)
     return SimpleNamespace(
         ln_qkv=ll.ln_qkv_reference, ln_dense=ll.ln_dense_reference,
         ffn_residual=ll.ffn_residual_reference,
+        ffn_residual_masked=ll.ffn_residual_masked_reference,
         pool_ln=pool.pool_ln_reference, pool_max=pool.pool_max_reference,
         attention_proj=attn_ops.attention_proj_reference)
 
@@ -121,10 +135,11 @@ class MultiScaleAttention(nn.Module):
         else:
             self.rel_pos_t = None
 
-    def forward(self, grid, extras, ln1, use_kernels, dtype):
+    def forward(self, grid, extras, ln1, use_kernels, dtype, drop=None):
         """grid [B, T, H, W, C_in] and extras [B, E, C_in] are the RAW
         streams: norm1 (``ln1``) is applied here, fused into the projection.
-        Returns (grid_out [B, To, Ho, Wo, C], extras_out [B, E, C])."""
+        ``drop`` (train mode with ``MVIT.DROPOUT_RATE``) is applied to both
+        outputs.  Returns (grid_out [B, To, Ho, Wo, C], extras_out [B, E, C])."""
         ops = _ops(use_kernels)
         B, E = grid.shape[0], extras.shape[1]
         C, heads, hd = self.dim_out, self.num_heads, self.head_dim
@@ -174,6 +189,8 @@ class MultiScaleAttention(nn.Module):
             # kernel adds it to every row, so remove the cls row's projected q
             cls_q = ll.ln_linear_reference(qe[:, 0], wp)
             oe = torch.cat([(oe[:, 0] - cls_q)[:, None], oe[:, 1:]], dim=1)
+        if drop is not None:
+            og, oe = drop(og), drop(oe)
         return og.view(B, *q_shape, C), oe
 
     def _pool_extras(self, x, weight, stride, ln_w, ln_b):
@@ -189,11 +206,12 @@ class MultiScaleBlock(nn.Module):
     def __init__(self, dim, dim_out, num_heads, input_size, *, mlp_ratio,
                  qkv_bias, kernel_q, kernel_kv, stride_q, stride_kv, mode,
                  has_cls, rel_pos_spatial, rel_pos_temporal, residual_pooling,
-                 dim_mul_in_att, separate_qkv):
+                 dim_mul_in_att, separate_qkv, drop_path=0.0, drop_rate=0.0):
         super().__init__()
         if not dim_mul_in_att:
             raise NotImplementedError("MVIT.DIM_MUL_IN_ATT=False is not ported")
         self.dim, self.dim_out = dim, dim_out
+        self.drop_path, self.drop_rate = drop_path, drop_rate
         self.stride_q = tuple(stride_q)
         self.norm1 = LayerNorm(dim)
         self.attn = MultiScaleAttention(
@@ -206,10 +224,15 @@ class MultiScaleBlock(nn.Module):
         self.mlp = Mlp(dim_out, int(dim_out * mlp_ratio), dim_out)
         self.proj = nn.Linear(dim, dim_out) if dim != dim_out else None
 
-    def forward(self, grid, extras, use_kernels: bool, dtype):
+    def forward(self, grid, extras, use_kernels: bool, dtype, train=False,
+                generator=None):
         ops = _ops(use_kernels)
+        drop = None
+        if train and self.drop_rate > 0:
+            def drop(t):
+                return dropout(t, self.drop_rate, generator)
         ln1 = (self.norm1.weight, self.norm1.bias)
-        ag, ae = self.attn(grid, extras, ln1, use_kernels, dtype)
+        ag, ae = self.attn(grid, extras, ln1, use_kernels, dtype, drop)
         if self.proj is not None:
             # norm1 again inside the dim-change projection (the attention's
             # copy stays fused in its qkv launch)
@@ -222,9 +245,47 @@ class MultiScaleBlock(nn.Module):
             grid = ops.pool_max(grid, kernel_skip, self.stride_q)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         w1, w2 = fc1.weight.to(dtype), fc2.weight.to(dtype)
-        out_g = ops.ffn_residual(grid, ag, self.norm2.weight, self.norm2.bias,
-                                 w1, fc1.bias, w2, fc2.bias)
+        ln2 = (self.norm2.weight, self.norm2.bias)
+        keep = 1.0 - self.drop_path
+        masks = None
+        if train and self.drop_path > 0:
+            B = grid.shape[0]
+            masks = (keep_mask(B, keep, generator, grid.device),
+                     keep_mask(B, keep, generator, grid.device))
+        if drop is not None:
+            return self._unfused_tail(grid, extras, ag, ae, ln2, w1, w2, drop,
+                                      masks, keep)
+        if masks is None:
+            out_g = ops.ffn_residual(grid, ag, *ln2, w1, fc1.bias, w2,
+                                     fc2.bias)
+        else:
+            ae = ll.drop_path_scale(ae, masks[0], keep)
+            out_g = ops.ffn_residual_masked(keep, grid, ag, *ln2, w1,
+                                            fc1.bias, w2, fc2.bias, *masks)
         ex = extras + ae
-        out_e = ex + ll.ffn_reference(ex, self.norm2.weight, self.norm2.bias,
-                                      w1, fc1.bias, w2, fc2.bias)
-        return out_g, out_e
+        ye = ll.ffn_reference(ex, *ln2, w1, fc1.bias, w2, fc2.bias)
+        if masks is not None:
+            ye = ll.drop_path_scale(ye, masks[1], keep)
+        return out_g, ex + ye
+
+    def _unfused_tail(self, grid, extras, ag, ae, ln2, w1, w2, drop, masks,
+                      keep):
+        """The residual tail with MLP dropout, in plain PyTorch (JAX's
+        unfused path: ``_drop_path_pair`` around norm2 and a dense MLP)."""
+        if masks is not None:
+            ag = ll.drop_path_scale(ag, masks[0], keep)
+            ae = ll.drop_path_scale(ae, masks[0], keep)
+        grid, extras = grid + ag, extras + ae
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+
+        def mlp(t):
+            h = _dense_extras(ll.layer_norm(t, *ln2).flatten(1, -2), w1,
+                              fc1.bias)
+            h = drop(torch.nn.functional.gelu(h))
+            return drop(_dense_extras(h, w2, fc2.bias)).view(t.shape)
+
+        mg, me = mlp(grid), mlp(extras)
+        if masks is not None:
+            mg = ll.drop_path_scale(mg, masks[1], keep)
+            me = ll.drop_path_scale(me, masks[1], keep)
+        return grid + mg, extras + me

@@ -1,8 +1,8 @@
 """Model construction (counterpart of ``svit_tpu/models/build.py``).
 
-``build_model`` returns the module on its device, in eval mode and without
-gradients (the port is a serving forward), with random weights drawn from
-``cfg.RNG_SEED``; load real weights with ``load_state_dict`` (see
+``build_model`` returns the module on its device, for serving (eval mode,
+no gradients) or, with ``train=True``, for training, with random weights
+drawn from ``cfg.RNG_SEED``; load real weights with ``load_state_dict`` (see
 ``svit_tpu_torch/utils/converter.py``).  The model runs on the card unless
 the caller passes ``device="cpu"``; without a card that raises.
 """
@@ -40,12 +40,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def build_model(cfg, dtype=None, use_kernels=None, device=None):
+def build_model(cfg, dtype=None, use_kernels=None, device=None, train=False):
     """Return (module, arch) for cfg.MODEL.MODEL_NAME.
 
     ``use_kernels`` defaults to ``TPU.USE_PALLAS_ATTENTION``: route the
-    forward through the hand-written kernels (bf16 only on the card; a CPU
-    tensor always takes the plain versions)."""
+    forward and backward through the hand-written kernels (bf16 only on the
+    card; a CPU tensor always takes the plain versions).  With ``train`` the
+    module is in train mode and its f32 master weights require grad;
+    otherwise it serves: eval mode, no gradients."""
     device = resolve_device(device)
     arch = SViTArch.from_cfg(cfg)
     if dtype is None:
@@ -60,4 +62,4 @@ def build_model(cfg, dtype=None, use_kernels=None, device=None):
     model = MODEL_REGISTRY.get(cfg.MODEL.MODEL_NAME)(
         arch, dtype=dtype, use_kernels=use_kernels)
     model.init_weights(torch.Generator().manual_seed(int(cfg.RNG_SEED)))
-    return model.to(device).eval().requires_grad_(False), arch
+    return model.to(device).train(train).requires_grad_(train), arch

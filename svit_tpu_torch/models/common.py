@@ -4,6 +4,10 @@
 PyTorch default is 1e-5).  ``Mlp`` holds the block's two dense layers; its
 forward is exact-erf GELU between them and runs through the K1 epilogue
 (``ops/ln_linear.py``) or, for the extras stream, ``ffn_reference``.
+
+``keep_mask`` and ``dropout`` draw the train mode's random numbers from an
+explicit ``torch.Generator``.  Their streams cannot match JAX's, so the
+tests feed both sides the same masks or run with the rates at 0.
 """
 
 from __future__ import annotations
@@ -12,6 +16,21 @@ import torch
 from torch import nn
 
 from svit_tpu_torch.ops.ln_linear import EPS, layer_norm
+
+
+def keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
+    """f32 0/1 mask, 1 with probability ``keep`` (``jax.random.bernoulli``:
+    uniform < keep)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u < keep).float()
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(mask, x / keep, 0)`` in x's dtype."""
+    keep = 1.0 - rate
+    mask = keep_mask(x.shape, keep, generator, x.device).bool()
+    return torch.where(mask, x / float(torch.tensor(keep, dtype=x.dtype)),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LayerNorm(nn.Module):

@@ -10,9 +10,14 @@
 - The head projects the cls token to class logits and the object tokens to
   HAOG predictions.
 
-The model is a serving forward: it runs in ``dtype`` (parameters stay f32
-and are cast at use, as the JAX package casts them) and, with
-``use_kernels``, through the hand-written CUDA kernels.
+The model runs in ``dtype`` (parameters stay f32 master weights and are
+cast at use, as the JAX package casts them) and, with ``use_kernels``,
+through the hand-written CUDA kernels, forward and backward.  ``forward(x,
+train=True, generator=g)`` (the default in train mode) is JAX's
+``deterministic=False``: stochastic
+depth, dropout and head dropout draw from ``g``, and the head returns raw
+outputs (no softmax on the logits, no sigmoid on the presence logit, no
+softmax on the contact logits), which the losses take.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 from torch import nn
 
 from svit_tpu_torch.models.attention import MultiScaleBlock
-from svit_tpu_torch.models.common import LayerNorm
+from svit_tpu_torch.models.common import LayerNorm, dropout
 from svit_tpu_torch.models.stem import PatchEmbed
 from svit_tpu_torch.ops import ln_linear as ll
 
@@ -261,15 +266,21 @@ class SViTHead(nn.Module):
         self.boxes_bce_mlp = nn.Linear(C, 1)
         self.contact_mlp = nn.Linear(C, 5)
 
-    def forward(self, x, t_in: int):
+    def forward(self, x, t_in: int, train: bool = False, generator=None):
         arch = self.arch
+        if train and arch.head_dropout_rate > 0:
+            x = dropout(x, arch.head_dropout_rate, generator)
         B = x.shape[0]
+
+        def act(t):
+            return t if train else _head_act(t, arch.head_act)
+
         cls_tok, xobj = x[:, 0], x[:, 1:]
         obj_desc = xobj.reshape(B, t_in, -1, xobj.shape[-1])
         extra = {"obj_desc": obj_desc}
         if isinstance(self.projection, nn.ModuleDict):
             raw = {n: _dense(cls_tok, p) for n, p in self.projection.items()}
-            logits = {n: _head_act(r, arch.head_act) for n, r in raw.items()}
+            logits = {n: act(r) for n, r in raw.items()}
             extra.update(logits)
             extra["raw_logits"] = raw
         elif self.projection is None:
@@ -277,13 +288,15 @@ class SViTHead(nn.Module):
         else:
             raw = _dense(cls_tok, self.projection)
             extra["raw_logits"] = raw
-            logits = _head_act(raw, arch.head_act)
+            logits = act(raw)
         boxes = torch.sigmoid(_dense(obj_desc, self.boxes_mlp[0]))
-        boxes_bce = torch.sigmoid(_dense(obj_desc, self.boxes_bce_mlp))
+        boxes_bce = _dense(obj_desc, self.boxes_bce_mlp)
         contact = _dense(obj_desc[:, :, :2], self.contact_mlp)
+        if not train:
+            boxes_bce = torch.sigmoid(boxes_bce)
+            contact = torch.softmax(contact.float(), dim=-1).to(contact.dtype)
         extra["pred_bboxes"] = torch.cat([boxes_bce, boxes], dim=-1)
-        extra["pred_contact_state"] = torch.softmax(
-            contact.float(), dim=-1).to(contact.dtype)
+        extra["pred_contact_state"] = contact
         return logits, extra
 
 
@@ -326,7 +339,8 @@ class SViT(nn.Module):
                 rel_pos_temporal=arch.rel_pos_temporal,
                 residual_pooling=arch.residual_pooling,
                 dim_mul_in_att=arch.dim_mul_in_att,
-                separate_qkv=arch.separate_qkv)
+                separate_qkv=arch.separate_qkv, drop_path=s.drop_path,
+                drop_rate=arch.drop_rate)
             for s in arch.blocks
         ])
         if arch.norm_stem:
@@ -357,8 +371,10 @@ class SViT(nn.Module):
                 cpu.normal_(0.0, 0.02, generator=generator)
             p.copy_(cpu)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train=None, generator=None):
+        """``train`` defaults to the module's mode (``self.training``)."""
         arch = self.arch
+        train = self.training if train is None else train
         dt = self.dtype
         B, t_in = x.shape[0], x.shape[1]
         is_video = t_in > 1
@@ -380,9 +396,13 @@ class SViT(nn.Module):
             if arch.use_abs_pos:
                 cls_tok = cls_tok + self.pos_embed_class.to(dt)
             extras = torch.cat([cls_tok, extras], dim=1)
+        if train and arch.drop_rate > 0:
+            grid = dropout(grid, arch.drop_rate, generator)
+            extras = dropout(extras, arch.drop_rate, generator)
 
         for blk in self.blocks:
-            grid, extras = blk(grid, extras, self.use_kernels, dt)
+            grid, extras = blk(grid, extras, self.use_kernels, dt, train,
+                               generator)
 
         if arch.cls_embed_on:
             # LN is per-token: only [cls | obj] feeds the head
@@ -391,4 +411,4 @@ class SViT(nn.Module):
             g = self.norm(grid)
             cls_tok = g.reshape(B, -1, g.shape[-1]).mean(dim=1, keepdim=True)
             head_in = torch.cat([cls_tok, self.norm(extras)], dim=1)
-        return self.head(head_in, t_in)
+        return self.head(head_in, t_in, train, generator)

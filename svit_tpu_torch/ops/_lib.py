@@ -46,13 +46,25 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _F,            # x, x_add, s_out, ln_g, ln_b, eps
         _P, _P, _I, _I, _P,                # w, bias, bias_mode, gelu, residual
         _P, _P, _I,                        # out0, out1, n_split
-        _I, _I, _I, _P,                    # M, N, K, stream
+        _I, _I, _I,                        # M, N, K
+        _P, _P, _F, _I, _P,                # mask_add, mask_out, keep, rows, stream
     ],
     "svit_pool_ln": [
         _P, _P, _P, _P, _P,                # x, w, ln_g, ln_b, out
         _I, _I, _I, _I, _I,                # B, T, H, W, C
         _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
-        _I, _I, _I, _I, _F, _P,            # To, Ho, Wo, head_dim, eps, stream
+        _I, _I, _I, _I, _F, _I, _P,        # To, Ho, Wo, head_dim, eps, apply_ln, stream
+    ],
+    "svit_conv_dx": [
+        _P, _P, _P,                        # g, w, dx
+        _I, _I, _I, _I, _I,                # B, T, H, W, C
+        _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
+        _I, _I, _I, _P,                    # To, Ho, Wo, stream
+    ],
+    "svit_conv_dk": [
+        _P, _P, _P, _P,                    # x, g, partial, dk
+        _I, _I, _I, _I, _I, _I,            # B, T, H, W, C, kT
+        _I, _I, _I, _I, _I, _I, _I, _P,    # sT, sH, sW, To, Ho, Wo, chunks, stream
     ],
     "svit_pool_max": [
         _P, _P,                            # x, out
@@ -64,6 +76,12 @@ _SIGNATURES = {
         _P, _P, _P, _P,                    # q, kv, bias_src, out
         _I, _I, _I, _I, _I,                # B, Nq, Nk, C, heads
         _I, _I, _I, _F, _I, _P,            # kT, kH, kW, scale, q_residual, stream
+    ],
+    "svit_pooled_attention_bwd": [
+        _P, _P, _P, _P,                    # q, kv, bias_src, dout
+        _P, _P, _P, _P, _P,                # dq, dkv, dbias, stats, partial
+        _I, _I, _I, _I, _I,                # B, Nq, Nk, C, heads
+        _I, _I, _I, _F, _I, _I, _P,        # kT, kH, kW, scale, q_residual, splits, stream
     ],
 }
 
@@ -167,6 +185,12 @@ def reset_launch_counts() -> None:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``: the kernels that split their
+    work (K5's query splits, K7's chunks) size their grids to fill them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t) -> int | None:

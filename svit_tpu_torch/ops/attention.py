@@ -21,6 +21,13 @@ matrix.  ``bias_src=None`` is the extras launch: no rel-pos bias at all.
 ``fused_attention_proj`` adds the out-projection as a separate K1 launch
 (``ln_linear.linear_proj``): the product is rounded, then the bias is added
 in the IO dtype, as the TPU kernel's epilogue did.
+
+Both are differentiable.  The backward is kernel K5
+(``pooled_attention_bwd``, ``csrc/attention.cu``): it recomputes the
+probabilities from the saved q, kv and bias and returns dq, dkv and the
+rel-pos bias gradient.  Around the projection it follows JAX ``_bwd_proj``:
+``dbp`` and ``dwp`` in PyTorch, ``dbase = round(g @ wp)``, then K5 on dbase,
+which under ``q_residual`` also adds ``dbase`` to dq.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 
 from svit_tpu_torch.ops import _lib, ln_linear
 from svit_tpu_torch.ops import rel_pos as rp
+from svit_tpu_torch.ops.vjp import needs_grad
 
 Triple = Tuple[int, int, int]
 
@@ -114,10 +122,11 @@ def pooled_attention_reference(q, kv, bias_src, k_shape: Triple, scale: float,
     return out + q if q_residual else out
 
 
-def pooled_attention(q, kv, bias_src, k_shape: Triple, scale: float,
-                     heads: int, q_residual: bool = False):
-    """Kernel K4 (``csrc/attention.cu``): flash-style online softmax over key
-    tiles, one block per (batch, 64-query tile, head).  Returns [B, Nq, C]."""
+def pooled_attention_fwd(q, kv, bias_src, k_shape: Triple, scale: float,
+                    heads: int, q_residual: bool = False):
+    """Kernel K4 (``csrc/attention.cu``), the forward alone: flash-style
+    online softmax over key tiles, one block per (batch, 64-query tile,
+    head).  Returns [B, Nq, C]."""
     if q.device.type == "cpu":
         return pooled_attention_reference(q, kv, bias_src, k_shape, scale,
                                           heads, q_residual)
@@ -146,11 +155,162 @@ def pooled_attention(q, kv, bias_src, k_shape: Triple, scale: float,
     return out
 
 
+def _bias_grad(ds, k_shape: Triple):
+    """JAX's ``dS M^T`` without the scatter matrix: ``ds [..., Nk]`` summed
+    over the patch keys that share each temporal, row and column index."""
+    k_t, k_h, k_w = k_shape
+    grid = ds[..., :k_t * k_h * k_w].unflatten(-1, (k_t, k_h, k_w))
+    return torch.cat([grid.sum((-2, -1)), grid.sum((-3, -1)),
+                      grid.sum((-3, -2))], dim=-1)
+
+
+def pooled_attention_bwd_reference(q, kv, bias_src, do, k_shape: Triple,
+                                   scale: float, heads: int,
+                                   q_residual: bool = False):
+    """Plain twin of ``pooled_attention_bwd``, step by step as JAX
+    ``_attn_bwd_kernel``: P recomputed in f32 from (q * scale in the IO
+    dtype) K^T + bias; dP = dO V^T; delta = rowsum(dP o P); dS = P o (dP -
+    delta); dq = round(dS) K * scale; dK = round(dS)^T (q * scale); dV =
+    round(P)^T dO; dbias the scatter of dS (f32) onto the bias columns.
+    Returns (dq, dkv, dbias or None) in the IO dtype; with ``q_residual``,
+    dq + dO."""
+    B, Nq, C = q.shape
+    Nk = kv.shape[1]
+    hd = C // heads
+    dt = q.dtype
+
+    def split_heads(t):
+        return t.reshape(B, t.shape[1], heads, hd).transpose(1, 2).float()
+
+    qs = split_heads(q * torch.tensor(scale, dtype=dt))
+    kh, vh = split_heads(kv[..., :C]), split_heads(kv[..., C:])
+    doh = split_heads(do)
+    logits = qs @ kh.transpose(-1, -2)
+    if bias_src is not None:
+        logits = logits + _gather_bias(bias_src, k_shape, Nk)
+    p = torch.softmax(logits, dim=-1)
+    dp = doh @ vh.transpose(-1, -2)
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dsr = ds.to(dt).float()
+    dq = (dsr @ kh) * scale
+    dk = dsr.transpose(-1, -2) @ qs
+    dv = p.to(dt).float().transpose(-1, -2) @ doh
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(B, t.shape[2], C)
+
+    dq = merge(dq).to(dt)
+    if q_residual:
+        dq = dq + do
+    dkv = torch.cat([merge(dk), merge(dv)], dim=-1).to(dt)
+    dbias = None if bias_src is None else _bias_grad(ds, k_shape).to(dt)
+    return dq, dkv, dbias
+
+
+def pooled_attention_bwd(q, kv, bias_src, do, k_shape: Triple, scale: float,
+                         heads: int, q_residual: bool = False):
+    """Kernel K5 (``csrc/attention.cu``): the gradient of
+    ``pooled_attention`` with respect to q, kv and bias_src, for the output
+    cotangent ``do`` [B, Nq, C].  Same contract as the plain twin."""
+    if q.device.type == "cpu":
+        return pooled_attention_bwd_reference(q, kv, bias_src, do, k_shape,
+                                              scale, heads, q_residual)
+    B, Nq, C = q.shape
+    Nk = kv.shape[1]
+    dt = torch.bfloat16
+    _lib.check(q, "q", dt)
+    _lib.check(kv, "kv", dt, (B, Nk, 2 * C), q.device)
+    _lib.check(do, "do", dt, (B, Nq, C), q.device)
+    hd = C // heads
+    if C % heads or hd not in (64, 96, 128):
+        raise ValueError(f"pooled_attention_bwd takes head_dim 64, 96 or 128 "
+                         f"(C={C}, heads={heads})")
+    k_t, k_h, k_w = k_shape if bias_src is not None else (0, 0, 0)
+    if bias_src is not None:
+        _lib.check(bias_src, "bias_src", dt, (B, heads, Nq, k_t + k_h + k_w),
+                   q.device)
+        if k_t * k_h * k_w > Nk:
+            raise ValueError(f"k_shape {k_shape} holds more keys than Nk={Nk}")
+    # enough key-side blocks to fill the card twice: split the query tiles
+    key_blocks = -(-Nk // 64) * heads * B
+    splits = max(1, min(-(-Nq // 64),
+                        -(-2 * _lib.sm_count(q.device) // key_blocks)))
+    dq = torch.empty_like(q)
+    dkv = torch.empty_like(kv)
+    dbias = torch.empty_like(bias_src) if bias_src is not None else None
+    stats = torch.empty((B, heads, Nq, 3), dtype=torch.float32,
+                        device=q.device)
+    partial = torch.empty((splits, B, Nk, 2 * C), dtype=torch.float32,
+                          device=q.device)
+    if q.numel():
+        _lib.launch(
+            "svit_pooled_attention_bwd", "pooled_attention_bwd",
+            _lib.ptr(q), _lib.ptr(kv), _lib.ptr(bias_src), _lib.ptr(do),
+            _lib.ptr(dq), _lib.ptr(dkv), _lib.ptr(dbias), _lib.ptr(stats),
+            _lib.ptr(partial), B, Nq, Nk, C, heads, k_t, k_h, k_w,
+            float(scale), int(q_residual), splits, _lib.stream())
+    return dq, dkv, dbias
+
+
+class _AttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, bias_src, k_shape, scale, heads, q_residual):
+        ctx.args = (tuple(k_shape), scale, heads, q_residual)
+        ctx.save_for_backward(q, kv, bias_src)
+        return pooled_attention_fwd(q, kv, bias_src, k_shape, scale, heads,
+                                    q_residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kv, bias_src = ctx.saved_tensors
+        dq, dkv, dbias = pooled_attention_bwd(q, kv, bias_src, g.contiguous(),
+                                              *ctx.args)
+        return dq, dkv, dbias, None, None, None, None
+
+
+def pooled_attention(q, kv, bias_src, k_shape: Triple, scale: float,
+                     heads: int, q_residual: bool = False):
+    """Kernel K4; differentiable through K5."""
+    if not needs_grad(q, kv, bias_src):
+        return pooled_attention_fwd(q, kv, bias_src, k_shape, scale, heads,
+                                    q_residual)
+    return _AttentionFn.apply(q, kv, bias_src, k_shape, scale, heads,
+                              q_residual)
+
+
+class _AttentionProjFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, bias_src, wp, bp, k_shape, scale, heads,
+                q_residual):
+        base = pooled_attention_fwd(q, kv, bias_src, k_shape, scale, heads,
+                                    q_residual)
+        ctx.args = (tuple(k_shape), scale, heads, q_residual)
+        ctx.save_for_backward(q, kv, bias_src, wp, base)
+        return ln_linear.linear_proj(base, wp, bp)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kv, bias_src, wp, base = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dbp = g2.float().sum(0)
+        dwp = (g2.t() @ base.reshape(-1, base.shape[-1])).to(wp.dtype)
+        dbase = (g2 @ wp).view(g.shape)
+        dq, dkv, dbias = pooled_attention_bwd(q, kv, bias_src, dbase,
+                                              *ctx.args)
+        return dq, dkv, dbias, dwp, dbp, None, None, None, None
+
+
 def fused_attention_proj(q, kv, bias_src, k_shape, wp, bp, scale, heads,
                          q_residual=False):
-    """Attention (K4) then the out-projection (K1): ``proj(att (+ q))``."""
-    att = pooled_attention(q, kv, bias_src, k_shape, scale, heads, q_residual)
-    return ln_linear.linear_proj(att, wp, bp)
+    """Attention (K4) then the out-projection (K1): ``proj(att (+ q))``.
+    Differentiable: the backward of JAX ``_bwd_proj``, with K5."""
+    if not needs_grad(q, kv, bias_src, wp, bp):
+        base = pooled_attention_fwd(q, kv, bias_src, k_shape, scale, heads,
+                                    q_residual)
+        return ln_linear.linear_proj(base, wp, bp)
+    return _AttentionProjFn.apply(q, kv, bias_src, wp, bp, k_shape, scale,
+                                  heads, q_residual)
 
 
 def attention_proj_reference(q, kv, bias_src, k_shape, wp, bp, scale, heads,

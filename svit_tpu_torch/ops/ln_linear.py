@@ -15,8 +15,13 @@
 Weights keep the PyTorch ``[out, in]`` layout.  On a CPU tensor the wrapper
 runs the plain version ``ln_linear_reference``; on a CUDA tensor it launches
 the kernel or raises.  The uses below are the JAX package's fused kernels:
-``fused_ln_qkv``, ``fused_ln_dense`` and ``fused_ffn_residual`` (two
-launches: the hidden activation goes through device memory).
+``fused_ln_qkv``, ``fused_ln_dense``, ``fused_ffn_residual`` (two launches:
+the hidden activation goes through device memory) and its drop-path form
+``fused_ffn_residual_masked``, which scales ``a`` by ``mask_add / keep`` in
+the prologue and the output by ``mask_out / keep`` before the residual, each
+op rounded to the IO dtype.  Each use is differentiable: its gradient is
+the autograd of its plain twin recomputed from the saved inputs
+(``ops/vjp.py``), as the JAX package's custom VJPs do.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from svit_tpu_torch.ops import _lib
+from svit_tpu_torch.ops.vjp import plain_vjp
 
 EPS = 1e-6
 
@@ -50,15 +56,28 @@ def _split(y: torch.Tensor, split: Optional[int]):
     return y[..., :split].contiguous(), y[..., split:].contiguous()
 
 
+def drop_path_scale(t, mask, keep: float, rows: int = 1):
+    """``t / keep * mask`` in ``t``'s dtype, op by op (JAX's IO-dtype ops
+    with the python ``keep`` weakly typed, so rounded to that dtype first).
+    ``t`` is [B * rows, ...] and ``mask`` [B] 0/1, one entry per sample."""
+    kq = float(torch.tensor(keep, dtype=t.dtype))
+    m = mask.to(t.dtype).view(-1, *([1] * t.dim()))
+    return (t.view(m.shape[0], rows, *t.shape[1:]) / kq * m).view(t.shape)
+
+
 def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
-                        round_then_bias=False, residual=None, split=None):
+                        round_then_bias=False, residual=None, split=None,
+                        mask_add=None, mask_out=None, keep=1.0, rows=1):
     """Plain PyTorch twin of ``ln_linear`` with the kernel's rounding.
 
     x: [M, K]; w: [N, K]; bias: [N] (f32); ln: (weight, bias) of size K;
-    x_add, residual: like x and like the output.  Returns ``y`` ([M, N], or
-    the pair ``y[:, :split], y[:, split:]``), and ``(y, s)`` when ``x_add``
-    is given, ``s = x + x_add``."""
+    x_add, residual: like x and like the output; mask_add, mask_out: [M /
+    rows] per-sample 0/1 drop-path masks with keep probability ``keep``.
+    Returns ``y`` ([M, N], or the pair ``y[:, :split], y[:, split:]``), and
+    ``(y, s)`` when ``x_add`` is given, ``s = x + x_add``."""
     dt = x.dtype
+    if x_add is not None and mask_add is not None:
+        x_add = drop_path_scale(x_add, mask_add, keep, rows)
     s = x if x_add is None else x + x_add
     xn = s if ln is None else layer_norm(s, ln[0], ln[1])
     acc = xn.float() @ w.to(dt).float().t()
@@ -72,6 +91,8 @@ def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
         if gelu:
             acc = F.gelu(acc)
         y = acc.to(dt)
+    if mask_out is not None:
+        y = drop_path_scale(y, mask_out, keep, rows)
     if residual is not None:
         y = y + residual
     y = _split(y, split)
@@ -79,14 +100,17 @@ def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
 
 
 def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
-              round_then_bias=False, residual=None, split=None):
+              round_then_bias=False, residual=None, split=None,
+              mask_add=None, mask_out=None, keep=1.0, rows=1):
     """Kernel K1 (``csrc/ln_linear.cu``); same contract as
     ``ln_linear_reference``.  Takes bf16 activations and weights, f32 LN
-    parameters and bias."""
+    parameters and bias.  A launch with a mask counts as
+    ``ln_linear_masked``."""
     if x.device.type == "cpu":
         return ln_linear_reference(
             x, w, bias, ln=ln, x_add=x_add, gelu=gelu,
-            round_then_bias=round_then_bias, residual=residual, split=split)
+            round_then_bias=round_then_bias, residual=residual, split=split,
+            mask_add=mask_add, mask_out=mask_out, keep=keep, rows=rows)
     if gelu and round_then_bias:
         raise ValueError("gelu applies before the rounding; "
                          "round_then_bias has none")
@@ -113,16 +137,24 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
     out1 = (torch.empty((M, N - n_split), dtype=dt, device=x.device)
             if n_split < N else None)
     s = torch.empty_like(x) if x_add is not None else None
+    masks = [m for m in (mask_add, mask_out) if m is not None]
+    if mask_add is not None and x_add is None:
+        raise ValueError("mask_add scales x_add, which is missing")
+    for m in masks:
+        if M % rows:
+            raise ValueError(f"{M} rows are not whole samples of {rows}")
+        _lib.check(m, "mask", torch.float32, (M // rows,), x.device)
     mode = (_BIAS_NONE if bias is None
             else _BIAS_IO if round_then_bias else _BIAS_F32)
     if M:
         _lib.launch(
-            "svit_ln_linear", "ln_linear",
+            "svit_ln_linear", "ln_linear_masked" if masks else "ln_linear",
             _lib.ptr(x), _lib.ptr(x_add), _lib.ptr(s),
             _lib.ptr(ln[0]) if ln else None, _lib.ptr(ln[1]) if ln else None,
             EPS, _lib.ptr(w), _lib.ptr(bias), mode, int(gelu),
             _lib.ptr(residual), _lib.ptr(out0), _lib.ptr(out1), n_split,
-            M, N, K, _lib.stream())
+            M, N, K, _lib.ptr(mask_add), _lib.ptr(mask_out),
+            float(torch.tensor(keep, dtype=dt)), int(rows), _lib.stream())
     y = out0 if split is None else (out0, out1)
     return y if x_add is None else (y, s)
 
@@ -144,21 +176,17 @@ def _fused_ln_qkv(op, x, ln_w, ln_b, w_qkv, b_qkv, dim_out
     return q.view(*lead, dim_out), kv.view(*lead, 2 * dim_out)
 
 
-def fused_ln_qkv(x, ln_w, ln_b, w_qkv, b_qkv, dim_out):
-    """norm1 + the q and k|v projections in one launch over ``[Wq | Wkv]``:
-    x is read once, q and kv are written as two outputs."""
-    return _fused_ln_qkv(ln_linear, x, ln_w, ln_b, w_qkv, b_qkv, dim_out)
-
-
 def ln_qkv_reference(x, ln_w, ln_b, w_qkv, b_qkv, dim_out):
     return _fused_ln_qkv(ln_linear_reference, x, ln_w, ln_b, w_qkv, b_qkv,
                          dim_out)
 
 
-def fused_ln_dense(x, ln_w, ln_b, w, b):
-    """LN + one dense layer (bias added in f32, then rounded)."""
-    return ln_linear(_flat(x), w, b, ln=(ln_w, ln_b)).view(
-        *x.shape[:-1], w.shape[0])
+def fused_ln_qkv(x, ln_w, ln_b, w_qkv, b_qkv, dim_out):
+    """norm1 + the q and k|v projections in one launch over ``[Wq | Wkv]``:
+    x is read once, q and kv are written as two outputs."""
+    return plain_vjp(
+        lambda *a: _fused_ln_qkv(ln_linear, *a), ln_qkv_reference,
+        (x, ln_w, ln_b, w_qkv, b_qkv), dim_out)
 
 
 def ln_dense_reference(x, ln_w, ln_b, w, b):
@@ -166,22 +194,58 @@ def ln_dense_reference(x, ln_w, ln_b, w, b):
         *x.shape[:-1], w.shape[0])
 
 
-def _fused_ffn_residual(op, x_res, a, ln_w, ln_b, w1, b1, w2, b2):
+def _ln_dense(x, ln_w, ln_b, w, b):
+    return ln_linear(_flat(x), w, b, ln=(ln_w, ln_b)).view(
+        *x.shape[:-1], w.shape[0])
+
+
+def fused_ln_dense(x, ln_w, ln_b, w, b):
+    """LN + one dense layer (bias added in f32, then rounded)."""
+    return plain_vjp(_ln_dense, ln_dense_reference, (x, ln_w, ln_b, w, b))
+
+
+def _fused_ffn_residual(op, x_res, a, ln_w, ln_b, w1, b1, w2, b2,
+                        ma=None, my=None, keep=1.0):
+    rows = x_res[0].numel() // x_res.shape[-1]
     h, s = op(_flat(x_res), w1, b1, ln=(ln_w, ln_b), x_add=_flat(a),
-              gelu=True)
-    return op(h, w2, b2, residual=s).view(*x_res.shape[:-1], w2.shape[0])
+              gelu=True, mask_add=ma, keep=keep, rows=rows)
+    return op(h, w2, b2, residual=s, mask_out=my, keep=keep,
+              rows=rows).view(*x_res.shape[:-1], w2.shape[0])
+
+
+def ffn_residual_reference(x_res, a, ln_w, ln_b, w1, b1, w2, b2):
+    return _fused_ffn_residual(ln_linear_reference, x_res, a, ln_w, ln_b,
+                               w1, b1, w2, b2)
 
 
 def fused_ffn_residual(x_res, a, ln_w, ln_b, w1, b1, w2, b2):
     """The block's residual tail ``x = x_res + a; out = x + mlp(ln2(x))`` as
     two K1 launches: (x_res + a) -> LN -> fc1 + b1 -> GELU writes h and x;
     then h @ W2 + b2 is rounded and x added in the IO dtype."""
-    return _fused_ffn_residual(ln_linear, x_res, a, ln_w, ln_b, w1, b1, w2, b2)
+    return plain_vjp(
+        lambda *t: _fused_ffn_residual(ln_linear, *t), ffn_residual_reference,
+        (x_res, a, ln_w, ln_b, w1, b1, w2, b2))
 
 
-def ffn_residual_reference(x_res, a, ln_w, ln_b, w1, b1, w2, b2):
+def ffn_residual_masked_reference(keep, x_res, a, ln_w, ln_b, w1, b1, w2, b2,
+                                  ma, my):
+    """Plain twin of ``fused_ffn_residual_masked`` (JAX
+    ``_ffn_res_reference_masked``): ``x = x_res + a / keep * ma; out = x +
+    mlp(ln2(x)) / keep * my``, every op in the IO dtype."""
     return _fused_ffn_residual(ln_linear_reference, x_res, a, ln_w, ln_b,
-                               w1, b1, w2, b2)
+                               w1, b1, w2, b2, ma, my, keep)
+
+
+def fused_ffn_residual_masked(keep, x_res, a, ln_w, ln_b, w1, b1, w2, b2,
+                              ma, my):
+    """The residual tail under stochastic depth (JAX
+    ``fused_ffn_residual_masked``): ``ma`` and ``my`` are the block's two
+    per-sample 0/1 masks [B] (f32), ``keep`` the keep probability.  Two K1
+    launches in masked mode."""
+    return plain_vjp(
+        lambda *t: _fused_ffn_residual(ln_linear, *t),
+        lambda *t: ffn_residual_masked_reference(t[10], *t[:10]),
+        (x_res, a, ln_w, ln_b, w1, b1, w2, b2, ma, my), keep)
 
 
 def ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2):
@@ -193,8 +257,9 @@ def ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2):
 def linear_proj(x, w, b):
     """The attention out-projection: the f32 product is rounded to the IO
     dtype, then the bias is added in the IO dtype."""
-    return ln_linear(_flat(x), w, b, round_then_bias=True).view(
-        *x.shape[:-1], w.shape[0])
+    return plain_vjp(
+        lambda x, w, b: ln_linear(_flat(x), w, b, round_then_bias=True).view(
+            *x.shape[:-1], w.shape[0]), linear_proj_reference, (x, w, b))
 
 
 def linear_proj_reference(x, w, b):

@@ -47,7 +47,12 @@ def depthwise_conv3d(x: torch.Tensor, weight: torch.Tensor,
 
 
 def max_pool3d(x: torch.Tensor, kernel: Triple, stride: Triple) -> torch.Tensor:
-    """MaxPool3d of a channels-last grid; padding k//2 never wins (-inf)."""
+    """MaxPool3d of a channels-last grid; padding k//2 never wins (-inf).
+
+    Its gradient goes to the first maximum of each window in (t, h, w)
+    order, which is where the VJP of JAX's ``reduce_window`` max (select
+    ``ge``) sends it when values tie (pinned in bf16 by
+    ``tests/test_torch_divergence.py``)."""
     pad = tuple(k // 2 for k in kernel)
     return _cl(F.max_pool3d(_cf(x), tuple(kernel), tuple(stride), pad))
 

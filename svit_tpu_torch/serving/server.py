@@ -147,8 +147,10 @@ class BatchedPredictor:
                 slot["error"] = str(e)
                 done.set()
 
-    def stop(self):
+    def stop(self, timeout: float = 10.0):
+        """End the batching thread and wait for it."""
         self._stop.set()
+        self.worker.join(timeout)
 
 
 def make_handler(predictor: BatchedPredictor, top_k: int = 5):

@@ -9,10 +9,16 @@
   bias in the IO dtype) and of the residual tail (bias in f32, round, then
   add x in the IO dtype), pinned in bf16 against the JAX kernels' own
   expressions on identical inputs.
+- Training: the drop-path op order (``branch / keep * mask``, two bf16
+  roundings) bit for bit; the max-pool gradient on tied values, which goes
+  to the first maximum of the window as JAX's ``reduce_window`` VJP sends
+  it; and the extras' cls row in bf16 against JAX's kernel path.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 import torch.nn.functional as F
 
@@ -117,3 +123,95 @@ def test_residual_tail_rounds_fc2_then_adds_x_in_bf16():
     other = (h.float() @ w2.float().t() + b2 + x.float()).to(BF)
     assert _mismatch(port, ref) < 0.01
     assert _mismatch(other, ref) > 0.05
+
+
+# ---------------------------------------------------------------------------
+# the training path's divergence points
+# ---------------------------------------------------------------------------
+
+def test_drop_path_op_order_is_bit_exact():
+    """``branch / keep * mask`` in bf16: two roundings, keep weakly typed
+    (rounded to bf16 first), as ``_ffn_res_reference_masked`` and
+    ``_drop_path_pair`` compute it; for every keep of the ssv2 schedule."""
+    from svit_tpu.ops import pallas_ffn as pf
+
+    rs = np.random.RandomState(5)
+    B, N, C = 4, 50, 32
+    t = torch.from_numpy(rs.randn(B, N, C).astype(np.float32)).to(BF)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    tj, mj = _j(t), jnp.asarray(mask.numpy()).reshape(B, 1, 1).astype(jnp.bfloat16)
+    for keep in 1.0 - np.linspace(0, 0.4, 16)[1:]:
+        keep = float(keep)
+        port = tl.drop_path_scale(t.view(B * N, C), mask, keep, rows=N)
+        ref = np.asarray((tj / keep * mj).astype(jnp.float32)).reshape(B * N, C)
+        assert _mismatch(port, ref) == 0.0, keep
+        # multiplying by mask / keep instead rounds once and differs
+        other = (t.float() * (mask.view(B, 1, 1) / keep)).to(BF).view(B * N, C)
+        assert _mismatch(other, ref) > 0.0 or keep == 1.0
+    # the whole masked tail in bf16 against its JAX twin on the same inputs
+    Hd = 4 * C
+    w1 = torch.from_numpy((0.2 * rs.randn(Hd, C)).astype(np.float32)).to(BF)
+    w2 = torch.from_numpy((0.1 * rs.randn(C, Hd)).astype(np.float32)).to(BF)
+    b1 = torch.from_numpy((0.1 * rs.randn(Hd)).astype(np.float32))
+    b2 = torch.from_numpy((0.1 * rs.randn(C)).astype(np.float32))
+    ls, lb = torch.ones(C), torch.zeros(C)
+    a = torch.from_numpy(rs.randn(B, N, C).astype(np.float32)).to(BF)
+    my = torch.tensor([0.0, 1.0, 1.0, 1.0])
+    port = tl.ffn_residual_masked_reference(0.6, t, a, ls, lb, w1, b1, w2, b2,
+                                            mask, my)
+    ref = pf.ffn_residual_masked_reference(
+        0.6, tj, _j(a), _j(ls), _j(lb), _j(w1).T, _j(b1), _j(w2).T, _j(b2),
+        jnp.asarray(mask.numpy()), jnp.asarray(my.numpy()))
+    assert _mismatch(port, np.asarray(ref.astype(jnp.float32))) < 0.01
+
+
+@pytest.mark.parametrize("kernel", [(1, 3, 3), (3, 3, 3)])
+def test_max_pool_gradient_routes_ties_as_jax(kernel):
+    """Integer-valued bf16 inputs (ties everywhere): the gradient goes to
+    the same window element as ``jax.grad`` of ``pooling.max_pool3d``."""
+    rs = np.random.RandomState(6)
+    x = rs.randint(0, 3, size=(2, 4, 9, 9, 8)).astype(np.float32)
+    stride = (1, 2, 2)
+    out_shape = tpool.max_pool3d(torch.from_numpy(x), kernel, stride).shape
+    g = rs.randn(*out_shape).astype(np.float32)
+    want = jax.grad(lambda a: (jpool.max_pool3d(a, kernel, stride).astype(
+        jnp.float32) * g).sum())(jnp.asarray(x, jnp.bfloat16))
+    xt = torch.from_numpy(x).to(BF).requires_grad_()
+    (tpool.max_pool3d(xt, kernel, stride).float() * torch.from_numpy(g)).sum(
+        ).backward()
+    assert _mismatch(xt.grad, np.asarray(want.astype(jnp.float32))) == 0.0
+
+
+def test_extras_cls_row_matches_jax_in_bf16():
+    """The cls row of the extras attention (q residual added to every row,
+    then the cls row's projected q removed) in bf16, against JAX
+    ``use_pallas=True`` (interpret mode): it differs from JAX by no more
+    than the object rows do."""
+    from svit_tpu.ops import mm
+    from svit_tpu.ops import pallas_attention as pa
+
+    rs = np.random.RandomState(7)
+    B, E, heads, hd = 2, 9, 2, 16
+    C, k_shape = heads * hd, (2, 2, 2)
+    n_k = 8 + E
+    qe = torch.from_numpy(rs.randn(B, E, C).astype(np.float32)).to(BF)
+    kv = torch.from_numpy(rs.randn(B, n_k, 2 * C).astype(np.float32)).to(BF)
+    wp = torch.from_numpy((0.2 * rs.randn(C, C)).astype(np.float32)).to(BF)
+    bp = torch.from_numpy((0.1 * rs.randn(C)).astype(np.float32))
+    scale = hd ** -0.5
+    oe = ta.fused_attention_proj(qe, kv, None, k_shape, wp, bp, scale, heads,
+                                 True)
+    port = torch.cat([(oe[:, 0] - tl.ln_linear_reference(qe[:, 0], wp))[:, None],
+                      oe[:, 1:]], dim=1).float().numpy()
+    R = sum(k_shape) + 1
+    scatter = jnp.asarray(pa._scatter_matrix(k_shape, n_k, 128, 0), jnp.bfloat16)
+    bias_e = jnp.concatenate([jnp.zeros((B, heads, E, R - 1), jnp.bfloat16),
+                              jnp.ones((B, heads, E, 1), jnp.bfloat16)], -1)
+    wpj = _j(wp).T
+    oj = pa.fused_attention_proj(_j(qe), _j(kv), bias_e, scatter, wpj, _j(bp),
+                                 scale, heads, True)
+    oj = jnp.concatenate([oj[:, :1] - mm.dense2d(_j(qe)[:, :1], wpj),
+                          oj[:, 1:]], axis=1)
+    diff = np.abs(port - np.asarray(oj.astype(jnp.float32)))
+    cls_err, obj_err = diff[:, 0].max(), diff[:, 1:].max()
+    assert cls_err <= max(obj_err, 1e-6), (cls_err, obj_err)

@@ -53,9 +53,27 @@ def test_port_imports_with_jax_and_svit_tpu_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    # every module of the port: config (4), data (2), models (7), ops (7),
-    # serving (3), utils (3) and the package itself
-    assert int(r.stdout.strip().splitlines()[-1]) >= 25
+    # every subpackage and module of the port: config (4), data (2),
+    # engine (2), models (9), ops (9), serving (3), utils (4)
+    assert int(r.stdout.strip().splitlines()[-1]) >= 33
+
+
+_IMPORT_ONE = _BLOCKER + r'''
+import importlib, sys
+importlib.import_module(sys.argv[1])
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+'''
+
+
+@pytest.mark.parametrize("module", [
+    "svit_tpu_torch.engine.steps", "svit_tpu_torch.models.losses",
+    "svit_tpu_torch.models.optimizer", "svit_tpu_torch.ops.box_ops",
+    "svit_tpu_torch.utils.lr_policy"])
+def test_train_modules_import_with_jax_and_svit_tpu_blocked(module):
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_build_model_without_device_raises_when_cuda_absent(monkeypatch):

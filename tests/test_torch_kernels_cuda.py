@@ -26,6 +26,8 @@ BF = torch.bfloat16
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    torch.backends.cudnn.allow_tf32 = False   # the f32 plain convs
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -44,7 +46,7 @@ def _f32(obj):
 def _flat(out):
     if torch.is_tensor(out):
         return out.float().flatten()
-    return torch.cat([_flat(o) for o in out])
+    return torch.cat([_flat(o) for o in out if o is not None])
 
 
 def _rel(a, b):
@@ -116,6 +118,96 @@ def test_pooled_attention(gen, heads, q_residual, with_bias):
             if with_bias else None)
     _gate(ta.pooled_attention, ta.pooled_attention_reference, q, kv, bias,
           k_shape, hd ** -0.5, heads, q_residual)
+
+
+@pytest.mark.parametrize("heads,q_residual,with_bias", [
+    (1, True, True), (2, False, True), (4, True, False)])
+def test_pooled_attention_bwd(gen, heads, q_residual, with_bias):
+    B, hd, k_shape, E = 2, 96, (4, 5, 5), 65
+    C = heads * hd
+    Nq, Nk = 300, 100 + E
+    q = _randn(gen, B, Nq, C)
+    kv = _randn(gen, B, Nk, 2 * C)
+    do = _randn(gen, B, Nq, C)
+    bias = (_randn(gen, B, heads, Nq, sum(k_shape), scale=0.5)
+            if with_bias else None)
+    _gate(ta.pooled_attention_bwd, ta.pooled_attention_bwd_reference, q, kv,
+          bias, do, k_shape, hd ** -0.5, heads, q_residual)
+
+
+@pytest.mark.parametrize("stride", [(1, 1, 1), (1, 2, 2), (1, 4, 4), (1, 8, 8)])
+def test_depthwise_conv_and_its_gradients(gen, stride):
+    B, T, H, W, C = 2, 4, 16, 16, 192
+    x = _randn(gen, B, T, H, W, C)
+    w = _randn(gen, C, 1, 3, 3, 3, scale=0.2, dtype=torch.float32)
+    _gate(lambda x, w: tp.depthwise_conv(x, w, stride, 96),
+          lambda x, w: tp.depthwise_conv_reference(x, w, stride), x, w)
+    To, Ho, Wo = (tp.out_size(d, 3, s) for d, s in zip((T, H, W), stride))
+    g = _randn(gen, B, To, Ho, Wo, C)
+    _gate(tp.depthwise_conv_dx, tp.depthwise_conv_dx_reference, g, w, stride,
+          (B, T, H, W, C))
+    _gate(tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference, x, g,
+          (3, 3, 3), stride)
+
+
+def test_ffn_residual_masked(gen):
+    B, rows, C = 4, 250, 96
+    x_res, a = _randn(gen, B, rows, C), _randn(gen, B, rows, C)
+    ln = (1 + _randn(gen, C, scale=0.1, dtype=torch.float32),
+          _randn(gen, C, scale=0.1, dtype=torch.float32))
+    w1 = _randn(gen, 4 * C, C, scale=C ** -0.5)
+    w2 = _randn(gen, C, 4 * C, scale=(4 * C) ** -0.5)
+    b1 = _randn(gen, 4 * C, scale=0.1, dtype=torch.float32)
+    b2 = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    ma = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda")
+    my = torch.tensor([0.0, 1.0, 1.0, 1.0], device="cuda")
+    _gate(tl.fused_ffn_residual_masked, tl.ffn_residual_masked_reference, 0.6,
+          x_res, a, *ln, w1, b1, w2, b2, ma, my)
+
+
+def _grads(fn, inputs, cot):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    torch.autograd.backward(out, cot)
+    return [t.grad for t in leaves]
+
+
+def test_autograd_through_the_kernels(gen):
+    """Gradients of fused_attention_proj (K5) and fused_pool_ln (K2 bare, K6,
+    K7) against the plain twins' autograd in bf16 and f32."""
+    B, heads, hd, k_shape, E = 2, 2, 96, (2, 4, 4), 9
+    C = heads * hd
+    q = _randn(gen, B, 4 * 8 * 8, C)
+    kv = _randn(gen, B, 32 + E, 2 * C)
+    bias = _randn(gen, B, heads, q.shape[1], sum(k_shape), scale=0.5)
+    wp = _randn(gen, C, C, scale=C ** -0.5)
+    bp = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    g = _randn(gen, B, q.shape[1], C)
+    args = (k_shape,)
+
+    def att(op):
+        return lambda q, kv, bias, wp, bp: op(q, kv, bias, *args, wp, bp,
+                                             hd ** -0.5, heads, True)
+    inputs = (q, kv, bias, wp, bp)
+    _gate(lambda *a: _grads(att(ta.fused_attention_proj), a[:5], a[5]),
+          lambda *a: _grads(att(ta.attention_proj_reference), a[:5], a[5]),
+          *inputs, g)
+
+    x = _randn(gen, B, 4, 16, 16, C)
+    w = _randn(gen, C, 1, 3, 3, 3, scale=0.2, dtype=torch.float32)
+    ls = 1 + _randn(gen, C, scale=0.1, dtype=torch.float32)
+    lb = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    gp = _randn(gen, B, 4, 8, 8, C)
+
+    def pool(op):
+        return lambda *a: _grads(lambda x, w, ls, lb: op(x, w, ls, lb,
+                                                         (1, 2, 2), hd),
+                                 a[:4], a[4])
+    before = _lib.LAUNCHES.copy()
+    _gate(pool(tp.fused_pool_ln), pool(tp.pool_ln_reference), x, w, ls, lb, gp)
+    launched = _lib.LAUNCHES - before
+    for name in ("pool_conv", "pool_conv_dx", "pool_conv_dk"):
+        assert launched[name] >= 1, name
 
 
 def test_wrapper_rejects_f32_on_the_card(gen):
