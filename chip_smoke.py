@@ -17,9 +17,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over that one forward must equal what the architecture implies;
 4. kernels: every distinct call the kernel forward made to a kernel wrapper
    is replayed on the same tensors: the kernel against its plain version in
-   bf16 and in f32 (same gate), and timed with CUDA events beside the plain
-   version, one PyTorch library yardstick and the card's bound; the
-   per-forward totals are printed per kernel and per JAX function served;
+   bf16 and in f32 (same gate), and timed (device time, queued behind a
+   sleep kernel: ``device_time_ms``) beside the plain version, one PyTorch
+   library yardstick and the card's bound; the per-forward totals are
+   printed per kernel and
+   per JAX function served.  4b: ``fused_ffn`` (off the model path) is
+   replayed the same way at the MLP shapes of stage 0 and stage 3;
 5. forward time and clips/s at batch 8 and batch 1, and one profiled
    forward at each: device time by kernel, the hand-written kernels' share
    and the device's idle share of the wall time;
@@ -77,7 +80,9 @@ KERNELS = {  # counter name -> (source, TPU kernels it replaces)
     "ln_linear": ("svit_tpu_torch/csrc/ln_linear.cu",
                   "svit_tpu/ops/pallas_ffn.py:205 _ln_qkv_kernel; "
                   "svit_tpu/ops/pallas_ffn.py:153 _ln_dense_kernel; "
-                  "svit_tpu/ops/pallas_ffn.py:322 _ffn_res_kernel"),
+                  "svit_tpu/ops/pallas_ffn.py:322 _ffn_res_kernel; "
+                  "svit_tpu/ops/pallas_ffn.py:66 _ffn_kernel (fused_ffn "
+                  ":500, off the model path: replayed)"),
     "pool_ln": ("svit_tpu_torch/csrc/pool.cu",
                 "svit_tpu/ops/pallas_pool.py:175 _kernel_s1; "
                 "svit_tpu/ops/pallas_pool.py:250 _kernel_strided"),
@@ -86,6 +91,9 @@ KERNELS = {  # counter name -> (source, TPU kernels it replaces)
     "pooled_attention": ("svit_tpu_torch/csrc/attention.cu",
                          "svit_tpu/ops/pallas_attention.py:167 _attn_kernel"),
 }
+# fused_ffn's replay: [M, C] -> 4C -> C, the MLP of stage 0 and of stage 3
+# of the batch-8 forward
+FFN_SHAPES = ((200704, 96), (3136, 768))
 TRAIN_KERNELS = {  # the train step's new kernels and modes
     "ln_linear_masked": ("svit_tpu_torch/csrc/ln_linear.cu",
                          "svit_tpu/ops/pallas_ffn.py:322 _ffn_res_kernel "
@@ -161,34 +169,29 @@ def signature(obj):
     return obj
 
 
-def cuda_ms(fn, reps):
-    """Milliseconds per call of ``fn``: CUDA events around ``reps`` calls
-    back to back, the median of three such windows.  ``reps=None`` picks
-    1 to 10 calls so that a window lasts about 30 ms, and one window for a
-    call slower than 100 ms (the slow yardsticks)."""
+def device_time_ms(fn, reps=5):
+    """Device time of one call of ``fn`` in milliseconds.  On the card's
+    host, Python paces the smaller calls: an event window around calls
+    issued back to back would time the host.  So a sleep kernel first holds
+    the stream for longer than the host takes to issue ``reps`` calls; the
+    calls queue behind it, then run back to back between the two events."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    windows = 3
-    if reps is None:
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0           # the host's time for one call
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(0.5, 2 * reps * one + 2e-3) * 2e9))  # cycles
+    start.record()
+    for _ in range(reps):
         fn()
-        torch.cuda.synchronize()
-        probe = time.perf_counter() - t0
-        reps = max(1, min(10, int(0.03 / max(probe, 1e-6))))
-        windows = 3 if probe < 0.1 else 1
-    times = []
-    for _ in range(windows):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / reps)
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 class Recorder:
@@ -793,10 +796,10 @@ def run_kernel_phase(rec, torch, fns, unit="forward"):
             max_abs = float((k_ - p_).abs().max())
             ok = err_k <= TOL_RATIO * err_p + TOL_ABS
             del yk, y16, y32, k_, p_, f_
-            ms = cuda_ms(lambda: kernel(*args, **kwargs), 10)
-            plain_ms = cuda_ms(lambda: plain(*args, **kwargs), None)
+            ms = device_time_ms(lambda: kernel(*args, **kwargs))
+            plain_ms = device_time_ms(lambda: plain(*args, **kwargs), 2)
         with torch.enable_grad():   # the attention yardstick's backward
-            lib_ms = cuda_ms(library_call(name, args, kwargs), None)
+            lib_ms = device_time_ms(library_call(name, args, kwargs), 2)
         byts, tflops, cflops = cost(name, args, kwargs)
         bytes_ms = byts / HBM_BPS * 1e3
         ops_ms = max(tflops / TENSOR_FLOPS, cflops / CORE_FLOPS) * 1e3
@@ -829,6 +832,101 @@ def run_kernel_phase(rec, torch, fns, unit="forward"):
             f"plain_ms={u['plain_ms']:.4f} library_ms={u['library_ms']:.4f} "
             f"bound_ms={u['bound_ms']:.4f}")
     return table, {k: dict(u) for k, u in uses.items()}, details
+
+
+def run_ffn_phase(torch):
+    """Phase 4b: ``fused_ffn`` (two K1 launches; no model path calls it, as
+    in the JAX package) at ``FFN_SHAPES`` on random bf16 inputs from the
+    seed, outside every counted run: gated against its plain twin in bf16
+    and f32, timed beside the plain twin, the library yardstick
+    (``F.layer_norm``, ``F.linear``, ``F.gelu``, ``F.linear``) and its
+    bound (x, the weights and y moved once; h stays inside the function)."""
+    import torch.nn.functional as F
+    from svit_tpu_torch.ops import ln_linear as ll
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (scale * torch.randn(shape, device="cuda", generator=gen)
+                ).to(dtype)
+
+    rows = []
+    for M, C in FFN_SHAPES:
+        H = 4 * C
+        args = (randn(M, C), 1 + randn(C, scale=0.1, dtype=f32),
+                randn(C, scale=0.1, dtype=f32), randn(H, C, scale=C ** -0.5),
+                randn(H, scale=0.1, dtype=f32), randn(C, H, scale=H ** -0.5),
+                randn(C, scale=0.1, dtype=f32))
+        x, lw, lb, w1, b1, w2, b2 = args
+        with torch.inference_mode():
+            k_ = ll.fused_ffn(*args).float()
+            p_ = ll.ffn_reference(*args).float()
+            f_ = ll.ffn_reference(*to_f32(args)).float()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(k_).all()) or k_.shape != (M, C):
+                raise SystemExit(f"fused_ffn [{M}, {C}]: bad output")
+            err_k, err_p = rel_err(k_, f_), rel_err(p_, f_)
+            max_abs = float((k_ - p_).abs().max())
+            del k_, p_, f_
+            ms = device_time_ms(lambda: ll.fused_ffn(*args))
+            plain_ms = device_time_ms(lambda: ll.ffn_reference(*args), 2)
+            lnw, lnb, b1b, b2b = (t.to(bf) for t in (lw, lb, b1, b2))
+            lib_ms = device_time_ms(lambda: F.linear(F.gelu(F.linear(
+                F.layer_norm(x, (C,), lnw, lnb, 1e-6), w1, b1b)), w2, b2b), 2)
+        byts = sum(t.numel() * t.element_size() for t in args) + 2 * M * C
+        bytes_ms = byts / HBM_BPS * 1e3
+        ops_ms = 4.0 * M * C * H / TENSOR_FLOPS * 1e3
+        ok = err_k <= TOL_RATIO * err_p + TOL_ABS
+        log(f"fused_ffn [{M}, {C}] -> {H} -> {C}: err={err_k:.2e} "
+            f"plain_err={err_p:.2e} max_abs={max_abs:.2e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={max(bytes_ms, ops_ms):.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"kernel gate failed: fused_ffn [{M}, {C}]")
+        rows.append(dict(shape=[M, C, H], err=err_k, plain_err=err_p,
+                         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                         bound_ms=max(bytes_ms, ops_ms)))
+    return rows
+
+
+def k1_uses(uses, train_uses, ffn):
+    """K1 by use: the forward's uses per forward, the masked uses per train
+    step, and the fused_ffn replays (printed, and kept in the kernels
+    line)."""
+    table = {}
+    for src, unit in ((uses, "per forward"), (train_uses, "per train step")):
+        for key, u in src.items():
+            name, use = key.split(": ", 1)
+            if name.startswith("ln_linear"):
+                table[f"{use} ({name}, {unit})"] = {
+                    k: u[k] for k in ("launches", "ms", "bound_ms",
+                                      "library_ms", "plain_ms")}
+    for r in ffn:
+        table[f"fused_ffn {r['shape']} (replay, 2 launches each)"] = {
+            "launches": 0, "ms": r["ms"], "bound_ms": r["bound_ms"],
+            "library_ms": r["library_ms"], "plain_ms": r["plain_ms"]}
+    log("K1 by use (ms, bound and library ms summed over the launches):")
+    for key, u in table.items():
+        log(f"  {key}: launches {u['launches']} ms={u['ms']:.4f} "
+            f"bound_ms={u['bound_ms']:.4f} ms/bound="
+            f"{u['ms'] / u['bound_ms']:.2f} library_ms={u['library_ms']:.4f} "
+            f"plain_ms={u['plain_ms']:.4f}")
+    return table
+
+
+def ptxas_report(text):
+    """{kernel function: [its ptxas -v lines]} from the build log."""
+    out, fn = collections.OrderedDict(), None
+    for line in text.splitlines():
+        for marker in ("Compiling entry function '", "Function properties for "):
+            if marker in line:
+                fn = line.split(marker, 1)[1].split("'")[0].strip()
+                out.setdefault(fn, [])
+        if fn and ("registers" in line or "spill" in line):
+            out[fn].append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def time_forward(model, arch, torch, batch):
@@ -997,8 +1095,12 @@ def main():
     _lib.library()
     build_s = time.perf_counter() - t0
     log(f"build: {so.name} in {build_s:.1f} s")
-    for line in (_lib.BUILD / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+    build_log = (_lib.BUILD / "build.log").read_text()
+    ptxas = ptxas_report(build_log)
+    for fn, lines in ptxas.items():   # K1 per instance, with its spills
+        log(f"  {fn}: " + "; ".join(lines))
+    for line in build_log.splitlines():
+        if "Performance Loss" in line:
             log("  " + line.strip())
 
     cfg = get_cfg()
@@ -1012,7 +1114,8 @@ def main():
            for n, (mod, attr, plain) in wrappers().items()}
     table, uses, details = run_kernel_phase(rec, torch, fns)
     del rec
-    fwd = [time_forward(model, arch, torch, b) for b in (BATCH, 1)]
+    ffn = run_ffn_phase(torch)
+    fwd =[time_forward(model, arch, torch, b) for b in (BATCH, 1)]
     prof = [profile_forward(model, arch, torch, f["batch"], f["ms"])
             for f in fwd]
     del model
@@ -1022,6 +1125,7 @@ def main():
 
     cfg.SVIT.CONSISTENCY_LOSS = "l1"
     train, train_table, train_uses, train_details = run_train_phase(cfg, torch)
+    k1 = k1_uses(uses, train_uses, ffn)
 
     kernels = []
     for names, rows, launches in (
@@ -1039,12 +1143,15 @@ def main():
                 "library_ms": row["library_ms"],
                 "train_launches": train["launches"].get(name, 0),
             })
+            if name == "ln_linear":
+                kernels[-1]["uses"] = k1
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_detail.json"), "w") as f:
-        json.dump(dict(card=card, build_s=build_s, model=model_result,
-                       forward=fwd, profile=prof, serving=serving, uses=uses,
-                       calls=details, train=train, train_uses=train_uses,
+        json.dump(dict(card=card, build_s=build_s, ptxas=ptxas,
+                       model=model_result, forward=fwd, profile=prof,
+                       serving=serving, uses=uses, calls=details, ffn=ffn,
+                       train=train, train_uses=train_uses,
                        train_calls=train_details, kernels=kernels), f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,6 @@
-// K1 ln_linear: Y = epilogue(prologue(X) . W^T), bf16 in, f32 accumulate.
+// K1 ln_linear: Y = epilogue(prologue(X) . W^T), bf16 in, f32 accumulate,
+// written for Hopper (sm_90a): TMA loads and stores under mbarriers, wgmma
+// from shared memory, and a resident LayerNorm panel.
 //
 // Replaces the TPU kernels of svit_tpu/ops/pallas_ffn.py:
 //   _ln_qkv_kernel  (fused_ln_qkv)       -> one launch over [Wq | Wkv], the
@@ -16,30 +18,66 @@
 //                                           epilogue round(fc2 + b2) / keep
 //                                           * my + x, every op rounded to
 //                                           bf16 as the TPU kernel's IO-dtype
-//                                           ops are (ma, my: per-sample 0/1).
+//                                           ops are (ma, my: per-sample 0/1);
+//   _ffn_kernel (fused_ffn)              -> two launches: LN -> fc1 + b1 ->
+//                                           GELU, then fc2 + b2.
 //
-// What bounds it on the H100: at the early stages (K = 96..192, N <= 4K)
-// the product does about K/2 flops per byte of X and Y moved, far below the
-// ~295 flop/byte ridge, so device memory bounds it; at C = 768 the products
-// are compute-bound.  The TPU kept fc1's [tile, 4C] output in VMEM; a 64-row
-// tile of it at C = 768 is 384 KB, beyond a block's 227 KB of shared memory,
-// so h goes through device memory here (a known cost).
+// What bounds it on the H100: by bytes and operations every use on the
+// SViT-B/16 path is bound by device memory.  With an LN prologue K = C is
+// 96..768 and the product does about K/2 flops per byte of X and Y moved,
+// below the ~295 flop/byte ridge; fc2 (K = 4C) moves its [M, 4C] input once
+// for 2C flops per element.  So the design reads each input once, keeps
+// loads in flight and writes whole lines.  What holds it back at K >= 384
+// (stages 2 and 3) is W: each 64-row block streams all of W from L2, M / 64
+// times per call, and a block's prologue, chunks and epilogue do not
+// overlap one another (PERF.md, Known costs).
 //
-// Design: each 128x128 output tile is one block of 8 warps (2 x 4, a 64x32
-// warp tile of m16n8k16 mma.sync).  The LN prologue is fused into the A-tile
-// load: a block first takes its 128 rows' mean and rstd (two passes over
-// the row, from L2), then normalises, rounds to bf16 and stores each A tile
-// to shared memory, so the normalised tensor never exists in device memory.
-// With x_add the rounded sum x + x_add is what is normalised, and the blocks
-// of the first column of tiles write it out.  The epilogue adds the bias in
-// f32 (optionally exact-erf GELU) before the one rounding, or rounds first
-// and adds the bias in bf16 (attention projection), then adds the residual
-// in bf16.  Loads are not pipelined yet (no cp.async / TMA, no wgmma).
+// Design.  A block owns BM rows (64 or 128); each of its warpgroups owns
+// 64 of them, and thread 0 issues every TMA load (128-byte swizzled boxes
+// of 64 columns, zero-filled past the tensor's edge).  Two paths:
+//  * PANEL (an LN or x_add prologue): the block's X rows, all of K (up to
+//    1024), stay resident in shared memory.  The threads form
+//    s = round(x + round(round(x_add / keep) * ma)) in place (x_add read
+//    once, coalesced; s leaves once, by TMA store straight from the panel),
+//    take each row's mean and rstd from shared memory in f32 (two threads a
+//    row, all rows at once), normalise and round the panel in place, then
+//    sweep the block's N tiles: W tiles (BN x 64) stream through a ring of
+//    TMA stages and wgmma reads A from the panel.  X is read from device
+//    memory once, not once per column tile.  The padding columns past K
+//    stay zero.  Where M / BM gives too few blocks to fill the card,
+//    several blocks share one panel and split its N sweep.
+//  * GEMM (no prologue: fc2 at K up to 3072, the out-projection): A and W
+//    tiles both stream through the ring into wgmma, one N tile per block,
+//    the N tiles of one row block adjacent in launch order so that A is
+//    read from device memory about once.
+// Each chunk's four wgmmas complete before the ring slot is refilled: a
+// wgmma group left in flight across thread 0's refill makes the compiler
+// serialise every wgmma.  The host's plan (ops/ln_linear.py) puts blocks
+// per SM before ring depth: on the card, a third block hid the TMA latency
+// better than deeper rings did.
+// Epilogue: the ops in the contract's order on the f32 fragment in
+// registers (bias in f32, exact-erf GELU, one rounding; or round, then bias
+// in bf16; then round(v / keep) * my; then + residual), each op after the
+// rounding a correctly rounded bf16x2 op.  The bf16 tile goes to shared
+// memory (64-byte swizzled 32-column sub-tiles, conflict-free from the
+// fragment) and leaves by TMA store, clipped at the tensor's edges: plain
+// 16-byte stores from each SM could not keep up with the writes.  The
+// residual arrives the same way, by a TMA load issued when the tile starts.
+// The q | kv split falls on a sub-tile edge on the SViT path (C is a
+// multiple of 32); any other multiple of 8 stores the fragment's column
+// pairs directly instead.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, LDS = BK + 8, THREADS = 256;
+constexpr int BN = 128;       // output columns per tile (one m64n128 wgmma)
+constexpr int BK = 64;        // K per TMA box: 128 bytes, the swizzle span
+constexpr int SUB = 32;       // columns of one output sub-tile (64-byte rows)
+constexpr int SUB_BYTES = 64 * SUB * 2;  // a warpgroup's 64 rows of it
+constexpr int SMEM_BLOCK_MAX = 232448;   // dynamic shared memory of a block
+constexpr int ERR_PLAN = -1, ERR_DRIVER = -2, ERR_TMAP = -3;
 
 struct Params {
   const bf16* x;
@@ -48,10 +86,8 @@ struct Params {
   const float* ln_g;
   const float* ln_b;
   float eps;
-  const bf16* w;
   const float* bias;
   int bias_mode;  // 0 none, 1 f32 before the rounding, 2 bf16 after it
-  int gelu;
   const bf16* residual;
   bf16* out0;
   bf16* out1;
@@ -61,192 +97,671 @@ struct Params {
   const float* mask_out;  // [M / rows] 0/1: output becomes out / keep * mask
   float keep;             // the keep probability, rounded to bf16
   int rows;               // rows per sample (mask index = m / rows)
+  int kc;                 // K chunks of BK
+  int stages;             // ring slots
+  int splits;             // blocks per row panel
+  int tiles_per_split;    // N tiles each of them sweeps
+  int direct;             // stores from the fragment, not TMA (see tma_out)
 };
 
-// 8 consecutive values of the (rounded) prologue sum x (+ x_add) at (m, k)
-__device__ __forceinline__ void load_row8(const Params& p, int m, int k,
-                                          float (&v)[8]) {
-  size_t off = (size_t)m * p.K + k;
-  unpack8(*reinterpret_cast<const uint4*>(p.x + off), v);
-  if (p.x_add) {
-    float a[8];
-    unpack8(*reinterpret_cast<const uint4*>(p.x_add + off), a);
-    if (p.mask_add) {  // a / keep * ma: two bf16 ops (the mask is exact)
-      const float ma = p.mask_add[m / p.rows];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i] / p.keep) * ma;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = round_bf16(v[i] + a[i]);
+// Shared memory, from the 1024-byte aligned base: [panel][ring][output tile
+// (bf16, BN / SUB swizzled sub-tiles per warpgroup)][bias (BN f32 per
+// warpgroup)][LN weight | LN bias (kc * 64 f32 each, panel path)][full
+// [stages] | panel | residual[2] barriers].  The host sizes the launch with
+// the same numbers (ops/ln_linear.py:ln_linear_smem mirrors them).
+struct Layout {
+  int ring, slot, ostg, sbias, lnp, bars, total;
+  __host__ __device__ Layout(int bm, bool panel, int kc, int stages) {
+    ring = panel ? bm * kc * 128 : 0;
+    slot = BN * 128 + (panel ? 0 : bm * 128);
+    ostg = ring + stages * slot;
+    sbias = ostg + bm / 64 * (BN / SUB) * SUB_BYTES;
+    lnp = sbias + bm / 64 * BN * 4;
+    bars = lnp + (panel ? kc * BK * 8 : 0);
+    total = bars + 8 * (stages + 3);
   }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of parity ``parity`` has completed.  The spin is one
+// asm block (the compiler sees no divergent loop, which would serialise the
+// wgmma groups in flight); a phase that never completes (a fault in the
+// pipeline) traps after 2^27 tries instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 134217728;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The ops below that one thread issues take a predicate instead of sitting
+// in an ``if``: every thread of the warpgroup executes the instruction, so
+// the compiler sees no divergent path beside the wgmma groups in flight
+// (which it would serialise).
+__device__ __forceinline__ void mbar_expect_tx_if(bool pred, uint64_t* bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_if(bool pred, void* dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n}\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"((int)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_if(bool pred, const CUtensorMap* map,
+                                             const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row), "r"((int)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row)
+      : "memory");
+}
+
+// shared -> global through a tensor map: the box is clipped at the tensor's
+// edges (rows past M, columns past the output's width)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the committed stores have read their shared-memory source
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory, then the async proxy (TMA, wgmma)
+// reads them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barriers: 1 for the whole block, 2 + wg for one warpgroup
+template <int ID, int THREADS>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  if (wg == 0)
+    bar_sync<2, 128>();
+  else
+    bar_sync<3, 128>();
+}
+
+// wgmma smem descriptor: K-major, 128-byte swizzle, 8-row groups 1024 B apart
+__device__ __forceinline__ uint64_t make_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, smem) . B (128 x 16, smem)^T
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-__global__ void __launch_bounds__(THREADS) ln_linear_kernel(Params p) {
-  __shared__ __align__(16) bf16 As[BM][LDS];
-  __shared__ __align__(16) bf16 Bs[BN][LDS];
-  __shared__ float row_mean[BM], row_rstd[BM];
+// the 16-byte group j (columns 8j..8j+7) of panel row r: chunk j / 8, and
+// within the row's 128-byte line the group index XOR (r mod 8), as TMA's
+// 128-byte swizzle stores it
+template <int BM>
+__device__ __forceinline__ uint4* panel_cell(uint8_t* panel, int r, int j) {
+  return reinterpret_cast<uint4*>(panel + (j >> 3) * (BM * 128) + r * 128 +
+                                   (((j & 7) ^ (r & 7)) << 4));
+}
+
+// s = round(x + round(round(x_add / keep) * ma)) in place
+template <int BM, int NC>
+__device__ __forceinline__ void form_sum(const Params& p, uint8_t* panel,
+                                         uint64_t* panel_bar, int m0,
+                                         int ctid) {
+  const int G = p.K / 8, total = BM * G;
+  for (int base = 0; base < total; base += 8 * NC) {
+    uint4 xa[8];
+    float ma[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {  // loads in flight before the panel lands
+      const int gi = base + u * NC + ctid, r = gi / G;
+      xa[u] = make_uint4(0, 0, 0, 0);
+      ma[u] = 1.f;
+      if (gi < total && m0 + r < p.M) {
+        xa[u] = __ldg(reinterpret_cast<const uint4*>(
+            p.x_add + (size_t)(m0 + r) * p.K + (gi - r * G) * 8));
+        if (p.mask_add) ma[u] = __ldg(p.mask_add + (m0 + r) / p.rows);
+      }
+    }
+    mbar_wait(panel_bar, 0);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int gi = base + u * NC + ctid, r = gi / G, j = gi - r * G;
+      if (gi >= total || m0 + r >= p.M) continue;
+      uint4* cell = panel_cell<BM>(panel, r, j);
+      float v[8], a[8];
+      unpack8(*cell, v);
+      unpack8(xa[u], a);
+      if (p.mask_add) {  // a / keep * ma: two bf16 ops (the mask is exact)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i] / p.keep) * ma[u];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = v[i] + a[i];
+      *cell = pack8(v);
+    }
+  }
+}
+
+// LayerNorm of each panel row in place, all rows at once: thread t takes
+// half t / BM of row t % BM (a quarter warp reads 8 rows' same group: 8
+// distinct swizzled slots), the halves' sums meet in ``red``; three passes
+// over shared memory (sum; centred squares; normalise), in f32 with eps
+// inside the rsqrt as the reference.  Rows past M are left as loaded.
+template <int BM>
+__device__ __forceinline__ void layer_norm_panel(const Params& p,
+                                                 uint8_t* panel,
+                                                 const float* lnp, float* red,
+                                                 int m0, int tid) {
+  constexpr int NC = 2 * BM;
+  const int G = p.K / 8, half = (G + 1) / 2;
+  const int r = tid % BM, h = tid / BM, j0 = h * half, j1 = min(G, j0 + half);
+  float v[8], sum = 0.f, sq = 0.f;
+#pragma unroll 4
+  for (int j = j0; j < j1; ++j) {
+    unpack8(*panel_cell<BM>(panel, r, j), v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += v[i];
+  }
+  red[h * BM + r] = sum;
+  bar_sync<1, NC>();
+  const float mean = (red[r] + red[BM + r]) / p.K;
+#pragma unroll 4
+  for (int j = j0; j < j1; ++j) {
+    unpack8(*panel_cell<BM>(panel, r, j), v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sq += (v[i] - mean) * (v[i] - mean);
+  }
+  bar_sync<1, NC>();  // both halves have read the sums
+  red[h * BM + r] = sq;
+  bar_sync<1, NC>();
+  const float rstd = rsqrtf((red[r] + red[BM + r]) / p.K + p.eps);
+  if (m0 + r >= p.M) return;
+#pragma unroll 2
+  for (int j = j0; j < j1; ++j) {
+    uint4* cell = panel_cell<BM>(panel, r, j);
+    unpack8(*cell, v);
+    const float4* g4 = reinterpret_cast<const float4*>(lnp + 8 * j);
+    const float4* b4 = reinterpret_cast<const float4*>(lnp + p.kc * BK + 8 * j);
+    const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
+    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = (v[i] - mean) * rstd * g[i] + b[i];
+    *cell = pack8(v);
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
+// One warpgroup's 64 x BN tile, straight from the f32 fragment: the ops in
+// the contract's order (after the one rounding, each a correctly rounded
+// bf16x2 op, as the contract's bf16 ops), into the bf16 tile ``ot`` (four
+// 64 x 32 sub-tiles, 64-byte swizzled, the residual already in them), then
+// one thread stores the sub-tiles with TMA.  ``direct``: each thread's
+// column pairs go straight to out0 / out1 instead.  Fragment of m64nNk16:
+// warp wl holds rows 16 wl + lane / 4 (+ 8), columns 8 j + 2 (lane % 4)
+// (+ 1).
+template <bool GELU>
+__device__ __forceinline__ void epilogue(const Params& p, float (&acc)[64],
+                                         uint8_t* ot, const float* sb,
+                                         const CUtensorMap* tm_o0,
+                                         const CUtensorMap* tm_o1,
+                                         const float (&my)[2], int mb, int n0,
+                                         int wg, int wl, int lane) {
+  const int tw = wl * 32 + lane, r0 = wl * 16 + lane / 4, c4 = 2 * (lane % 4);
+  const uint32_t ot_a = smem_u32(ot);
+  wg_sync(wg);  // the tile's bias is in; ``ot`` is free (or holds the residual)
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + c4;
+    const float2 b = p.bias ? *reinterpret_cast<const float2*>(sb + col)
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int row = r0 + 8 * h2;
+      float t0 = acc[4 * j + 2 * h2], t1 = acc[4 * j + 2 * h2 + 1];
+      if (p.bias_mode == 1) {
+        t0 += b.x;
+        t1 += b.y;
+      }
+      if (GELU) {
+        t0 = gelu_erf(t0);
+        t1 = gelu_erf(t1);
+      }
+      __nv_bfloat162 h = __floats2bfloat162_rn(t0, t1);  // the one rounding
+      if (p.bias_mode == 2) h = __hadd2(h, __floats2bfloat162_rn(b.x, b.y));
+      if (p.mask_out) {  // round(y / keep) * mask: the mask is 0 or 1
+        const float2 f = __bfloat1622float2(h);
+        h = __hmul2(__floats2bfloat162_rn(f.x / p.keep, f.y / p.keep),
+                    __floats2bfloat162_rn(my[h2], my[h2]));
+      }
+      if (!p.direct) {
+        // sub-tile j / 4, 16-byte group j % 4 XOR bits 7-8 of the address
+        const uint32_t a = ot_a + (j / 4) * SUB_BYTES + row * 64 +
+                           (((j % 4) ^ ((row >> 1) & 3)) << 4) + c4 * 2;
+        if (p.residual) {
+          uint32_t r;
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(r) : "r"(a));
+          h = __hadd2(h, as_bf2(r));
+        }
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(bits(h))
+                     : "memory");
+      } else {
+        const int m = mb + row, n = n0 + col;
+        if (m < p.M && n < p.N) {
+          if (p.residual)
+            h = __hadd2(h, as_bf2(__ldg(reinterpret_cast<const unsigned*>(
+                               p.residual + (size_t)m * p.N + n))));
+          if (n < p.n_split)
+            *reinterpret_cast<uint32_t*>(p.out0 + (size_t)m * p.n_split + n) =
+                bits(h);
+          else
+            *reinterpret_cast<uint32_t*>(p.out1 + (size_t)m * (p.N - p.n_split) +
+                                         (n - p.n_split)) = bits(h);
+        }
+      }
+    }
+  }
+  fence_async_smem();
+  wg_sync(wg);  // every thread is done with ``sb`` (and has written ``ot``)
+#pragma unroll
+  for (int st = 0; st < BN / SUB; ++st) {
+    const int nq = n0 + SUB * st;
+    const bool go = tw == 0 && !p.direct && nq < p.N;
+    tma_store_if(go && nq < p.n_split, tm_o0, ot + st * SUB_BYTES, nq, mb);
+    tma_store_if(go && nq >= p.n_split, tm_o1, ot + st * SUB_BYTES,
+                 nq - p.n_split, mb);
+  }
+  bulk_commit();
+}
+
+// BM / 64 warpgroups, two threads per panel row; thread 0 also keeps the
+// TMA ring full (no producer warp: a ninth warp would cut the registers of
+// two co-resident blocks to 96 a thread, below what the tile needs)
+template <int BM, bool PANEL, bool GELU>
+__global__ void __launch_bounds__(BM * 2, BM == 128 ? 2 : 3)
+    ln_linear_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w,
+                     const __grid_constant__ CUtensorMap tm_s,
+                     const __grid_constant__ CUtensorMap tm_o0,
+                     const __grid_constant__ CUtensorMap tm_o1,
+                     const __grid_constant__ CUtensorMap tm_r, Params p) {
+  constexpr int NC = BM * 2;   // threads
+  extern __shared__ __align__(1024) uint8_t smem[];  // 128-byte swizzle
+  const Layout L(BM, PANEL, p.kc, p.stages);
+  uint8_t* panel = smem;
+  uint8_t* ring = smem + L.ring;
+  float* sbias = reinterpret_cast<float*>(smem + L.sbias);
+  float* lnp = reinterpret_cast<float*>(smem + L.lnp);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* panel_bar = full + p.stages;
+  uint64_t* res_bar = panel_bar + 1;  // one per warpgroup
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const bool ln = p.ln_g != nullptr;
-  const bool write_s = p.s_out != nullptr && blockIdx.y == 0;
-
-  if (ln) {  // LN statistics, one warp per row, two passes
-    for (int r = warp; r < BM; r += THREADS / 32) {
-      const int m = m0 + r;
-      float mean = 0.f, rstd = 0.f;
-      if (m < p.M) {
-        float v[8], sum = 0.f;
-        for (int k = lane * 8; k < p.K; k += 256) {
-          load_row8(p, m, k, v);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) sum += v[i];
-        }
-        mean = warp_sum(sum) / p.K;
-        float sq = 0.f;
-        for (int k = lane * 8; k < p.K; k += 256) {
-          load_row8(p, m, k, v);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) sq += (v[i] - mean) * (v[i] - mean);
-        }
-        rstd = rsqrtf(warp_sum(sq) / p.K + p.eps);
-      }
-      if (lane == 0) {
-        row_mean[r] = mean;
-        row_rstd[r] = rstd;
-      }
+  const int wg = warp / 4, wl = warp % 4, tw = tid % 128;
+  const int split = blockIdx.x % p.splits;
+  const int m0 = (blockIdx.x / p.splits) * BM, mb = m0 + wg * 64;
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int t_begin = split * p.tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + p.tiles_per_split);
+  uint8_t* ot = smem + L.ostg + wg * (BN / SUB) * SUB_BYTES;
+  float* sb = sbias + wg * BN;
+  // ring load i: K chunk i % kc of N tile t_begin + i / kc (W, and the A
+  // tile of the streaming path) into slot i % stages
+  const int total = max(0, t_end - t_begin) * p.kc;
+  auto issue = [&](bool pred, int i) {  // pred: this thread, i < total
+    const int s = i % p.stages, c = i % p.kc;
+    uint8_t* dst = ring + s * L.slot;
+    mbar_expect_tx_if(pred, &full[s], L.slot);
+    if (!PANEL) {
+      tma_load_if(pred, dst, &tm_x, &full[s], c * BK, m0);
+      dst += BM * 128;
     }
-    __syncthreads();
+    tma_load_if(pred, dst, &tm_w, &full[s], c * BK, (t_begin + i / p.kc) * BN);
+  };
+
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tm_x))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tm_w))
+                 : "memory");
+    for (int s = 0; s < p.stages + 3; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (PANEL) {
+      mbar_expect_tx(panel_bar, p.kc * BM * 128);
+      for (int c = 0; c < p.kc; ++c)
+        tma_load(panel + c * BM * 128, &tm_x, panel_bar, c * BK, m0);
+    }
+    for (int i = 0; i < min(p.stages, total); ++i) issue(true, i);
+  }
+  if (PANEL && p.ln_g) {  // the LN weight and bias, once per block
+    for (int k = tid; k < p.K; k += NC) {
+      lnp[k] = __ldg(p.ln_g + k);
+      lnp[p.kc * BK + k] = __ldg(p.ln_b + k);
+    }
+  }
+  __syncthreads();
+
+  if (PANEL) {  // the prologue runs while the first W tiles arrive
+    if (p.x_add) {
+      form_sum<BM, NC>(p, panel, panel_bar, m0, tid);
+      if (p.s_out && split == 0) {  // s leaves once, straight from the panel
+        fence_async_smem();
+        bar_sync<1, NC>();
+        if (tid == 0) {
+          for (int c = 0; c < p.kc; ++c)
+            tma_store(&tm_s, panel + c * BM * 128, c * BK, m0);
+          bulk_commit();
+          bulk_wait_read();
+        }
+      }
+      bar_sync<1, NC>();
+    } else {
+      mbar_wait(panel_bar, 0);
+    }
+    if (p.ln_g)
+      layer_norm_panel<BM>(p, panel, lnp, reinterpret_cast<float*>(smem + L.ostg),
+                           m0, tid);
+    fence_async_smem();  // the panel's generic writes, then wgmma reads it
+    bar_sync<1, NC>();
   }
 
-  float acc[4][4][4];
+  // this thread's two fragment rows keep their output mask for the block
+  float my[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-    for (int c = tid; c < BM * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + kc;
-      uint4 packed = make_uint4(0, 0, 0, 0);
-      if (m < p.M && k < p.K) {
-        float v[8];
-        load_row8(p, m, k, v);
-        if (write_s)
-          *reinterpret_cast<uint4*>(p.s_out + (size_t)m * p.K + k) = pack8(v);
-        if (ln) {
-          const float mean = row_mean[r], rstd = row_rstd[r];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            v[i] = (v[i] - mean) * rstd * p.ln_g[k + i] + p.ln_b[k + i];
-        }
-        packed = pack8(v);
-      }
-      *reinterpret_cast<uint4*>(&As[r][kc]) = packed;
-    }
-    for (int c = tid; c < BN * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int n = n0 + r, k = k0 + kc;
-      uint4 packed = make_uint4(0, 0, 0, 0);
-      if (n < p.N && k < p.K)
-        packed = *reinterpret_cast<const uint4*>(p.w + (size_t)n * p.K + k);
-      *reinterpret_cast<uint4*>(&Bs[r][kc]) = packed;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(a[mi], &As[wm + mi * 16 + lane % 16][kk + (lane / 16) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, &Bs[wn + nj * 16 + (lane / 16) * 8 + lane % 8]
-                          [kk + ((lane / 8) % 2) * 8]);
-        b[2 * nj][0] = r[0];
-        b[2 * nj][1] = r[1];
-        b[2 * nj + 1][0] = r[2];
-        b[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-    }
-    __syncthreads();
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int m = mb + wl * 16 + lane / 4 + 8 * h2;
+    my[h2] = p.mask_out && m < p.M ? __ldg(p.mask_out + m / p.rows) : 1.f;
   }
-
-  const int g = lane / 4, t = lane % 4;
+  const bool tma_residual = p.residual && !p.direct;
+  float acc[64];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < total; ++i) {
+    const int s = i % p.stages, c = i % p.kc, t = i / p.kc;
+    const int n0 = (t_begin + t) * BN;
+    if (c == 0) {  // a tile starts: its bias, and its residual by TMA
+      sb[tw] = p.bias && n0 + tw < p.N ? __ldg(p.bias + n0 + tw) : 0.f;
+      bulk_wait_read();  // the last tile's stores have left ``ot``
+      if (tma_residual) {
+        const int subs = min(BN / SUB, (p.N - n0 + SUB - 1) / SUB);
+        mbar_expect_tx_if(tw == 0, &res_bar[wg], subs * SUB_BYTES);
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm + mi * 16 + g + half * 8;
-        const int n = n0 + wn + ni * 8 + 2 * t;
-        if (m >= p.M || n >= p.N) continue;  // N % 8 == 0: n + 1 < N too
-        float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
-        if (p.bias_mode == 1) {
-          v0 += p.bias[n];
-          v1 += p.bias[n + 1];
-        }
-        if (p.gelu) {
-          v0 = gelu_erf(v0);
-          v1 = gelu_erf(v1);
-        }
-        v0 = round_bf16(v0);
-        v1 = round_bf16(v1);
-        if (p.bias_mode == 2) {
-          v0 = round_bf16(v0 + round_bf16(p.bias[n]));
-          v1 = round_bf16(v1 + round_bf16(p.bias[n + 1]));
-        }
-        if (p.mask_out) {
-          const float my = p.mask_out[m / p.rows];
-          v0 = round_bf16(v0 / p.keep) * my;
-          v1 = round_bf16(v1 / p.keep) * my;
-        }
-        if (p.residual) {
-          float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              p.residual + (size_t)m * p.N + n));
-          v0 += r.x;
-          v1 += r.y;
-        }
-        const uint32_t packed = pack_bf16(v0, v1);
-        if (n < p.n_split)
-          *reinterpret_cast<uint32_t*>(p.out0 + (size_t)m * p.n_split + n) = packed;
-        else
-          *reinterpret_cast<uint32_t*>(
-              p.out1 + (size_t)m * (p.N - p.n_split) + (n - p.n_split)) = packed;
+        for (int st = 0; st < BN / SUB; ++st)
+          tma_load_if(tw == 0 && st < subs, ot + st * SUB_BYTES, &tm_r,
+                      &res_bar[wg], n0 + SUB * st, mb);
       }
+    }
+    mbar_wait(&full[s], (i / p.stages) & 1);
+    __syncwarp();  // wgmma is .aligned: the warp converged after the spin
+    uint8_t* s_base = ring + s * L.slot;
+    const uint8_t* a = PANEL ? panel + c * BM * 128 + wg * 64 * 128
+                             : s_base + wg * 64 * 128;
+    const uint8_t* b = PANEL ? s_base : s_base + BM * 128;
+    const uint64_t da = make_desc(a), db = make_desc(b);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k)  // +32 bytes along K per step
+      wgmma_m64n128(acc, da + 2 * k, db + 2 * k, c > 0 || k > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // no wgmma stays in flight past the chunk: the refill below (and any
+    // other one-thread path) would make the compiler serialise every wgmma
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    bar_sync<1, NC>();  // every warp is done with the slot: refill it
+    issue(tid == 0 && i + p.stages < total, i + p.stages);
+    if (c == p.kc - 1) {
+      if (tma_residual) mbar_wait(&res_bar[wg], t & 1);
+      epilogue<GELU>(p, acc, ot, sb, &tm_o0, &tm_o1, my, mb, n0, wg, wl,
+                     lane);
+    }
+  }
+  bulk_wait();  // this warpgroup's stores are done
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a [rows, cols] bf16 row-major tensor in boxes of box_rows x box_cols:
+// operands in 128-byte swizzled boxes of BK columns, outputs and the
+// residual in 64-byte swizzled boxes of SUB; loads are zero-filled and
+// stores clipped past its edges
+int encode(CUtensorMap* map, const bf16* ptr, int rows, int cols,
+           int box_rows, int box_cols) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return ERR_DRIVER;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<bf16*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  box_cols == BK ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TMAP;
+}
+
+template <int BM, bool PANEL, bool GELU>
+int launch(const Params& p, const CUtensorMap (&maps)[6], int smem,
+           cudaStream_t stream) {
+  auto kernel = ln_linear_kernel<BM, PANEL, GELU>;
+  static bool granted[64] = {};  // the shared-memory grant, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !granted[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BLOCK_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) granted[dev] = true;
+  }
+  const long blocks = (long)((p.M + BM - 1) / BM) * p.splits;
+  kernel<<<(unsigned)blocks, BM * 2, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool GELU>
+int dispatch(const Params& p, const CUtensorMap (&maps)[6], int bm,
+             bool panel, int smem, cudaStream_t stream) {
+  if (panel)
+    return bm == 128 ? launch<128, true, GELU>(p, maps, smem, stream)
+                     : launch<64, true, GELU>(p, maps, smem, stream);
+  return bm == 128 ? launch<128, false, GELU>(p, maps, smem, stream)
+                   : launch<64, false, GELU>(p, maps, smem, stream);
 }
 
 }  // namespace
 
 extern "C" const char* svit_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case ERR_PLAN:
+      return "ln_linear: the launch plan does not fit the kernel";
+    case ERR_DRIVER:
+      return "ln_linear: cuTensorMapEncodeTiled not found in the driver";
+    case ERR_TMAP:
+      return "ln_linear: cuTensorMapEncodeTiled refused a tensor map";
+    default:
+      return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
+// bm, stages, splits: the launch plan of ops/ln_linear.py:ln_linear_plan
 extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
                               const float* ln_g, const float* ln_b, float eps,
                               const bf16* w, const float* bias, int bias_mode,
                               int gelu, const bf16* residual, bf16* out0,
                               bf16* out1, int n_split, int M, int N, int K,
                               const float* mask_add, const float* mask_out,
-                              float keep, int rows, cudaStream_t stream) {
-  Params p{x, x_add, s_out, ln_g, ln_b, eps, w, bias, bias_mode, gelu,
-           residual, out0, out1, n_split, M, N, K, mask_add, mask_out, keep,
-           rows};
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  ln_linear_kernel<<<grid, THREADS, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+                              float keep, int rows, int bm, int stages,
+                              int splits, cudaStream_t stream) {
+  const bool panel = ln_g != nullptr || x_add != nullptr;
+  const int kc = (K + BK - 1) / BK, n_tiles = (N + BN - 1) / BN;
+  if ((bm != 64 && bm != 128) || stages < 1 || splits < 1 ||
+      splits > n_tiles || K % 8 || N % 8)
+    return ERR_PLAN;
+  if (panel && kc * BK > (bm == 128 ? 384 : 1024)) return ERR_PLAN;
+  const Layout L(bm, panel, kc, stages);
+  if (L.total > SMEM_BLOCK_MAX) return ERR_PLAN;
+  // TMA stores need every output sub-tile inside one output of at least
+  // SUB columns: the split on a sub-tile edge
+  const bool tma_out = n_split >= SUB && (n_split == N || n_split % SUB == 0) &&
+                       (n_split == N || N - n_split >= SUB);
+  Params p{x, x_add, s_out, ln_g, ln_b, eps, bias, bias_mode, residual, out0,
+           out1, n_split, M, N, K, mask_add, mask_out, keep, rows, kc,
+           stages, splits, (n_tiles + splits - 1) / splits, !tma_out};
+  // x, w, s, out0, out1, residual (unused maps stay zero)
+  CUtensorMap maps[6] = {};
+  int rc = encode(&maps[0], x, M, K, bm, BK);
+  if (!rc) rc = encode(&maps[1], w, N, K, BN, BK);
+  if (!rc && s_out) rc = encode(&maps[2], s_out, M, K, bm, BK);
+  if (!rc && tma_out) rc = encode(&maps[3], out0, M, n_split, 64, SUB);
+  if (!rc && tma_out && out1)
+    rc = encode(&maps[4], out1, M, N - n_split, 64, SUB);
+  if (!rc && tma_out && residual) rc = encode(&maps[5], residual, M, N, 64, SUB);
+  if (rc) return rc;
+  return gelu ? dispatch<true>(p, maps, bm, panel, L.total, stream)
+              : dispatch<false>(p, maps, bm, panel, L.total, stream);
 }

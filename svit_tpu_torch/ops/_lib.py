@@ -17,6 +17,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -47,7 +48,8 @@ _SIGNATURES = {
         _P, _P, _I, _I, _P,                # w, bias, bias_mode, gelu, residual
         _P, _P, _I,                        # out0, out1, n_split
         _I, _I, _I,                        # M, N, K
-        _P, _P, _F, _I, _P,                # mask_add, mask_out, keep, rows, stream
+        _P, _P, _F, _I,                    # mask_add, mask_out, keep, rows
+        _I, _I, _I, _P,                    # bm, stages, splits, stream
     ],
     "svit_pool_ln": [
         _P, _P, _P, _P, _P,                # x, w, ln_g, ln_b, out
@@ -187,9 +189,11 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     """Streaming multiprocessors of ``device``: the kernels that split their
-    work (K5's query splits, K7's chunks) size their grids to fill them."""
+    work (K1's N sweep, K5's query splits, K7's chunks) size their grids to
+    fill them."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

@@ -14,18 +14,23 @@
 
 Weights keep the PyTorch ``[out, in]`` layout.  On a CPU tensor the wrapper
 runs the plain version ``ln_linear_reference``; on a CUDA tensor it launches
-the kernel or raises.  The uses below are the JAX package's fused kernels:
-``fused_ln_qkv``, ``fused_ln_dense``, ``fused_ffn_residual`` (two launches:
-the hidden activation goes through device memory) and its drop-path form
+the kernel or raises.  ``ln_linear_plan`` picks the launch (path, rows per
+block, ring stages, blocks per row panel) from the shapes alone.  The uses
+below are the JAX package's fused kernels: ``fused_ln_qkv``,
+``fused_ln_dense``, ``fused_ffn_residual`` (two launches: the hidden
+activation goes through device memory) and its drop-path form
 ``fused_ffn_residual_masked``, which scales ``a`` by ``mask_add / keep`` in
 the prologue and the output by ``mask_out / keep`` before the residual, each
-op rounded to the IO dtype.  Each use is differentiable: its gradient is
-the autograd of its plain twin recomputed from the saved inputs
-(``ops/vjp.py``), as the JAX package's custom VJPs do.
+op rounded to the IO dtype, and ``fused_ffn`` (two launches, no residual).
+Each use is differentiable: its gradient is the autograd of its plain twin
+recomputed from the saved inputs (``ops/vjp.py``), as the JAX package's
+custom VJPs do.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -63,6 +68,110 @@ def drop_path_scale(t, mask, keep: float, rows: int = 1):
     kq = float(torch.tensor(keep, dtype=t.dtype))
     m = mask.to(t.dtype).view(-1, *([1] * t.dim()))
     return (t.view(m.shape[0], rows, *t.shape[1:]) / kq * m).view(t.shape)
+
+
+# The kernel's tiles (csrc/ln_linear.cu): BN output columns per tile, K in
+# TMA boxes of BK, and the card's shared memory.
+BN, BK = 128, 64
+PANEL_K_MAX = 1024          # K of the resident LN panel (64 rows of it)
+SMEM_BLOCK = 232448         # dynamic shared memory one block may use
+SMEM_SM = 233472            # shared memory of one SM
+SMEM_RESERVED = 1024        # what the system keeps per block
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def ln_linear_smem(bm: int, panel: bool, kc: int, stages: int) -> int:
+    """Dynamic shared memory of one block, as ``csrc/ln_linear.cu:Layout``
+    lays it out: the panel (``bm`` rows by ``kc`` chunks of 64 bf16), the
+    ring (a W tile, plus an A tile without a panel), per warpgroup the bf16
+    output tile (four 64 x 32 sub-tiles) and the tile's bias, the LN weight
+    and bias (panel) and the mbarriers."""
+    slot = BN * 128 + (0 if panel else bm * 128)
+    return ((bm * kc * 128 + kc * BK * 8 if panel else 0) + stages * slot
+            + bm // 64 * (BN * 128 + BN * 4) + 8 * (stages + 3))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    panel: bool          # the LN / x_add prologue on a resident row panel
+    bm: int              # rows per block
+    stages: int          # TMA ring slots
+    splits: int          # blocks sharing one row panel's N sweep
+    tiles_per_split: int
+    m_tiles: int
+    n_tiles: int
+    smem: int            # dynamic shared memory per block, bytes
+    blocks_per_sm: int   # what the shared memory admits
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.splits
+
+
+# the most blocks of each height an SM holds by their registers (launch
+# bounds of csrc/ln_linear.cu: 256 threads at 128 registers, 128 at 168)
+BLOCKS_BY_REGS = {128: 2, 64: 3}
+
+
+@functools.lru_cache(maxsize=None)
+def ln_linear_plan(M: int, N: int, K: int, *, prologue: bool,
+                   split: Optional[int] = None, sms: int = 132) -> Plan:
+    """The launch of K1 for an ``[M, K] @ [N, K].T`` call.
+
+    With a prologue (LN or ``x_add``) a block keeps ``bm`` rows of all of K
+    resident (K up to ``PANEL_K_MAX``); without one, A streams with W.
+    Blocks per SM come first, then the ring's depth: on the card, a third
+    block of 64 rows hid the TMA latency better than deeper rings did.  So
+    a block is 128 rows (two warpgroups) where two such blocks fit an SM
+    and, without a prologue, where they make at least three per SM across
+    the card; else 64 rows.  The ring then takes the most stages (up to 4)
+    that keep that many blocks.  Where the row panels leave SMs idle,
+    blocks split a panel's N tiles between them (each loads the panel):
+    the fewest waves times (tiles per block + the panel's prologue, about
+    kc / 2 tiles), at least two splits where panels are fewer than SMs."""
+    if K % 8 or N % 8 or K <= 0 or N <= 0:
+        raise ValueError(f"ln_linear needs K and N multiples of 8 (K={K}, N={N})")
+    if split is not None and (split % 8 or not 0 < split <= N):
+        raise ValueError(f"split {split} must be a multiple of 8 in (0, {N}]")
+    kc = _cdiv(K, BK)
+    if prologue and kc * BK > PANEL_K_MAX:
+        raise ValueError(f"ln_linear's LN panel holds K <= {PANEL_K_MAX} "
+                         f"(K={K})")
+    n_tiles = _cdiv(N, BN)
+
+    def per_sm(bm, stages):   # blocks an SM holds: shared memory, registers
+        fit = SMEM_SM // (ln_linear_smem(bm, prologue, kc, stages)
+                          + SMEM_RESERVED)
+        return min(fit, BLOCKS_BY_REGS[bm])
+
+    if prologue:
+        big = kc * BK <= 384 and per_sm(128, 2) >= 2
+    else:
+        big = _cdiv(M, 128) * n_tiles >= 3 * sms
+    bm = 128 if big else 64
+    blocks = per_sm(bm, 2)
+    if blocks < 1:
+        raise ValueError(f"ln_linear: K={K} does not fit shared memory")
+    stages = max(s for s in (2, 3, 4) if per_sm(bm, s) >= blocks)
+    m_tiles = _cdiv(M, bm)
+    if prologue:
+        slots = blocks * sms
+        pers = range(1, n_tiles if m_tiles < sms and n_tiles > 1
+                     else n_tiles + 1)
+        per = min(pers, key=lambda t: (
+            _cdiv(m_tiles * _cdiv(n_tiles, t), slots) * (t + kc / 2), -t))
+    else:
+        per = 1
+    return Plan(prologue, bm, stages, _cdiv(n_tiles, per), per, m_tiles,
+                n_tiles, ln_linear_smem(bm, prologue, kc, stages), blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _round_bf16(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.bfloat16))
 
 
 def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
@@ -104,8 +213,8 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
               mask_add=None, mask_out=None, keep=1.0, rows=1):
     """Kernel K1 (``csrc/ln_linear.cu``); same contract as
     ``ln_linear_reference``.  Takes bf16 activations and weights, f32 LN
-    parameters and bias.  A launch with a mask counts as
-    ``ln_linear_masked``."""
+    parameters and bias; with ``ln`` or ``x_add``, K up to ``PANEL_K_MAX``.
+    A launch with a mask counts as ``ln_linear_masked``."""
     if x.device.type == "cpu":
         return ln_linear_reference(
             x, w, bias, ln=ln, x_add=x_add, gelu=gelu,
@@ -119,8 +228,8 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
     dt = torch.bfloat16
     _lib.check(x, "x", dt)
     _lib.check(w, "w", dt, (N, K), x.device)
-    if K % 8 or N % 8:
-        raise ValueError(f"ln_linear needs K and N multiples of 8 (K={K}, N={N})")
+    plan = ln_linear_plan(M, N, K, prologue=ln is not None or x_add is not None,
+                          split=split, sms=_lib.sm_count(x.device))
     if x_add is not None:
         _lib.check(x_add, "x_add", dt, (M, K), x.device)
     if residual is not None:
@@ -131,8 +240,6 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
         _lib.check(ln[0], "ln weight", torch.float32, (K,), x.device)
         _lib.check(ln[1], "ln bias", torch.float32, (K,), x.device)
     n_split = N if split is None else int(split)
-    if n_split % 8 or not 0 < n_split <= N:
-        raise ValueError(f"split {split} must be a multiple of 8 in (0, {N}]")
     out0 = torch.empty((M, n_split), dtype=dt, device=x.device)
     out1 = (torch.empty((M, N - n_split), dtype=dt, device=x.device)
             if n_split < N else None)
@@ -154,7 +261,8 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
             EPS, _lib.ptr(w), _lib.ptr(bias), mode, int(gelu),
             _lib.ptr(residual), _lib.ptr(out0), _lib.ptr(out1), n_split,
             M, N, K, _lib.ptr(mask_add), _lib.ptr(mask_out),
-            float(torch.tensor(keep, dtype=dt)), int(rows), _lib.stream())
+            _round_bf16(keep), int(rows),
+            plan.bm, plan.stages, plan.splits, _lib.stream())
     y = out0 if split is None else (out0, out1)
     return y if x_add is None else (y, s)
 
@@ -248,10 +356,23 @@ def fused_ffn_residual_masked(keep, x_res, a, ln_w, ln_b, w1, b1, w2, b2,
         (x_res, a, ln_w, ln_b, w1, b1, w2, b2, ma, my), keep)
 
 
+def _ffn(op, x, ln_w, ln_b, w1, b1, w2, b2):
+    h = op(_flat(x), w1, b1, ln=(ln_w, ln_b), gelu=True)
+    return op(h, w2, b2).view(*x.shape[:-1], w2.shape[0])
+
+
 def ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2):
     """LN + MLP without residual, in plain PyTorch (the extras' FFN)."""
-    h = ln_linear_reference(_flat(x), w1, b1, ln=(ln_w, ln_b), gelu=True)
-    return ln_linear_reference(h, w2, b2).view(*x.shape[:-1], w2.shape[0])
+    return _ffn(ln_linear_reference, x, ln_w, ln_b, w1, b1, w2, b2)
+
+
+def fused_ffn(x, ln_w, ln_b, w1, b1, w2, b2):
+    """LN + MLP without residual (JAX ``fused_ffn``, ``_ffn_kernel``'s op
+    order) as two K1 launches: LN -> fc1 + b1 in f32 -> exact GELU -> one
+    rounding; then fc2 + b2 in f32 and one rounding.  No model path calls
+    it, as in the JAX package: the extras keep ``ffn_reference``."""
+    return plain_vjp(lambda *t: _ffn(ln_linear, *t), ffn_reference,
+                     (x, ln_w, ln_b, w1, b1, w2, b2))
 
 
 def linear_proj(x, w, b):

@@ -64,14 +64,99 @@ def _gate(kernel, plain, *args, **kwargs):
     assert _rel(out, p32) <= 3 * _rel(p16, p32) + 2e-3
 
 
-@pytest.mark.parametrize("M,K,N", [(1000, 96, 288), (333, 384, 96)])
+def _ln(gen, K):
+    return (1 + _randn(gen, K, scale=0.1, dtype=torch.float32),
+            _randn(gen, K, scale=0.1, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 96, 288), (333, 384, 96),
+                                   (3137, 768, 2304)])
 def test_ln_linear_ln_qkv_split(gen, M, K, N):
     x = _randn(gen, M, K)
     w = _randn(gen, N, K, scale=K ** -0.5)
     b = _randn(gen, N, scale=0.1, dtype=torch.float32)
-    ln = (1 + _randn(gen, K, scale=0.1, dtype=torch.float32),
-          _randn(gen, K, scale=0.1, dtype=torch.float32))
-    _gate(tl.ln_linear, tl.ln_linear_reference, x, w, b, ln=ln, split=N // 3)
+    _gate(tl.ln_linear, tl.ln_linear_reference, x, w, b, ln=_ln(gen, K),
+          split=N // 3)
+
+
+@pytest.mark.parametrize("split", [8, 40, 200, 280])
+def test_ln_linear_split_inside_a_tile(gen, split):
+    """The q | kv split off every 32-column boundary: the two outputs share
+    the epilogue's tiles."""
+    M, K, N = 333, 96, 288
+    x = _randn(gen, M, K)
+    w = _randn(gen, N, K, scale=K ** -0.5)
+    b = _randn(gen, N, scale=0.1, dtype=torch.float32)
+    _gate(tl.ln_linear, tl.ln_linear_reference, x, w, b, ln=_ln(gen, K),
+          split=split)
+
+
+@pytest.mark.parametrize("K", [96, 192, 384, 768, 1536, 3072])
+@pytest.mark.parametrize("M", [333, 1000, 3137])
+def test_ln_linear_rows_and_depths(gen, M, K):
+    """Rows off the block edge and every K of the main path: with the LN
+    panel (and GELU) up to K = 768, the streaming GEMM with a residual
+    beyond (fc2's K = 4C)."""
+    N = 200
+    x = _randn(gen, M, K)
+    w = _randn(gen, N, K, scale=K ** -0.5)
+    b = _randn(gen, N, scale=0.1, dtype=torch.float32)
+    if K <= 768:
+        _gate(tl.ln_linear, tl.ln_linear_reference, x, w, b, ln=_ln(gen, K),
+              gelu=True)
+    else:
+        _gate(tl.ln_linear, tl.ln_linear_reference, x, w, b,
+              residual=_randn(gen, M, N))
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 192, 768), (3137, 768, 3072)])
+def test_ln_linear_x_add_writes_the_sum(gen, M, K, N):
+    x, a = _randn(gen, M, K), _randn(gen, M, K)
+    w = _randn(gen, N, K, scale=K ** -0.5)
+    b = _randn(gen, N, scale=0.1, dtype=torch.float32)
+    _gate(tl.ln_linear, tl.ln_linear_reference, x, w, b, ln=_ln(gen, K),
+          x_add=a, gelu=True)
+    y, s = tl.ln_linear(x, w, b, ln=_ln(gen, K), x_add=a, gelu=True)
+    torch.testing.assert_close(s, x + a, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("C,rows", [(96, 250), (768, 49)])
+def test_ln_linear_masked_modes(gen, C, rows):
+    """K1's masked mode at both ends of the main path's widths: fc1 with
+    x_add / keep * ma, fc2 with round(out) / keep * my + residual."""
+    B = 4
+    x, a = _randn(gen, B * rows, C), _randn(gen, B * rows, C)
+    w1 = _randn(gen, 4 * C, C, scale=C ** -0.5)
+    w2 = _randn(gen, C, 4 * C, scale=(4 * C) ** -0.5)
+    b1 = _randn(gen, 4 * C, scale=0.1, dtype=torch.float32)
+    b2 = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    ma = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda")
+    my = torch.tensor([0.0, 1.0, 1.0, 1.0], device="cuda")
+    _gate(tl.ln_linear, tl.ln_linear_reference, x, w1, b1, ln=_ln(gen, C),
+          x_add=a, gelu=True, mask_add=ma, keep=0.6, rows=rows)
+    h = _randn(gen, B * rows, 4 * C)
+    _gate(tl.ln_linear, tl.ln_linear_reference, h, w2, b2, residual=x,
+          mask_out=my, keep=0.6, rows=rows)
+
+
+def test_ln_linear_round_then_bias(gen):
+    x = _randn(gen, 3137, 768)
+    w = _randn(gen, 768, 768, scale=768 ** -0.5)
+    b = _randn(gen, 768, scale=0.1, dtype=torch.float32)
+    _gate(tl.ln_linear, tl.ln_linear_reference, x, w, b, round_then_bias=True)
+
+
+@pytest.mark.parametrize("M,C", [(200704, 96), (3136, 768)])
+def test_fused_ffn_stage_shapes(gen, M, C):
+    """``fused_ffn`` at the MLP widths of stage 0 and stage 3 (batch 8)."""
+    x = _randn(gen, M, C)
+    w1 = _randn(gen, 4 * C, C, scale=C ** -0.5)
+    w2 = _randn(gen, C, 4 * C, scale=(4 * C) ** -0.5)
+    b1 = _randn(gen, 4 * C, scale=0.1, dtype=torch.float32)
+    b2 = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    before = _lib.LAUNCHES["ln_linear"]
+    _gate(tl.fused_ffn, tl.ffn_reference, x, *_ln(gen, C), w1, b1, w2, b2)
+    assert _lib.LAUNCHES["ln_linear"] - before == 2
 
 
 def test_ln_linear_ffn_residual(gen):
