@@ -27,34 +27,36 @@
 // 96..768 and the product does about K/2 flops per byte of X and Y moved,
 // below the ~295 flop/byte ridge; fc2 (K = 4C) moves its [M, 4C] input once
 // for 2C flops per element.  So the design reads each input once, keeps
-// loads in flight and writes whole lines.  What holds it back at K >= 384
-// (stages 2 and 3) is W: each 64-row block streams all of W from L2, M / 64
-// times per call, and a block's prologue, chunks and epilogue do not
-// overlap one another (PERF.md, Known costs).
+// loads and products in flight and writes whole lines.
 //
-// Design.  A block owns BM rows (64 or 128); each of its warpgroups owns
-// 64 of them, and thread 0 issues every TMA load (128-byte swizzled boxes
-// of 64 columns, zero-filled past the tensor's edge).  Two paths:
+// Design.  Warp roles: one producer warp issues every TMA load (128-byte
+// swizzled boxes of 64 columns, zero-filled past the tensor's edge) into a
+// ring of slots, each with a full and an empty mbarrier; one or two
+// consumer warpgroups run wgmma (m64n128k16, both operands from shared
+// memory, f32 accumulators) and keep one group in flight, so a slot goes
+// back to the producer as soon as the next chunk's products are issued and
+// no consumer ever waits for a refill it asked for.  Two paths:
 //  * PANEL (an LN or x_add prologue): the block's X rows, all of K (up to
-//    1024), stay resident in shared memory.  The threads form
+//    1024), stay resident in shared memory.  The consumers form
 //    s = round(x + round(round(x_add / keep) * ma)) in place (x_add read
 //    once, coalesced; s leaves once, by TMA store straight from the panel),
-//    take each row's mean and rstd from shared memory in f32 (two threads a
-//    row, all rows at once), normalise and round the panel in place, then
-//    sweep the block's N tiles: W tiles (BN x 64) stream through a ring of
-//    TMA stages and wgmma reads A from the panel.  X is read from device
-//    memory once, not once per column tile.  The padding columns past K
-//    stay zero.  Where M / BM gives too few blocks to fill the card,
-//    several blocks share one panel and split its N sweep.
+//    take each row's mean and rstd from shared memory in f32 (all rows at
+//    once), normalise and round the panel in place, then sweep the block's
+//    N tiles: W tiles (BN x 64) stream through the ring while the prologue
+//    runs.  X is read from device memory once, not once per column tile.
+//    The padding columns past K stay zero.
 //  * GEMM (no prologue: fc2 at K up to 3072, the out-projection): A and W
-//    tiles both stream through the ring into wgmma, one N tile per block,
-//    the N tiles of one row block adjacent in launch order so that A is
-//    read from device memory about once.
-// Each chunk's four wgmmas complete before the ring slot is refilled: a
-// wgmma group left in flight across thread 0's refill makes the compiler
-// serialise every wgmma.  The host's plan (ops/ln_linear.py) puts blocks
-// per SM before ring depth: on the card, a third block hid the TMA latency
-// better than deeper rings did.
+//    tiles both stream through the ring.
+// Block shapes (the host's plan, ops/ln_linear.py, picks one per call):
+// 64 rows and one consumer warpgroup, up to three blocks an SM, for the
+// GEMM path and panels of K <= 192, where one block's prologue and
+// epilogue run under another's products; one block an SM with two
+// consumer warpgroups for wider panels, either 64 rows whose warpgroups
+// take alternate N tiles, each with half of the ring, so that one's
+// epilogue runs under the other's products (long sweeps, and K = 768,
+// where a 128-row panel does not fit), or 128 rows, each warpgroup 64 of
+// them, both reading each W tile.  Where the row panels leave SMs idle,
+// several blocks share one panel and split its N sweep.
 // Epilogue: the ops in the contract's order on the f32 fragment in
 // registers (bias in f32, exact-erf GELU, one rounding; or round, then bias
 // in bf16; then round(v / keep) * my; then + residual), each op after the
@@ -77,9 +79,10 @@ constexpr int BK = 64;        // K per TMA box: 128 bytes, the swizzle span
 constexpr int SUB = 32;       // columns of one output sub-tile (64-byte rows)
 constexpr int SUB_BYTES = 64 * SUB * 2;  // a warpgroup's 64 rows of it
 constexpr int SMEM_BLOCK_MAX = 232448;   // dynamic shared memory of a block
-constexpr int ERR_PLAN = -1, ERR_DRIVER = -2, ERR_TMAP = -3;
+constexpr int ERR_PLAN = -1, ERR_ENTRY = -2, ERR_TMAP = -3;
 
 struct Params {
+  int bm;  // rows per block: 64, or 128 (two warpgroups, 64 rows each)
   const bf16* x;
   const bf16* x_add;
   bf16* s_out;
@@ -105,20 +108,22 @@ struct Params {
 };
 
 // Shared memory, from the 1024-byte aligned base: [panel][ring][output tile
-// (bf16, BN / SUB swizzled sub-tiles per warpgroup)][bias (BN f32 per
-// warpgroup)][LN weight | LN bias (kc * 64 f32 each, panel path)][full
-// [stages] | panel | residual[2] barriers].  The host sizes the launch with
-// the same numbers (ops/ln_linear.py:ln_linear_smem mirrors them).
+// (bf16, BN / SUB swizzled sub-tiles per consumer warpgroup)][bias (BN f32
+// per consumer warpgroup)][LN weight | LN bias (kc * 64 f32 each, panel
+// path)][full[stages] | empty[stages] | panel | residual[2] barriers].  The
+// host sizes the launch with the same numbers (ops/ln_linear.py:
+// ln_linear_smem mirrors them).
 struct Layout {
   int ring, slot, ostg, sbias, lnp, bars, total;
-  __host__ __device__ Layout(int bm, bool panel, int kc, int stages) {
+  __host__ __device__ Layout(int bm, int ncw, bool panel, int kc,
+                             int stages) {
     ring = panel ? bm * kc * 128 : 0;
     slot = BN * 128 + (panel ? 0 : bm * 128);
     ostg = ring + stages * slot;
-    sbias = ostg + bm / 64 * (BN / SUB) * SUB_BYTES;
-    lnp = sbias + bm / 64 * BN * 4;
+    sbias = ostg + ncw * (BN / SUB) * SUB_BYTES;
+    lnp = sbias + ncw * BN * 4;
     bars = lnp + (panel ? kc * BK * 8 : 0);
-    total = bars + 8 * (stages + 3);
+    total = bars + 8 * (2 * stages + 3);
   }
 };
 
@@ -143,7 +148,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 // wait until the phase of parity ``parity`` has completed.  The spin is one
 // asm block (the compiler sees no divergent loop, which would serialise the
 // wgmma groups in flight); a phase that never completes (a fault in the
-// pipeline) traps after 2^27 tries instead of hanging the card.
+// pipeline) traps after 2^22 tries instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
       "{\n"
@@ -154,7 +159,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       "@p bra DONE;\n"
       "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 134217728;\n"
+      "setp.lt.u32 p, n, 4194304;\n"
       "@p bra WAIT;\n"
       "trap;\n"
       "DONE:\n"
@@ -174,6 +179,14 @@ __device__ __forceinline__ void mbar_expect_tx_if(bool pred, uint64_t* bar,
       "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
           smem_u32(bar)),
       "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_if(bool pred, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"((int)pred)
       : "memory");
 }
 
@@ -300,19 +313,20 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// the 16-byte group j (columns 8j..8j+7) of panel row r: chunk j / 8, and
-// within the row's 128-byte line the group index XOR (r mod 8), as TMA's
-// 128-byte swizzle stores it
-template <int BM>
-__device__ __forceinline__ uint4* panel_cell(uint8_t* panel, int r, int j) {
-  return reinterpret_cast<uint4*>(panel + (j >> 3) * (BM * 128) + r * 128 +
+// the 16-byte group j (columns 8j..8j+7) of row r of a bm-row panel: chunk
+// j / 8, and within the row's 128-byte line the group index XOR (r mod 8),
+// as TMA's 128-byte swizzle stores it
+__device__ __forceinline__ uint4* panel_cell(uint8_t* panel, int bm, int r,
+                                             int j) {
+  return reinterpret_cast<uint4*>(panel + (j >> 3) * (bm * 128) + r * 128 +
                                    (((j & 7) ^ (r & 7)) << 4));
 }
 
-// s = round(x + round(round(x_add / keep) * ma)) in place
-template <int BM, int NC>
+// s = round(x + round(round(x_add / keep) * ma)) in place, by the NC
+// consumer threads
+template <int NC>
 __device__ __forceinline__ void form_sum(const Params& p, uint8_t* panel,
-                                         uint64_t* panel_bar, int m0,
+                                         int BM, uint64_t* panel_bar, int m0,
                                          int ctid) {
   const int G = p.K / 8, total = BM * G;
   for (int base = 0; base < total; base += 8 * NC) {
@@ -334,7 +348,7 @@ __device__ __forceinline__ void form_sum(const Params& p, uint8_t* panel,
     for (int u = 0; u < 8; ++u) {
       const int gi = base + u * NC + ctid, r = gi / G, j = gi - r * G;
       if (gi >= total || m0 + r >= p.M) continue;
-      uint4* cell = panel_cell<BM>(panel, r, j);
+      uint4* cell = panel_cell(panel, BM, r, j);
       float v[8], a[8];
       unpack8(*cell, v);
       unpack8(xa[u], a);
@@ -350,42 +364,46 @@ __device__ __forceinline__ void form_sum(const Params& p, uint8_t* panel,
 }
 
 // LayerNorm of each panel row in place, all rows at once: thread t takes
-// half t / BM of row t % BM (a quarter warp reads 8 rows' same group: 8
-// distinct swizzled slots), the halves' sums meet in ``red``; three passes
-// over shared memory (sum; centred squares; normalise), in f32 with eps
-// inside the rsqrt as the reference.  Rows past M are left as loaded.
-template <int BM>
+// part t / BM of row t % BM (NC / BM parts a row; a quarter warp reads 8
+// rows' same group: 8 distinct swizzled slots), the parts' sums meet in
+// ``red``; three passes over shared memory (sum; centred squares;
+// normalise), in f32 with eps inside the rsqrt as the reference.  Rows
+// past M are left as loaded.
+template <int NC>
 __device__ __forceinline__ void layer_norm_panel(const Params& p,
-                                                 uint8_t* panel,
+                                                 uint8_t* panel, int BM,
                                                  const float* lnp, float* red,
                                                  int m0, int tid) {
-  constexpr int NC = 2 * BM;
-  const int G = p.K / 8, half = (G + 1) / 2;
-  const int r = tid % BM, h = tid / BM, j0 = h * half, j1 = min(G, j0 + half);
+  const int parts = NC / BM, G = p.K / 8, per = (G + parts - 1) / parts;
+  const int r = tid % BM, h = tid / BM, j0 = h * per, j1 = min(G, j0 + per);
   float v[8], sum = 0.f, sq = 0.f;
 #pragma unroll 4
   for (int j = j0; j < j1; ++j) {
-    unpack8(*panel_cell<BM>(panel, r, j), v);
+    unpack8(*panel_cell(panel, BM, r, j), v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) sum += v[i];
   }
   red[h * BM + r] = sum;
   bar_sync<1, NC>();
-  const float mean = (red[r] + red[BM + r]) / p.K;
+  sum = 0.f;
+  for (int q = 0; q < parts; ++q) sum += red[q * BM + r];
+  const float mean = sum / p.K;
 #pragma unroll 4
   for (int j = j0; j < j1; ++j) {
-    unpack8(*panel_cell<BM>(panel, r, j), v);
+    unpack8(*panel_cell(panel, BM, r, j), v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) sq += (v[i] - mean) * (v[i] - mean);
   }
-  bar_sync<1, NC>();  // both halves have read the sums
+  bar_sync<1, NC>();  // every part has read the sums
   red[h * BM + r] = sq;
   bar_sync<1, NC>();
-  const float rstd = rsqrtf((red[r] + red[BM + r]) / p.K + p.eps);
+  sq = 0.f;
+  for (int q = 0; q < parts; ++q) sq += red[q * BM + r];
+  const float rstd = rsqrtf(sq / p.K + p.eps);
   if (m0 + r >= p.M) return;
 #pragma unroll 2
   for (int j = j0; j < j1; ++j) {
-    uint4* cell = panel_cell<BM>(panel, r, j);
+    uint4* cell = panel_cell(panel, BM, r, j);
     unpack8(*cell, v);
     const float4* g4 = reinterpret_cast<const float4*>(lnp + 8 * j);
     const float4* b4 = reinterpret_cast<const float4*>(lnp + p.kc * BK + 8 * j);
@@ -488,78 +506,147 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[64],
   bulk_commit();
 }
 
-// BM / 64 warpgroups, two threads per panel row; thread 0 also keeps the
-// TMA ring full (no producer warp: a ninth warp would cut the registers of
-// two co-resident blocks to 96 a thread, below what the tile needs)
-template <int BM, bool PANEL, bool GELU>
-__global__ void __launch_bounds__(BM * 2, BM == 128 ? 2 : 3)
+// Phase timestamps for a debug build (-DSVIT_K1_TRACE, k1_probe.py --trace):
+// per block, 64 slots: 0 globaltimer at the start, 1 the SM, 2 clock64 at
+// the start, 3 the prologue done, 4 + 30 wg + 3 j the tile j of warpgroup
+// wg started, its products done, its epilogue done (j < 9), 62 clock64 and
+// 63 globaltimer at the end.
+#ifdef SVIT_K1_TRACE
+__device__ unsigned long long* k1_trace;
+__device__ __forceinline__ unsigned long long k1_clock() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t));
+  return t;
+}
+#define K1_TRACE(pred, idx, val)                                   \
+  do {                                                              \
+    if (k1_trace && (pred)) k1_trace[blockIdx.x * 64 + (idx)] = (val); \
+  } while (0)
+#else
+#define K1_TRACE(pred, idx, val) \
+  do {                           \
+  } while (0)
+#endif
+
+// The ring slot of K chunk c of the block's N tile t, and the round of
+// that slot it fills.  Every waiter must consume its slots' loads in
+// order: a wait more than one phase ahead of a barrier would take an old
+// phase of the same parity for its own.  So in ping mode each warpgroup
+// has half of the ring (the tiles alternate), else the loads go round the
+// whole ring in order.
+__device__ __forceinline__ void slot_of(int t, int c, int kc, int stages,
+                                        bool ping, int& s, int& round) {
+  const int half = ping ? stages / 2 : stages;
+  const int li = ping ? (t / 2) * kc + c : t * kc + c;  // the owner's load
+  s = (ping ? (t % 2) * half : 0) + li % half;
+  round = li / half;
+}
+
+// Warp roles: NCW consumer warpgroups run wgmma and the epilogue; one
+// producer warp (its lane 0) keeps the TMA ring full.  Each ring slot has a
+// full barrier (the TMA bytes landed) and an empty one (every consuming warp
+// is done with it), so a consumer never waits for a refill and keeps one
+// wgmma group in flight: chunk c + 1 is issued before chunk c completes.
+// NCW = 1: a 64-row block, up to three blocks an SM.  NCW = 2, one block an
+// SM: with bm = 128 each warpgroup owns 64 rows and both read every W tile;
+// with bm = 64 ("ping") both share the 64-row panel and take alternate N
+// tiles, so one warpgroup's epilogue runs under the other's products.
+template <int NCW, bool PANEL, bool GELU>
+__global__ void __launch_bounds__(NCW * 128 + 32, NCW == 1 ? 3 : 1)
     ln_linear_kernel(const __grid_constant__ CUtensorMap tm_x,
                      const __grid_constant__ CUtensorMap tm_w,
                      const __grid_constant__ CUtensorMap tm_s,
                      const __grid_constant__ CUtensorMap tm_o0,
                      const __grid_constant__ CUtensorMap tm_o1,
                      const __grid_constant__ CUtensorMap tm_r, Params p) {
-  constexpr int NC = BM * 2;   // threads
+  constexpr int NC = NCW * 128;  // consumer threads
   extern __shared__ __align__(1024) uint8_t smem[];  // 128-byte swizzle
-  const Layout L(BM, PANEL, p.kc, p.stages);
+  const int BM = NCW == 1 ? 64 : p.bm;
+  const bool ping = BM < NCW * 64;
+  const Layout L(BM, NCW, PANEL, p.kc, p.stages);
   uint8_t* panel = smem;
   uint8_t* ring = smem + L.ring;
   float* sbias = reinterpret_cast<float*>(smem + L.sbias);
   float* lnp = reinterpret_cast<float*>(smem + L.lnp);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
-  uint64_t* panel_bar = full + p.stages;
-  uint64_t* res_bar = panel_bar + 1;  // one per warpgroup
+  uint64_t* empty = full + p.stages;
+  uint64_t* panel_bar = empty + p.stages;
+  uint64_t* res_bar = panel_bar + 1;  // one per consumer warpgroup
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wg = warp / 4, wl = warp % 4, tw = tid % 128;
   const int split = blockIdx.x % p.splits;
-  const int m0 = (blockIdx.x / p.splits) * BM, mb = m0 + wg * 64;
+  const int m0 = (blockIdx.x / p.splits) * BM;
   const int n_tiles = (p.N + BN - 1) / BN;
   const int t_begin = split * p.tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + p.tiles_per_split);
-  uint8_t* ot = smem + L.ostg + wg * (BN / SUB) * SUB_BYTES;
-  float* sb = sbias + wg * BN;
-  // ring load i: K chunk i % kc of N tile t_begin + i / kc (W, and the A
-  // tile of the streaming path) into slot i % stages
-  const int total = max(0, t_end - t_begin) * p.kc;
-  auto issue = [&](bool pred, int i) {  // pred: this thread, i < total
-    const int s = i % p.stages, c = i % p.kc;
-    uint8_t* dst = ring + s * L.slot;
-    mbar_expect_tx_if(pred, &full[s], L.slot);
-    if (!PANEL) {
-      tma_load_if(pred, dst, &tm_x, &full[s], c * BK, m0);
-      dst += BM * 128;
-    }
-    tma_load_if(pred, dst, &tm_w, &full[s], c * BK, (t_begin + i / p.kc) * BN);
-  };
+  const int nt = max(0, min(n_tiles, t_begin + p.tiles_per_split) - t_begin);
+  // ring load i: K chunk i % kc of the block's N tile i / kc (W, and the A
+  // tile of the streaming path), into the slot of slot_of
+  const int total = nt * p.kc;
 
   if (tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                     reinterpret_cast<uint64_t>(&tm_x))
-                 : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                     reinterpret_cast<uint64_t>(&tm_w))
-                 : "memory");
-    for (int s = 0; s < p.stages + 3; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (PANEL) {
-      mbar_expect_tx(panel_bar, p.kc * BM * 128);
-      for (int c = 0; c < p.kc; ++c)
-        tma_load(panel + c * BM * 128, &tm_x, panel_bar, c * BK, m0);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], ping ? 4 : 4 * NCW);  // lane 0 of each warp
     }
-    for (int i = 0; i < min(p.stages, total); ++i) issue(true, i);
+    for (int b = 0; b < 3; ++b) mbar_init(panel_bar + b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (PANEL && p.ln_g) {  // the LN weight and bias, once per block
-    for (int k = tid; k < p.K; k += NC) {
+    for (int k = tid; k < p.K; k += blockDim.x) {
       lnp[k] = __ldg(p.ln_g + k);
       lnp[p.kc * BK + k] = __ldg(p.ln_b + k);
     }
   }
   __syncthreads();
+#ifdef SVIT_K1_TRACE
+  if (tid == 0) {
+    unsigned long long g, sm;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+    asm volatile("{.reg .u32 r; mov.u32 r, %%smid; cvt.u64.u32 %0, r;}" : "=l"(sm));
+    K1_TRACE(true, 0, g);
+    K1_TRACE(true, 1, sm);
+    K1_TRACE(true, 2, k1_clock());
+  }
+#endif
+
+  if (warp == NCW * 4) {  // the producer warp
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_x))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_w))
+                   : "memory");
+      if (PANEL) {
+        mbar_expect_tx(panel_bar, p.kc * BM * 128);
+        for (int c = 0; c < p.kc; ++c)
+          tma_load(panel + c * BM * 128, &tm_x, panel_bar, c * BK, m0);
+      }
+      for (int i = 0; i < total; ++i) {
+        const int c = i % p.kc;
+        int s, round;
+        slot_of(i / p.kc, c, p.kc, p.stages, ping, s, round);
+        mbar_wait(&empty[s], (round & 1) ^ 1);  // the slot is free
+        uint8_t* dst = ring + s * L.slot;
+        mbar_expect_tx(&full[s], L.slot);
+        if (!PANEL) {
+          tma_load(dst, &tm_x, &full[s], c * BK, m0);
+          dst += BM * 128;
+        }
+        tma_load(dst, &tm_w, &full[s], c * BK, (t_begin + i / p.kc) * BN);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, wl = warp % 4, tw = tid % 128;
+  const int row_off = ping ? 0 : wg * 64, mb = m0 + row_off;
+  uint8_t* ot = smem + L.ostg + wg * (BN / SUB) * SUB_BYTES;
+  float* sb = sbias + wg * BN;
 
   if (PANEL) {  // the prologue runs while the first W tiles arrive
     if (p.x_add) {
-      form_sum<BM, NC>(p, panel, panel_bar, m0, tid);
+      form_sum<NC>(p, panel, BM, panel_bar, m0, tid);
       if (p.s_out && split == 0) {  // s leaves once, straight from the panel
         fence_async_smem();
         bar_sync<1, NC>();
@@ -575,11 +662,12 @@ __global__ void __launch_bounds__(BM * 2, BM == 128 ? 2 : 3)
       mbar_wait(panel_bar, 0);
     }
     if (p.ln_g)
-      layer_norm_panel<BM>(p, panel, lnp, reinterpret_cast<float*>(smem + L.ostg),
-                           m0, tid);
+      layer_norm_panel<NC>(p, panel, BM, lnp,
+                           reinterpret_cast<float*>(smem + L.ostg), m0, tid);
     fence_async_smem();  // the panel's generic writes, then wgmma reads it
     bar_sync<1, NC>();
   }
+  K1_TRACE(tid == 0, 3, k1_clock());
 
   // this thread's two fragment rows keep their output mask for the block
   float my[2];
@@ -589,50 +677,63 @@ __global__ void __launch_bounds__(BM * 2, BM == 128 ? 2 : 3)
     my[h2] = p.mask_out && m < p.M ? __ldg(p.mask_out + m / p.rows) : 1.f;
   }
   const bool tma_residual = p.residual && !p.direct;
+  const int t_step = ping ? 2 : 1;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int i = 0; i < total; ++i) {
-    const int s = i % p.stages, c = i % p.kc, t = i / p.kc;
+  int j = 0;  // this warpgroup's tiles so far (the residual barrier's phase)
+  for (int t = ping ? wg : 0; t < nt; t += t_step, ++j) {
     const int n0 = (t_begin + t) * BN;
-    if (c == 0) {  // a tile starts: its bias, and its residual by TMA
-      sb[tw] = p.bias && n0 + tw < p.N ? __ldg(p.bias + n0 + tw) : 0.f;
-      bulk_wait_read();  // the last tile's stores have left ``ot``
-      if (tma_residual) {
-        const int subs = min(BN / SUB, (p.N - n0 + SUB - 1) / SUB);
-        mbar_expect_tx_if(tw == 0, &res_bar[wg], subs * SUB_BYTES);
+    K1_TRACE(tw == 0 && j < 9, 4 + wg * 30 + j * 3, k1_clock());
+    // a tile starts: its bias, and its residual by TMA
+    sb[tw] = p.bias && n0 + tw < p.N ? __ldg(p.bias + n0 + tw) : 0.f;
+    bulk_wait_read();  // the last tile's stores have left ``ot``
+    if (tma_residual) {
+      const int subs = min(BN / SUB, (p.N - n0 + SUB - 1) / SUB);
+      mbar_expect_tx_if(tw == 0, &res_bar[wg], subs * SUB_BYTES);
 #pragma unroll
-        for (int st = 0; st < BN / SUB; ++st)
-          tma_load_if(tw == 0 && st < subs, ot + st * SUB_BYTES, &tm_r,
-                      &res_bar[wg], n0 + SUB * st, mb);
-      }
+      for (int st = 0; st < BN / SUB; ++st)
+        tma_load_if(tw == 0 && st < subs, ot + st * SUB_BYTES, &tm_r,
+                    &res_bar[wg], n0 + SUB * st, mb);
     }
-    mbar_wait(&full[s], (i / p.stages) & 1);
-    __syncwarp();  // wgmma is .aligned: the warp converged after the spin
-    uint8_t* s_base = ring + s * L.slot;
-    const uint8_t* a = PANEL ? panel + c * BM * 128 + wg * 64 * 128
-                             : s_base + wg * 64 * 128;
-    const uint8_t* b = PANEL ? s_base : s_base + BM * 128;
-    const uint64_t da = make_desc(a), db = make_desc(b);
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    int s = 0, round = 0, prev = 0;
+    for (int c = 0; c < p.kc; ++c) {
+      prev = s;
+      slot_of(t, c, p.kc, p.stages, ping, s, round);
+      mbar_wait(&full[s], round & 1);
+      __syncwarp();  // wgmma is .aligned: the warp converged after the spin
+      uint8_t* s_base = ring + s * L.slot;
+      const uint8_t* a = PANEL ? panel + c * BM * 128 + row_off * 128
+                               : s_base + row_off * 128;
+      const uint8_t* b = PANEL ? s_base : s_base + BM * 128;
+      const uint64_t da = make_desc(a), db = make_desc(b);
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int k = 0; k < BK / 16; ++k)  // +32 bytes along K per step
-      wgmma_m64n128(acc, da + 2 * k, db + 2 * k, c > 0 || k > 0);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // no wgmma stays in flight past the chunk: the refill below (and any
-    // other one-thread path) would make the compiler serialise every wgmma
+      for (int k = 0; k < BK / 16; ++k)  // +32 bytes along K per step
+        wgmma_m64n128(acc, da + 2 * k, db + 2 * k, c > 0 || k > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // chunk c - 1's group is done: its slot goes back to the producer
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      mbar_arrive_if(c > 0 && lane == 0, &empty[prev]);
+    }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc(acc);
-    bar_sync<1, NC>();  // every warp is done with the slot: refill it
-    issue(tid == 0 && i + p.stages < total, i + p.stages);
-    if (c == p.kc - 1) {
-      if (tma_residual) mbar_wait(&res_bar[wg], t & 1);
-      epilogue<GELU>(p, acc, ot, sb, &tm_o0, &tm_o1, my, mb, n0, wg, wl,
-                     lane);
-    }
+    mbar_arrive_if(lane == 0, &empty[s]);
+    K1_TRACE(tw == 0 && j < 9, 5 + wg * 30 + j * 3, k1_clock());
+    if (tma_residual) mbar_wait(&res_bar[wg], j & 1);
+    epilogue<GELU>(p, acc, ot, sb, &tm_o0, &tm_o1, my, mb, n0, wg, wl, lane);
+    K1_TRACE(tw == 0 && j < 9, 6 + wg * 30 + j * 3, k1_clock());
   }
   bulk_wait();  // this warpgroup's stores are done
+#ifdef SVIT_K1_TRACE
+  if (tid == 0) {
+    unsigned long long g;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+    K1_TRACE(true, 63, g);
+    K1_TRACE(true, 62, k1_clock());
+  }
+#endif
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -642,7 +743,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (!fn) {
@@ -668,7 +769,7 @@ EncodeTiled encode_tiled() {
 int encode(CUtensorMap* map, const bf16* ptr, int rows, int cols,
            int box_rows, int box_cols) {
   EncodeTiled fn = encode_tiled();
-  if (!fn) return ERR_DRIVER;
+  if (!fn) return ERR_ENTRY;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
@@ -683,10 +784,10 @@ int encode(CUtensorMap* map, const bf16* ptr, int rows, int cols,
   return r == CUDA_SUCCESS ? 0 : ERR_TMAP;
 }
 
-template <int BM, bool PANEL, bool GELU>
+template <int NCW, bool PANEL, bool GELU>
 int launch(const Params& p, const CUtensorMap (&maps)[6], int smem,
            cudaStream_t stream) {
-  auto kernel = ln_linear_kernel<BM, PANEL, GELU>;
+  auto kernel = ln_linear_kernel<NCW, PANEL, GELU>;
   static bool granted[64] = {};  // the shared-memory grant, per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -697,20 +798,20 @@ int launch(const Params& p, const CUtensorMap (&maps)[6], int smem,
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < 64) granted[dev] = true;
   }
-  const long blocks = (long)((p.M + BM - 1) / BM) * p.splits;
-  kernel<<<(unsigned)blocks, BM * 2, smem, stream>>>(
+  const long blocks = (long)((p.M + p.bm - 1) / p.bm) * p.splits;
+  kernel<<<(unsigned)blocks, NCW * 128 + 32, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool GELU>
-int dispatch(const Params& p, const CUtensorMap (&maps)[6], int bm,
+int dispatch(const Params& p, const CUtensorMap (&maps)[6], int ncw,
              bool panel, int smem, cudaStream_t stream) {
   if (panel)
-    return bm == 128 ? launch<128, true, GELU>(p, maps, smem, stream)
-                     : launch<64, true, GELU>(p, maps, smem, stream);
-  return bm == 128 ? launch<128, false, GELU>(p, maps, smem, stream)
-                   : launch<64, false, GELU>(p, maps, smem, stream);
+    return ncw == 2 ? launch<2, true, GELU>(p, maps, smem, stream)
+                    : launch<1, true, GELU>(p, maps, smem, stream);
+  return ncw == 2 ? launch<2, false, GELU>(p, maps, smem, stream)
+                  : launch<1, false, GELU>(p, maps, smem, stream);
 }
 
 }  // namespace
@@ -719,8 +820,8 @@ extern "C" const char* svit_error_string(int err) {
   switch (err) {
     case ERR_PLAN:
       return "ln_linear: the launch plan does not fit the kernel";
-    case ERR_DRIVER:
-      return "ln_linear: cuTensorMapEncodeTiled not found in the driver";
+    case ERR_ENTRY:
+      return "ln_linear: cuTensorMapEncodeTiled not found in libcuda";
     case ERR_TMAP:
       return "ln_linear: cuTensorMapEncodeTiled refused a tensor map";
     default:
@@ -728,29 +829,37 @@ extern "C" const char* svit_error_string(int err) {
   }
 }
 
-// bm, stages, splits: the launch plan of ops/ln_linear.py:ln_linear_plan
+#ifdef SVIT_K1_TRACE
+extern "C" int svit_k1_set_trace(void* buf) {
+  unsigned long long* p = static_cast<unsigned long long*>(buf);
+  return static_cast<int>(cudaMemcpyToSymbol(k1_trace, &p, sizeof(p)));
+}
+#endif
+
+// bm, ncw, stages, splits: the launch plan of ops/ln_linear.py:ln_linear_plan
 extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
                               const float* ln_g, const float* ln_b, float eps,
                               const bf16* w, const float* bias, int bias_mode,
                               int gelu, const bf16* residual, bf16* out0,
                               bf16* out1, int n_split, int M, int N, int K,
                               const float* mask_add, const float* mask_out,
-                              float keep, int rows, int bm, int stages,
-                              int splits, cudaStream_t stream) {
+                              float keep, int rows, int bm, int ncw,
+                              int stages, int splits, cudaStream_t stream) {
   const bool panel = ln_g != nullptr || x_add != nullptr;
   const int kc = (K + BK - 1) / BK, n_tiles = (N + BN - 1) / BN;
-  if ((bm != 64 && bm != 128) || stages < 1 || splits < 1 ||
-      splits > n_tiles || K % 8 || N % 8)
+  const bool ping = ncw == 2 && bm == 64;  // two slots each, at least
+  if (!((ncw == 1 && bm == 64) || (ncw == 2 && (bm == 64 || bm == 128))) ||
+      stages < (ping ? 4 : 2) || splits < 1 || splits > n_tiles || K % 8 ||
+      N % 8)
     return ERR_PLAN;
-  if (panel && kc * BK > (bm == 128 ? 384 : 1024)) return ERR_PLAN;
-  const Layout L(bm, panel, kc, stages);
+  const Layout L(bm, ncw, panel, kc, stages);
   if (L.total > SMEM_BLOCK_MAX) return ERR_PLAN;
   // TMA stores need every output sub-tile inside one output of at least
   // SUB columns: the split on a sub-tile edge
   const bool tma_out = n_split >= SUB && (n_split == N || n_split % SUB == 0) &&
                        (n_split == N || N - n_split >= SUB);
-  Params p{x, x_add, s_out, ln_g, ln_b, eps, bias, bias_mode, residual, out0,
-           out1, n_split, M, N, K, mask_add, mask_out, keep, rows, kc,
+  Params p{bm, x, x_add, s_out, ln_g, ln_b, eps, bias, bias_mode, residual,
+           out0, out1, n_split, M, N, K, mask_add, mask_out, keep, rows, kc,
            stages, splits, (n_tiles + splits - 1) / splits, !tma_out};
   // x, w, s, out0, out1, residual (unused maps stay zero)
   CUtensorMap maps[6] = {};
@@ -762,6 +871,6 @@ extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
     rc = encode(&maps[4], out1, M, N - n_split, 64, SUB);
   if (!rc && tma_out && residual) rc = encode(&maps[5], residual, M, N, 64, SUB);
   if (rc) return rc;
-  return gelu ? dispatch<true>(p, maps, bm, panel, L.total, stream)
-              : dispatch<false>(p, maps, bm, panel, L.total, stream);
+  return gelu ? dispatch<true>(p, maps, ncw, panel, L.total, stream)
+              : dispatch<false>(p, maps, ncw, panel, L.total, stream);
 }

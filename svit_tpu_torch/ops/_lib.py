@@ -49,7 +49,7 @@ _SIGNATURES = {
         _P, _P, _I,                        # out0, out1, n_split
         _I, _I, _I,                        # M, N, K
         _P, _P, _F, _I,                    # mask_add, mask_out, keep, rows
-        _I, _I, _I, _P,                    # bm, stages, splits, stream
+        _I, _I, _I, _I, _P,                # bm, ncw, stages, splits, stream
     ],
     "svit_pool_ln": [
         _P, _P, _P, _P, _P,                # x, w, ln_g, ln_b, out

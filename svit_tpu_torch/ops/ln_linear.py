@@ -15,7 +15,8 @@
 Weights keep the PyTorch ``[out, in]`` layout.  On a CPU tensor the wrapper
 runs the plain version ``ln_linear_reference``; on a CUDA tensor it launches
 the kernel or raises.  ``ln_linear_plan`` picks the launch (path, rows per
-block, ring stages, blocks per row panel) from the shapes alone.  The uses
+block, consumer warpgroups, ring stages, blocks per row panel) from the
+shapes alone.  The uses
 below are the JAX package's fused kernels: ``fused_ln_qkv``,
 ``fused_ln_dense``, ``fused_ffn_residual`` (two launches: the hidden
 activation goes through device memory) and its drop-path form
@@ -83,37 +84,42 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def ln_linear_smem(bm: int, panel: bool, kc: int, stages: int) -> int:
+def ln_linear_smem(bm: int, panel: bool, kc: int, stages: int,
+                   ncw: int) -> int:
     """Dynamic shared memory of one block, as ``csrc/ln_linear.cu:Layout``
     lays it out: the panel (``bm`` rows by ``kc`` chunks of 64 bf16), the
-    ring (a W tile, plus an A tile without a panel), per warpgroup the bf16
-    output tile (four 64 x 32 sub-tiles) and the tile's bias, the LN weight
-    and bias (panel) and the mbarriers."""
+    ring (a W tile, plus an A tile without a panel), per consumer warpgroup
+    the bf16 output tile (four 64 x 32 sub-tiles) and the tile's bias, the
+    LN weight and bias (panel) and the mbarriers (full and empty per
+    slot)."""
     slot = BN * 128 + (0 if panel else bm * 128)
     return ((bm * kc * 128 + kc * BK * 8 if panel else 0) + stages * slot
-            + bm // 64 * (BN * 128 + BN * 4) + 8 * (stages + 3))
+            + ncw * (BN * 128 + BN * 4) + 8 * (2 * stages + 3))
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     panel: bool          # the LN / x_add prologue on a resident row panel
     bm: int              # rows per block
+    ncw: int             # consumer warpgroups (plus one producer warp)
     stages: int          # TMA ring slots
     splits: int          # blocks sharing one row panel's N sweep
     tiles_per_split: int
     m_tiles: int
     n_tiles: int
     smem: int            # dynamic shared memory per block, bytes
-    blocks_per_sm: int   # what the shared memory admits
+    blocks_per_sm: int   # what the shared memory and registers admit
 
     @property
     def blocks(self) -> int:
         return self.m_tiles * self.splits
 
 
-# the most blocks of each height an SM holds by their registers (launch
-# bounds of csrc/ln_linear.cu: 256 threads at 128 registers, 128 at 168)
-BLOCKS_BY_REGS = {128: 2, 64: 3}
+# the most blocks an SM holds by their registers (launch bounds of
+# csrc/ln_linear.cu: 160 threads for one consumer warpgroup, three blocks;
+# 288 for two, one block)
+BLOCKS_BY_REGS = {1: 3, 2: 1}
+STAGES_MAX = 6
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,15 +129,18 @@ def ln_linear_plan(M: int, N: int, K: int, *, prologue: bool,
 
     With a prologue (LN or ``x_add``) a block keeps ``bm`` rows of all of K
     resident (K up to ``PANEL_K_MAX``); without one, A streams with W.
-    Blocks per SM come first, then the ring's depth: on the card, a third
-    block of 64 rows hid the TMA latency better than deeper rings did.  So
-    a block is 128 rows (two warpgroups) where two such blocks fit an SM
-    and, without a prologue, where they make at least three per SM across
-    the card; else 64 rows.  The ring then takes the most stages (up to 4)
-    that keep that many blocks.  Where the row panels leave SMs idle,
-    blocks split a panel's N tiles between them (each loads the panel):
-    the fewest waves times (tiles per block + the panel's prologue, about
-    kc / 2 tiles), at least two splits where panels are fewer than SMs."""
+    The streaming GEMM and panels of K <= 192 take 64-row blocks of one
+    consumer warpgroup, up to three an SM, so that one block's prologue and
+    epilogue run under another's products.  Wider panels take one block an
+    SM with two consumer warpgroups: on long sweeps (12 N tiles or more)
+    64 rows whose two warpgroups take alternate N tiles ("ping", each with
+    half of the ring), so that one's epilogue runs under the other's
+    products; else 128 rows that share each W tile.  The ring then takes
+    the most stages (up to ``STAGES_MAX``) that keep those blocks.  Where
+    the row panels leave SMs idle, blocks split a panel's N tiles between
+    them (each loads the panel): the fewest waves times (tiles per block +
+    the panel's prologue, about kc / 2 tiles), at least two splits where
+    panels are fewer than SMs."""
     if K % 8 or N % 8 or K <= 0 or N <= 0:
         raise ValueError(f"ln_linear needs K and N multiples of 8 (K={K}, N={N})")
     if split is not None and (split % 8 or not 0 < split <= N):
@@ -142,20 +151,27 @@ def ln_linear_plan(M: int, N: int, K: int, *, prologue: bool,
                          f"(K={K})")
     n_tiles = _cdiv(N, BN)
 
-    def per_sm(bm, stages):   # blocks an SM holds: shared memory, registers
-        fit = SMEM_SM // (ln_linear_smem(bm, prologue, kc, stages)
+    def per_sm(bm, ncw, stages):   # blocks an SM holds
+        fit = SMEM_SM // (ln_linear_smem(bm, prologue, kc, stages, ncw)
                           + SMEM_RESERVED)
-        return min(fit, BLOCKS_BY_REGS[bm])
+        return min(fit, BLOCKS_BY_REGS[ncw])
 
-    if prologue:
-        big = kc * BK <= 384 and per_sm(128, 2) >= 2
+    if not prologue or kc <= 3:
+        ncw, bm = 1, 64
+    elif (n_tiles < 12 or not per_sm(64, 2, 4)) and per_sm(128, 2, 2):
+        ncw, bm = 2, 128
+    elif per_sm(64, 2, 4):
+        ncw, bm = 2, 64
     else:
-        big = _cdiv(M, 128) * n_tiles >= 3 * sms
-    bm = 128 if big else 64
-    blocks = per_sm(bm, 2)
+        ncw, bm = 1, 64
+    # ping (two warpgroups on alternate N tiles) halves the ring between
+    # them: an even number of slots, two each at least
+    depths = (range(4, STAGES_MAX + 1, 2) if (ncw, bm) == (2, 64)
+              else range(2, STAGES_MAX + 1))
+    blocks = per_sm(bm, ncw, depths[0])
     if blocks < 1:
         raise ValueError(f"ln_linear: K={K} does not fit shared memory")
-    stages = max(s for s in (2, 3, 4) if per_sm(bm, s) >= blocks)
+    stages = max(s for s in depths if per_sm(bm, ncw, s) >= blocks)
     m_tiles = _cdiv(M, bm)
     if prologue:
         slots = blocks * sms
@@ -165,8 +181,8 @@ def ln_linear_plan(M: int, N: int, K: int, *, prologue: bool,
             _cdiv(m_tiles * _cdiv(n_tiles, t), slots) * (t + kc / 2), -t))
     else:
         per = 1
-    return Plan(prologue, bm, stages, _cdiv(n_tiles, per), per, m_tiles,
-                n_tiles, ln_linear_smem(bm, prologue, kc, stages), blocks)
+    return Plan(prologue, bm, ncw, stages, _cdiv(n_tiles, per), per, m_tiles,
+                n_tiles, ln_linear_smem(bm, prologue, kc, stages, ncw), blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -262,7 +278,7 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
             _lib.ptr(residual), _lib.ptr(out0), _lib.ptr(out1), n_split,
             M, N, K, _lib.ptr(mask_add), _lib.ptr(mask_out),
             _round_bf16(keep), int(rows),
-            plan.bm, plan.stages, plan.splits, _lib.stream())
+            plan.bm, plan.ncw, plan.stages, plan.splits, _lib.stream())
     y = out0 if split is None else (out0, out1)
     return y if x_add is None else (y, s)
 

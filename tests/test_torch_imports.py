@@ -43,6 +43,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import k1_probe
 leaked = sorted(m for m in sys.modules if blocked(m))
 assert not leaked, leaked
 print(len(names))
@@ -94,3 +95,12 @@ def test_chip_smoke_exits_nonzero_without_cuda():
                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("mode", ["--sweep", "--trace"])
+def test_k1_probe_exits_nonzero_without_cuda(mode):
+    r = subprocess.run([sys.executable, "k1_probe.py", mode], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode == 2, r.stdout + r.stderr
+    assert "no CUDA device" in r.stderr

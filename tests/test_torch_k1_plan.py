@@ -53,7 +53,7 @@ FORWARDS = {"video batch 8": (8, 16), "video batch 1": (1, 16),
 
 def test_the_call_list_is_the_forward_s():
     """83 K1 launches per forward, as ``chip_smoke.py`` counts them; the
-    first block's fc1 is the 200,704-row [M, 96] -> 384 of the issue."""
+    first block's fc1 is the 200,704-row [M, 96] -> 384."""
     calls = k1_calls(_arch(), 8, 16)
     assert len(calls) == 83
     assert ("fc1", 200704, 384, 96, True, None) in calls
@@ -70,12 +70,16 @@ def test_plan_fits_covers_and_fills(forward):
         # shared memory: one block within 227 KB, and the blocks per SM the
         # plan counts on fit the SM's 228 KB
         assert p.smem == tl.ln_linear_smem(p.bm, p.panel, -(-K // tl.BK),
-                                           p.stages), what
+                                           p.stages, p.ncw), what
         assert p.smem <= tl.SMEM_BLOCK, what
         assert p.blocks_per_sm * (p.smem + tl.SMEM_RESERVED) <= tl.SMEM_SM, what
-        assert p.stages >= 2, what
+        assert 2 <= p.stages <= tl.STAGES_MAX, what
         # the tiles cover M and N, and no split is left without a tile
-        assert p.panel == prologue and p.bm in (64, 128), what
+        assert p.panel == prologue, what
+        assert (p.ncw, p.bm) in ((1, 64), (2, 64), (2, 128)), what
+        assert p.blocks_per_sm <= tl.BLOCKS_BY_REGS[p.ncw], what
+        if (p.ncw, p.bm) == (2, 64):   # ping: half of the ring each
+            assert p.stages % 2 == 0 and p.stages >= 4, what
         assert (p.m_tiles - 1) * p.bm < M <= p.m_tiles * p.bm, what
         assert (p.n_tiles - 1) * tl.BN < N <= p.n_tiles * tl.BN, what
         assert (p.splits - 1) * p.tiles_per_split < p.n_tiles \
