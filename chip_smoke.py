@@ -38,16 +38,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gradient vector must pass the gate above, and the worst leaf by excess
    is printed.  The kernel step's launch counts must equal what the
    architecture implies; every distinct call of the backward kernels (K5,
-   K6, K7), K2's bare mode and K1's masked mode is replayed against its
-   plain version, timed beside its bound and a library yardstick.  Then
+   K6, K7), K2's bare mode, K1's masked mode and K4 is replayed against
+   its plain version, timed beside its bound and a library yardstick.  Then
    five timed steps of the kernel model: median step time, clips/s, peak
    memory, a profiled step's device time by kernel and idle share, a finite
    loss and parameters that move.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
-and modes the train step; ``train_launches`` counts the train step for
-all), the card's name and power limit, and last
+and modes, and of K4's train-step row, the train step; ``train_launches``
+counts the train step for all; K1, K4 and K5 carry their uses), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
 ``chiprun_out/chip_smoke_detail.json``.  Without a card it exits 2.
 """
@@ -94,7 +94,8 @@ KERNELS = {  # counter name -> (source, TPU kernels it replaces)
 # fused_ffn's replay: [M, C] -> 4C -> C, the MLP of stage 0 and of stage 3
 # of the batch-8 forward
 FFN_SHAPES = ((200704, 96), (3136, 768))
-TRAIN_KERNELS = {  # the train step's new kernels and modes
+TRAIN_K4 = "pooled_attention (train step)"
+TRAIN_KERNELS = {  # the train step's new kernels and modes, and K4
     "ln_linear_masked": ("svit_tpu_torch/csrc/ln_linear.cu",
                          "svit_tpu/ops/pallas_ffn.py:322 _ffn_res_kernel "
                          "(masked, fused_ffn_residual_masked :469)"),
@@ -111,7 +112,14 @@ TRAIN_KERNELS = {  # the train step's new kernels and modes
     "pooled_attention_bwd": ("svit_tpu_torch/csrc/attention.cu",
                              "svit_tpu/ops/pallas_attention.py:317 "
                              "_attn_bwd_kernel"),
+    TRAIN_K4: ("svit_tpu_torch/csrc/attention.cu",
+               "svit_tpu/ops/pallas_attention.py:167 _attn_kernel (the "
+               "train step's three forwards)"),
 }
+# a kernel table row -> the launch counter it reads
+COUNTER = {TRAIN_K4: "pooled_attention"}
+# a recorded call's name -> the kernel whose cost and yardstick it takes
+KIND = {"ln_linear_masked": "ln_linear", TRAIN_K4: "pooled_attention"}
 
 
 def log(*a):
@@ -273,6 +281,8 @@ def train_wrappers():
         "pooled_attention_bwd": (attn_ops, "pooled_attention_bwd",
                                  attn_ops.pooled_attention_bwd_reference,
                                  "pooled_attention_bwd"),
+        TRAIN_K4: (attn_ops, "pooled_attention_fwd",
+                   attn_ops.pooled_attention_reference, TRAIN_K4),
     }
 
 
@@ -310,8 +320,7 @@ def cost(name, args, kwargs):
         Nk = kv.shape[1]
         byts = 2 * (nb(q) + nb(kv) + nb(bias_src)) + nb(do)
         return byts, 10.0 * B * Nq * Nk * C, 0.0
-    if name == "ln_linear_masked":
-        name = "ln_linear"
+    name = KIND.get(name, name)
     if name == "ln_linear":
         x, w = args[0], args[1]
         bias = args[2] if len(args) > 2 else kwargs.get("bias")
@@ -395,8 +404,7 @@ def library_call(name, args, kwargs):
                                              scale=scale)
         return lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
                                            retain_graph=True)
-    if name == "ln_linear_masked":
-        name = "ln_linear"
+    name = KIND.get(name, name)
     if name == "ln_linear":
         x, w = args[0], args[1]
         bias = args[2] if len(args) > 2 else kwargs.get("bias")
@@ -461,9 +469,11 @@ def use_of(name, args, kwargs):
         return ("fused_ffn_residual_masked (fc1)"
                 if kwargs.get("x_add") is not None
                 else "fused_ffn_residual_masked (fc2)")
-    if name == "pooled_attention_bwd":
-        return ("pooled_attention_bwd (grid queries)" if args[2] is not None
-                else "pooled_attention_bwd (extras queries)")
+    if name in ("pooled_attention_bwd", "pooled_attention", TRAIN_K4):
+        what = ("pooled_attention_bwd" if name == "pooled_attention_bwd"
+                else "fused_attention_proj")
+        rows = "grid" if args[2] is not None else "extras"
+        return f"{what} ({rows} queries, Nk {args[1].shape[1]})"
     if name in ("pool_conv", "pool_conv_dx", "pool_conv_dk"):
         stride = tuple(args[2]) if name != "pool_conv_dk" else tuple(args[3])
         what = {"pool_conv": "pallas_depthwise_conv (recompute)",
@@ -482,9 +492,6 @@ def use_of(name, args, kwargs):
     if name == "pool_ln":
         return ("fused_pool_ln (stride 1)" if tuple(args[4]) == (1, 1, 1)
                 else "fused_pool_ln (strided)")
-    if name == "pooled_attention":
-        return ("fused_attention_proj (grid queries)" if args[2] is not None
-                else "fused_attention_proj (extras queries)")
     return "fused_pool_max"
 
 
@@ -929,6 +936,15 @@ def ptxas_report(text):
     return out
 
 
+def spilling(ptxas):
+    """The kernel instances whose ptxas lines report spill stores or loads."""
+    import re
+
+    return sorted(fn for fn, lines in ptxas.items()
+                  if any(int(n) for line in lines
+                         for n in re.findall(r"(\d+) bytes spill", line)))
+
+
 def time_forward(model, arch, torch, batch):
     x = torch.randn((batch, arch.num_frames, arch.crop_size, arch.crop_size, 3),
                     generator=torch.Generator().manual_seed(SEED + batch)).cuda()
@@ -949,7 +965,7 @@ def time_forward(model, arch, torch, batch):
 
 
 OUR_KERNELS = ("ln_linear_kernel", "pool_ln_kernel", "pool_max_kernel",
-               "attn_kernel", "attn_bwd_", "conv_dx_kernel", "conv_dk_")
+               "attn_fwd_kernel", "attn_bwd_", "conv_dx_kernel", "conv_dk_")
 
 
 def device_rows(prof, torch):
@@ -1102,6 +1118,8 @@ def main():
     for line in build_log.splitlines():
         if "Performance Loss" in line:
             log("  " + line.strip())
+    spills = spilling(ptxas)
+    log(f"kernel instances that spill: {spills or 'none'}")
 
     cfg = get_cfg()
     cfg.merge_from_file(CFG)
@@ -1133,22 +1151,28 @@ def main():
             (TRAIN_KERNELS, train_table, train["launches"])):
         for name, (source, replaces) in names.items():
             row = rows[name]
+            counter = COUNTER.get(name, name)
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches.get(name, 0),
+                "replaces": replaces, "launches": launches.get(counter, 0),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"]
                 else "operations",
                 "library_ms": row["library_ms"],
-                "train_launches": train["launches"].get(name, 0),
+                "train_launches": train["launches"].get(counter, 0),
             })
             if name == "ln_linear":
                 kernels[-1]["uses"] = k1
+            elif "attention" in name:   # K4 and K5 by use and Nk
+                kernels[-1]["uses"] = {
+                    k.split(": ", 1)[1]: u for k, u in
+                    (train_uses if names is TRAIN_KERNELS else uses).items()
+                    if k.split(": ", 1)[0] == name}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_detail.json"), "w") as f:
-        json.dump(dict(card=card, build_s=build_s, ptxas=ptxas,
+        json.dump(dict(card=card, build_s=build_s, ptxas=ptxas, spills=spills,
                        model=model_result, forward=fwd, profile=prof,
                        serving=serving, uses=uses, calls=details, ffn=ffn,
                        train=train, train_uses=train_uses,

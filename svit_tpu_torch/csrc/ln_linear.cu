@@ -68,9 +68,7 @@
 // The q | kv split falls on a sub-tile edge on the SViT path (C is a
 // multiple of 32); any other multiple of 8 stores the fragment's column
 // pairs directly instead.
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,7 +77,6 @@ constexpr int BK = 64;        // K per TMA box: 128 bytes, the swizzle span
 constexpr int SUB = 32;       // columns of one output sub-tile (64-byte rows)
 constexpr int SUB_BYTES = 64 * SUB * 2;  // a warpgroup's 64 rows of it
 constexpr int SMEM_BLOCK_MAX = 232448;   // dynamic shared memory of a block
-constexpr int ERR_PLAN = -1, ERR_ENTRY = -2, ERR_TMAP = -3;
 
 struct Params {
   int bm;  // rows per block: 64, or 128 (two warpgroups, 64 rows each)
@@ -126,188 +123,6 @@ struct Layout {
     total = bars + 8 * (2 * stages + 3);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait until the phase of parity ``parity`` has completed.  The spin is one
-// asm block (the compiler sees no divergent loop, which would serialise the
-// wgmma groups in flight); a phase that never completes (a fault in the
-// pipeline) traps after 2^22 tries instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .u32 n;\n"
-      "mov.u32 n, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 4194304;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The ops below that one thread issues take a predicate instead of sitting
-// in an ``if``: every thread of the warpgroup executes the instruction, so
-// the compiler sees no divergent path beside the wgmma groups in flight
-// (which it would serialise).
-__device__ __forceinline__ void mbar_expect_tx_if(bool pred, uint64_t* bar,
-                                                  uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
-      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes), "r"((int)pred)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_if(bool pred, uint64_t* bar) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
-      "r"((int)pred)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_if(bool pred, void* dst,
-                                            const CUtensorMap* map,
-                                            uint64_t* bar, int col, int row) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
-      "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n}\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row), "r"((int)pred)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_if(bool pred, const CUtensorMap* map,
-                                             const void* src, int col,
-                                             int row) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
-      "@p cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3}], [%1];\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(col), "r"(row), "r"((int)pred)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row)
-      : "memory");
-}
-
-// shared -> global through a tensor map: the box is clipped at the tensor's
-// edges (rows past M, columns past the output's width)
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
-      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(col), "r"(row)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// the committed stores have read their shared-memory source
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// generic-proxy writes to shared memory, then the async proxy (TMA, wgmma)
-// reads them
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// named barriers: 1 for the whole block, 2 + wg for one warpgroup
-template <int ID, int THREADS>
-__device__ __forceinline__ void bar_sync() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
-}
-
-__device__ __forceinline__ void wg_sync(int wg) {
-  if (wg == 0)
-    bar_sync<2, 128>();
-  else
-    bar_sync<3, 128>();
-}
-
-// wgmma smem descriptor: K-major, 128-byte swizzle, 8-row groups 1024 B apart
-__device__ __forceinline__ uint64_t make_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, f32) (+)= A (64 x 16, smem) . B (128 x 16, smem)^T
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
@@ -589,7 +404,7 @@ __global__ void __launch_bounds__(NCW * 128 + 32, NCW == 1 ? 3 : 1)
       mbar_init(&empty[s], ping ? 4 : 4 * NCW);  // lane 0 of each warp
     }
     for (int b = 0; b < 3; ++b) mbar_init(panel_bar + b, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   if (PANEL && p.ln_g) {  // the LN weight and bias, once per block
     for (int k = tid; k < p.K; k += blockDim.x) {
@@ -706,18 +521,18 @@ __global__ void __launch_bounds__(NCW * 128 + 32, NCW == 1 ? 3 : 1)
       const uint8_t* a = PANEL ? panel + c * BM * 128 + row_off * 128
                                : s_base + row_off * 128;
       const uint8_t* b = PANEL ? s_base : s_base + BM * 128;
-      const uint64_t da = make_desc(a), db = make_desc(b);
+      const uint64_t da = desc_sw128(a), db = desc_sw128(b);
       fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BK / 16; ++k)  // +32 bytes along K per step
-        wgmma_m64n128(acc, da + 2 * k, db + 2 * k, c > 0 || k > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_ss(acc, da + 2 * k, db + 2 * k, c > 0 || k > 0);
+      wgmma_commit();
       // chunk c - 1's group is done: its slot goes back to the producer
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      wgmma_wait<1>();
       mbar_arrive_if(c > 0 && lane == 0, &empty[prev]);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
     fence_acc(acc);
     mbar_arrive_if(lane == 0, &empty[s]);
     K1_TRACE(tw == 0 && j < 9, 5 + wg * 30 + j * 3, k1_clock());
@@ -736,52 +551,11 @@ __global__ void __launch_bounds__(NCW * 128 + 32, NCW == 1 ? 3 : 1)
 #endif
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// a [rows, cols] bf16 row-major tensor in boxes of box_rows x box_cols:
-// operands in 128-byte swizzled boxes of BK columns, outputs and the
-// residual in 64-byte swizzled boxes of SUB; loads are zero-filled and
-// stores clipped past its edges
 int encode(CUtensorMap* map, const bf16* ptr, int rows, int cols,
            int box_rows, int box_cols) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return ERR_ENTRY;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<bf16*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  box_cols == BK ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : CU_TENSOR_MAP_SWIZZLE_64B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_TMAP;
+  const long dims[3] = {cols, rows, 1};
+  return encode_map(map, ptr, 2, dims, box_cols, box_rows,
+                    box_cols == BK ? 128 : 64);
 }
 
 template <int NCW, bool PANEL, bool GELU>
@@ -819,11 +593,11 @@ int dispatch(const Params& p, const CUtensorMap (&maps)[6], int ncw,
 extern "C" const char* svit_error_string(int err) {
   switch (err) {
     case ERR_PLAN:
-      return "ln_linear: the launch plan does not fit the kernel";
+      return "the launch plan does not fit the kernel";
     case ERR_ENTRY:
-      return "ln_linear: cuTensorMapEncodeTiled not found in libcuda";
+      return "cuTensorMapEncodeTiled not found in libcuda";
     case ERR_TMAP:
-      return "ln_linear: cuTensorMapEncodeTiled refused a tensor map";
+      return "cuTensorMapEncodeTiled refused a tensor map";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(err));
   }

@@ -75,15 +75,17 @@ _SIGNATURES = {
         _I, _I, _I, _P,                    # To, Ho, Wo, stream
     ],
     "svit_pooled_attention": [
-        _P, _P, _P, _P,                    # q, kv, bias_src, out
-        _I, _I, _I, _I, _I,                # B, Nq, Nk, C, heads
-        _I, _I, _I, _F, _I, _P,            # kT, kH, kW, scale, q_residual, stream
+        _P, _P, _P, _P, _P,                # q, kv, bias_src, onehot tiles, out
+        _I, _I, _I, _I, _I, _I,            # B, Nq, Nk, C, heads, R
+        _F, _I,                            # scale, q_residual
+        _I, _I, _P,                        # stages, rk, stream
     ],
     "svit_pooled_attention_bwd": [
-        _P, _P, _P, _P,                    # q, kv, bias_src, dout
-        _P, _P, _P, _P, _P,                # dq, dkv, dbias, stats, partial
-        _I, _I, _I, _I, _I,                # B, Nq, Nk, C, heads
-        _I, _I, _I, _F, _I, _I, _P,        # kT, kH, kW, scale, q_residual, splits, stream
+        _P, _P, _P, _P, _P,                # q, kv, bias_src, dout, onehot tiles
+        _P, _P, _P, _P, _P, _P, _P,        # dq, dkv, dbias, stats, q*scale, bias tiles, partial
+        _I, _I, _I, _I, _I, _I,            # B, Nq, Nk, C, heads, R
+        _F, _I,                            # scale, q_residual
+        _I, _I, _I, _I, _P,                # q_stages, kv_stages, rk, splits, stream
     ],
 }
 

@@ -11,12 +11,16 @@ the unscaled q in the IO dtype (the reference's residual pooling).  q is
 (keys in channels ``[0, C)``, values in ``[C, 2C)``), with ``C = heads *
 head_dim``.
 
-The decomposed rel-pos bias enters by gather: for a patch key ``j < k_l``
-with grid position ``(t, h, w)`` in ``k_shape`` the bias is
-``bias_src[q, t] + bias_src[q, kT + h] + bias_src[q, kT + kH + w]``; the
-keys after the patches (cls and object tokens) get 0.  That is exactly the
-JAX package's ``bias_src @ M`` with its one-hot scatter matrix, without the
-matrix.  ``bias_src=None`` is the extras launch: no rel-pos bias at all.
+The decomposed rel-pos bias: for a patch key ``j < k_l`` with grid position
+``(t, h, w)`` in ``k_shape`` the bias is ``bias_src[q, t] + bias_src[q, kT +
+h] + bias_src[q, kT + kH + w]``; the keys after the patches (cls and object
+tokens) get 0.  That is the JAX package's ``bias_src @ M`` with its one-hot
+scatter matrix.  The plain twins gather it; the kernels take the product, on
+the tensor cores, with the one-hot map ``onehot_mt`` (built once per
+``(k_shape, Nk)`` on the device and cached, ``onehot_tiles``).
+``bias_src=None`` is the extras launch: no rel-pos bias at all.  The launch
+of K4 and K5 (ring stages, the bias product's k-steps, K5's query splits)
+is the pure-Python ``attention_plan``.
 
 ``fused_attention_proj`` adds the out-projection as a separate K1 launch
 (``ln_linear.linear_proj``): the product is rounded, then the bias is added
@@ -32,6 +36,8 @@ which under ``q_residual`` also adds ``dbase`` to dq.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -87,6 +93,150 @@ def build_bias_inputs_grid(
     ).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# The one-hot map and the launch plan of csrc/attention.cu
+# ---------------------------------------------------------------------------
+
+def onehot_mt(k_shape: Triple, n_k: int, r_pad: int) -> torch.Tensor:
+    """M^T ``[n_k, r_pad]`` f32 (CPU): for patch key ``j < kT*kH*kW`` at grid
+    position ``(t, h, w)`` ones at columns ``t``, ``kT + h`` and ``kT + kH +
+    w``; zero rows for the extras keys, zero columns past ``kT + kH + kW``.
+    The JAX package's ``_scatter_matrix`` rows ``[:R]``, transposed."""
+    k_t, k_h, k_w = k_shape
+    mt = torch.zeros(n_k, r_pad)
+    j = torch.arange(k_t * k_h * k_w)
+    for col in (j // (k_h * k_w), k_t + (j // k_w) % k_h, k_t + k_h + j % k_w):
+        mt[j, col] = 1.0
+    return mt
+
+
+def tile_onehot(mt: torch.Tensor) -> torch.Tensor:
+    """``mt [n_k, r_pad]`` as the kernels' one-hot tiles ``[tiles, r_pad /
+    8, 64, 8]`` in bf16 (exact: 0 and 1): for each tile of 64 keys (zero rows
+    past ``n_k``), chunk ``c`` (columns ``8c .. 8c + 7``) of every key row,
+    so 8 rows of one chunk are one 128-byte wgmma core matrix."""
+    n_k, r_pad = mt.shape
+    rows = -(-n_k // BQ) * BQ
+    padded = torch.nn.functional.pad(mt, (0, 0, 0, rows - n_k))
+    return padded.view(rows // BQ, BQ, r_pad // 8, 8).transpose(1, 2) \
+        .contiguous().to(torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def onehot_tiles(k_shape: Triple, n_k: int, r_pad: int,
+                 device: str) -> torch.Tensor:
+    """``tile_onehot(onehot_mt(...))`` on ``device``, built once per call
+    shape."""
+    return tile_onehot(onehot_mt(k_shape, n_k, r_pad)).to(device)
+
+
+BQ = 64                    # rows of a block (queries or keys), keys of a tile
+SMEM_BLOCK = 232448        # dynamic shared memory one block may use
+SMEM_SM = 233472           # shared memory of one SM
+SMEM_RESERVED = 1024       # what the system keeps per block
+STAGES_MAX = 4
+PARTIAL_BYTES_MAX = 1 << 28   # f32 dK | dV partials of K5's query splits
+# blocks an SM the plan keeps (160 threads a block; ptxas at head_dim 96:
+# the forward takes about 130 registers a thread, which would hold three
+# blocks, but two keep a deeper ring; the query side 141-171; the key side
+# 228-230, one block)
+BLOCKS_BY_REGS = {"fwd": 2, "bwd_q": 2, "bwd_kv": 1}
+
+
+def attention_smem(kind: str, hd: int, rk: int, stages: int) -> int:
+    """Dynamic shared memory of one block of ``kind`` ("fwd", "bwd_q",
+    "bwd_kv"), as ``csrc/attention.cu`` lays it out (``fwd_smem``,
+    ``bwd_q_smem``, ``bwd_kv_smem``): the resident tiles (the 64-row q tile
+    and bias rows, with the dO tile on the query side; or the key side's K |
+    V | one-hot tiles), the ring's slots (K | V | one-hot tiles of 64 keys;
+    or q * scale | dO | the statistics | the bias rows of 64 queries), full
+    and empty barriers per slot and one more."""
+    tile, onehot = BQ * hd * 2, BQ * 32 * rk
+    bars = 8 * (2 * stages + 1)
+    if kind == "fwd":
+        return tile + onehot + stages * (2 * tile + onehot) + bars
+    if kind == "bwd_q":
+        return 2 * tile + onehot + stages * (2 * tile + onehot) + bars
+    if kind == "bwd_kv":
+        return (2 * tile + onehot + stages * (2 * tile + BQ * 16 + onehot)
+                + bars)
+    raise ValueError(kind)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    stages: int         # ring slots (the forward, or K5's query side)
+    rk: int             # k16 steps of the bias product (R padded to 16 rk)
+    blocks: int         # blocks of the forward, or of K5's query side
+    smem: int
+    blocks_per_sm: int
+    # K5's key side
+    kv_stages: int = 0
+    splits: int = 0
+    tiles_per_split: int = 0
+    kv_blocks: int = 0
+    kv_smem: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _per_sm(kind: str, smem: int) -> int:
+    return min(BLOCKS_BY_REGS[kind], SMEM_SM // (smem + SMEM_RESERVED))
+
+
+def _stages(kind, hd, rk, loads):
+    """The deepest ring (up to STAGES_MAX and the loads it carries) that
+    keeps the blocks an SM that the registers allow, at least one slot."""
+    want = _per_sm(kind, attention_smem(kind, hd, rk, 1))
+    best = 1
+    for s in range(1, min(STAGES_MAX, max(1, loads)) + 1):
+        if _per_sm(kind, attention_smem(kind, hd, rk, s)) >= want:
+            best = s
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(B: int, Nq: int, Nk: int, C: int, heads: int, R: int, *,
+                   backward: bool = False, sms: int = 132) -> AttnPlan:
+    """The launch of K4 (or, ``backward``, K5) for a call's shapes; ``R`` is
+    ``kT + kH + kW``, 0 without a bias.
+
+    A block is one consumer warpgroup of 64 rows (queries; or keys on K5's
+    key side) and the producer warp; keys come in tiles of 64.  The bias
+    product takes ``rk = ceil(R / 16)`` k-steps at head_dim 96 (the
+    compiled instances); other head widths pad R to 48 (``rk`` 3).  The
+    ring takes the most stages (up to ``STAGES_MAX``, and no more than it
+    carries) that keep the blocks an SM that the registers allow.  K5's key
+    side splits the query tiles until its blocks fill the card twice,
+    within ``PARTIAL_BYTES_MAX`` of f32 partials."""
+    if C % heads or C // heads not in (64, 96, 128):
+        raise ValueError(f"pooled attention takes head_dim 64, 96 or 128 "
+                         f"(C={C}, heads={heads})")
+    hd = C // heads
+    if R > 48:
+        raise ValueError(f"the rel-pos bias takes kT + kH + kW <= 48 (R={R})")
+    rk = 0 if R == 0 else (_cdiv(R, 16) if hd == 96 else 3)
+    n_kt, q_tiles = _cdiv(Nk, BQ), _cdiv(Nq, BQ)
+    kind = "bwd_q" if backward else "fwd"
+    stages = _stages(kind, hd, rk, 2 * n_kt if backward else n_kt)
+    smem = attention_smem(kind, hd, rk, stages)
+    blocks = q_tiles * heads * B
+    if not backward:
+        return AttnPlan(stages, rk, blocks, smem, _per_sm(kind, smem))
+    key_blocks = n_kt * heads * B
+    splits = max(1, min(q_tiles, _cdiv(2 * sms, key_blocks)))
+    while splits > 1 and splits * B * Nk * 2 * C * 4 > PARTIAL_BYTES_MAX:
+        splits -= 1
+    per = _cdiv(q_tiles, splits)
+    splits = _cdiv(q_tiles, per)          # no split without a tile
+    kv_stages = _stages("bwd_kv", hd, rk, per)
+    kv_smem = attention_smem("bwd_kv", hd, rk, kv_stages)
+    return AttnPlan(stages, rk, blocks, smem, _per_sm(kind, smem), kv_stages,
+                    splits, per, key_blocks * splits, kv_smem)
+
+
 def _gather_bias(bias_src, k_shape, n_k):
     """The dense ``[B, heads, Nq, n_k]`` f32 bias of the gather rule."""
     k_t, k_h, k_w = k_shape
@@ -122,14 +272,9 @@ def pooled_attention_reference(q, kv, bias_src, k_shape: Triple, scale: float,
     return out + q if q_residual else out
 
 
-def pooled_attention_fwd(q, kv, bias_src, k_shape: Triple, scale: float,
-                    heads: int, q_residual: bool = False):
-    """Kernel K4 (``csrc/attention.cu``), the forward alone: flash-style
-    online softmax over key tiles, one block per (batch, 64-query tile,
-    head).  Returns [B, Nq, C]."""
-    if q.device.type == "cpu":
-        return pooled_attention_reference(q, kv, bias_src, k_shape, scale,
-                                          heads, q_residual)
+def _checked(q, kv, bias_src, k_shape, heads, what):
+    """Validate a kernel call; returns R = kT + kH + kW, 0 without a
+    bias."""
     B, Nq, C = q.shape
     Nk = kv.shape[1]
     dt = torch.bfloat16
@@ -137,21 +282,45 @@ def pooled_attention_fwd(q, kv, bias_src, k_shape: Triple, scale: float,
     _lib.check(kv, "kv", dt, (B, Nk, 2 * C), q.device)
     hd = C // heads
     if C % heads or hd not in (64, 96, 128):
-        raise ValueError(f"pooled_attention takes head_dim 64, 96 or 128 "
+        raise ValueError(f"{what} takes head_dim 64, 96 or 128 "
                          f"(C={C}, heads={heads})")
-    k_t, k_h, k_w = k_shape if bias_src is not None else (0, 0, 0)
-    if bias_src is not None:
-        _lib.check(bias_src, "bias_src", dt, (B, heads, Nq, k_t + k_h + k_w),
-                   q.device)
-        if k_t * k_h * k_w > Nk:
-            raise ValueError(f"k_shape {k_shape} holds more keys than Nk={Nk}")
+    if bias_src is None:
+        return 0
+    k_t, k_h, k_w = k_shape
+    _lib.check(bias_src, "bias_src", dt, (B, heads, Nq, k_t + k_h + k_w),
+               q.device)
+    if k_t * k_h * k_w > Nk:
+        raise ValueError(f"k_shape {k_shape} holds more keys than Nk={Nk}")
+    return k_t + k_h + k_w
+
+
+def _tiles(bias_src, k_shape, Nk, rk, device):
+    if bias_src is None:
+        return None
+    return onehot_tiles(tuple(k_shape), Nk, 16 * rk, str(device))
+
+
+def pooled_attention_fwd(q, kv, bias_src, k_shape: Triple, scale: float,
+                         heads: int, q_residual: bool = False):
+    """Kernel K4 (``csrc/attention.cu``), the forward alone: online softmax
+    over TMA-fed key tiles on ``wgmma``, the bias as a product with the
+    one-hot map; launched as ``attention_plan`` says.  Returns [B, Nq, C]."""
+    if q.device.type == "cpu":
+        return pooled_attention_reference(q, kv, bias_src, k_shape, scale,
+                                          heads, q_residual)
+    B, Nq, C = q.shape
+    Nk = kv.shape[1]
+    R = _checked(q, kv, bias_src, k_shape, heads, "pooled_attention")
     out = torch.empty_like(q)
     if q.numel():
+        plan = attention_plan(B, Nq, Nk, C, heads, R,
+                              sms=_lib.sm_count(q.device))
+        mt = _tiles(bias_src, k_shape, Nk, plan.rk, q.device)
         _lib.launch(
             "svit_pooled_attention", "pooled_attention",
-            _lib.ptr(q), _lib.ptr(kv), _lib.ptr(bias_src), _lib.ptr(out),
-            B, Nq, Nk, C, heads, k_t, k_h, k_w, float(scale),
-            int(q_residual), _lib.stream())
+            _lib.ptr(q), _lib.ptr(kv), _lib.ptr(bias_src), _lib.ptr(mt),
+            _lib.ptr(out), B, Nq, Nk, C, heads, R, float(scale),
+            int(q_residual), plan.stages, plan.rk, _lib.stream())
     return out
 
 
@@ -212,44 +381,40 @@ def pooled_attention_bwd(q, kv, bias_src, do, k_shape: Triple, scale: float,
                          heads: int, q_residual: bool = False):
     """Kernel K5 (``csrc/attention.cu``): the gradient of
     ``pooled_attention`` with respect to q, kv and bias_src, for the output
-    cotangent ``do`` [B, Nq, C].  Same contract as the plain twin."""
+    cotangent ``do`` [B, Nq, C].  Same contract as the plain twin.
+    Launched as ``attention_plan(..., backward=True)`` says."""
     if q.device.type == "cpu":
         return pooled_attention_bwd_reference(q, kv, bias_src, do, k_shape,
                                               scale, heads, q_residual)
     B, Nq, C = q.shape
     Nk = kv.shape[1]
-    dt = torch.bfloat16
-    _lib.check(q, "q", dt)
-    _lib.check(kv, "kv", dt, (B, Nk, 2 * C), q.device)
-    _lib.check(do, "do", dt, (B, Nq, C), q.device)
-    hd = C // heads
-    if C % heads or hd not in (64, 96, 128):
-        raise ValueError(f"pooled_attention_bwd takes head_dim 64, 96 or 128 "
-                         f"(C={C}, heads={heads})")
-    k_t, k_h, k_w = k_shape if bias_src is not None else (0, 0, 0)
-    if bias_src is not None:
-        _lib.check(bias_src, "bias_src", dt, (B, heads, Nq, k_t + k_h + k_w),
-                   q.device)
-        if k_t * k_h * k_w > Nk:
-            raise ValueError(f"k_shape {k_shape} holds more keys than Nk={Nk}")
-    # enough key-side blocks to fill the card twice: split the query tiles
-    key_blocks = -(-Nk // 64) * heads * B
-    splits = max(1, min(-(-Nq // 64),
-                        -(-2 * _lib.sm_count(q.device) // key_blocks)))
+    R = _checked(q, kv, bias_src, k_shape, heads, "pooled_attention_bwd")
+    _lib.check(do, "do", torch.bfloat16, (B, Nq, C), q.device)
     dq = torch.empty_like(q)
     dkv = torch.empty_like(kv)
     dbias = torch.empty_like(bias_src) if bias_src is not None else None
-    stats = torch.empty((B, heads, Nq, 3), dtype=torch.float32,
-                        device=q.device)
-    partial = torch.empty((splits, B, Nk, 2 * C), dtype=torch.float32,
-                          device=q.device)
     if q.numel():
+        plan = attention_plan(B, Nq, Nk, C, heads, R, backward=True,
+                              sms=_lib.sm_count(q.device))
+        mt = _tiles(bias_src, k_shape, Nk, plan.rk, q.device)
+        nq_pad = _cdiv(Nq, BQ) * BQ
+        stats = torch.empty((B, heads, nq_pad, 4), dtype=torch.float32,
+                            device=q.device)
+        qs = torch.empty_like(q)
+        bias_tiles = (torch.empty((B, heads, nq_pad, 16 * plan.rk),
+                                  dtype=q.dtype, device=q.device)
+                      if bias_src is not None else None)
+        partial = (torch.empty((plan.splits, B, Nk, 2 * C),
+                               dtype=torch.float32, device=q.device)
+                   if plan.splits > 1 else None)
         _lib.launch(
             "svit_pooled_attention_bwd", "pooled_attention_bwd",
             _lib.ptr(q), _lib.ptr(kv), _lib.ptr(bias_src), _lib.ptr(do),
-            _lib.ptr(dq), _lib.ptr(dkv), _lib.ptr(dbias), _lib.ptr(stats),
-            _lib.ptr(partial), B, Nq, Nk, C, heads, k_t, k_h, k_w,
-            float(scale), int(q_residual), splits, _lib.stream())
+            _lib.ptr(mt), _lib.ptr(dq), _lib.ptr(dkv), _lib.ptr(dbias),
+            _lib.ptr(stats), _lib.ptr(qs), _lib.ptr(bias_tiles),
+            _lib.ptr(partial), B, Nq, Nk, C,
+            heads, R, float(scale), int(q_residual), plan.stages,
+            plan.kv_stages, plan.rk, plan.splits, _lib.stream())
     return dq, dkv, dbias
 
 

@@ -42,6 +42,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     svit_tpu_torch.__path__, "svit_tpu_torch."))
 for n in names:
     importlib.import_module(n)
+import attention_probe
 import chip_smoke
 import k1_probe
 leaked = sorted(m for m in sys.modules if blocked(m))
@@ -100,6 +101,14 @@ def test_chip_smoke_exits_nonzero_without_cuda():
 @pytest.mark.parametrize("mode", ["--sweep", "--trace"])
 def test_k1_probe_exits_nonzero_without_cuda(mode):
     r = subprocess.run([sys.executable, "k1_probe.py", mode], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode == 2, r.stdout + r.stderr
+    assert "no CUDA device" in r.stderr
+
+
+def test_attention_probe_exits_nonzero_without_cuda():
+    r = subprocess.run([sys.executable, "attention_probe.py"], cwd=REPO,
                        capture_output=True, text=True, timeout=300,
                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode == 2, r.stdout + r.stderr

@@ -220,6 +220,71 @@ def test_pooled_attention_bwd(gen, heads, q_residual, with_bias):
           bias, do, k_shape, hd ** -0.5, heads, q_residual)
 
 
+# (B, Nq, k_shape, extras, heads, head_dim, q_residual, bias): the main
+# path's key counts (Nk 457, 1633, 54, 201), query counts (392, 1568, 65, 5
+# and 49, 196), bias widths (R 22, 36, 15, 29) and heads 1 to 8, at fewer
+# clips; a 6272-query call for K5's query splits; head_dim 64 and 128 once
+# each
+MAIN_PATH = [
+    (2, 392, (8, 7, 7), 65, 8, 96, True, True),
+    (1, 1568, (8, 14, 14), 65, 4, 96, True, True),
+    (2, 65, (8, 7, 7), 65, 2, 96, True, False),
+    (2, 65, (8, 14, 14), 65, 1, 96, True, False),
+    (4, 49, (1, 7, 7), 5, 8, 96, True, True),
+    (4, 5, (1, 14, 14), 5, 1, 96, False, False),
+    (2, 196, (1, 14, 14), 5, 2, 96, True, True),
+    (2, 6272, (8, 7, 7), 65, 2, 96, True, True),
+    (2, 300, (4, 5, 5), 65, 1, 64, True, True),
+    (2, 300, (4, 5, 5), 65, 2, 128, False, True),
+]
+
+
+def _attention_inputs(gen, B, Nq, k_shape, extras, heads, hd, bias):
+    C = heads * hd
+    Nk = k_shape[0] * k_shape[1] * k_shape[2] + extras
+    q = _randn(gen, B, Nq, C)
+    kv = _randn(gen, B, Nk, 2 * C)
+    b = _randn(gen, B, heads, Nq, sum(k_shape), scale=0.5) if bias else None
+    return q, kv, b
+
+
+@pytest.mark.parametrize("B,Nq,k_shape,extras,heads,hd,q_residual,bias",
+                         MAIN_PATH)
+def test_pooled_attention_main_path_shapes(gen, B, Nq, k_shape, extras,
+                                           heads, hd, q_residual, bias):
+    q, kv, b = _attention_inputs(gen, B, Nq, k_shape, extras, heads, hd, bias)
+    _gate(ta.pooled_attention, ta.pooled_attention_reference, q, kv, b,
+          k_shape, hd ** -0.5, heads, q_residual)
+
+
+@pytest.mark.parametrize("B,Nq,k_shape,extras,heads,hd,q_residual,bias",
+                         MAIN_PATH)
+def test_pooled_attention_bwd_main_path_shapes(gen, B, Nq, k_shape, extras,
+                                               heads, hd, q_residual, bias):
+    q, kv, b = _attention_inputs(gen, B, Nq, k_shape, extras, heads, hd, bias)
+    do = _randn(gen, *q.shape)
+    _gate(ta.pooled_attention_bwd, ta.pooled_attention_bwd_reference, q, kv,
+          b, do, k_shape, hd ** -0.5, heads, q_residual)
+
+
+def test_pooled_attention_bwd_is_deterministic(gen):
+    """Two runs on the same inputs agree bit for bit: the key side sums its
+    query splits' partials in a fixed order, with no atomics."""
+    B, Nq, k_shape, extras, heads, hd = 2, 6272, (8, 7, 7), 65, 2, 96
+    q, kv, b = _attention_inputs(gen, B, Nq, k_shape, extras, heads, hd, True)
+    do = _randn(gen, *q.shape)
+    plan = ta.attention_plan(B, Nq, kv.shape[1], heads * hd, heads,
+                             sum(k_shape), backward=True,
+                             sms=_lib.sm_count(q.device))
+    assert plan.splits > 1
+    one = ta.pooled_attention_bwd(q, kv, b, do, k_shape, hd ** -0.5, heads,
+                                  True)
+    two = ta.pooled_attention_bwd(q, kv, b, do, k_shape, hd ** -0.5, heads,
+                                  True)
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("stride", [(1, 1, 1), (1, 2, 2), (1, 4, 4), (1, 8, 8)])
 def test_depthwise_conv_and_its_gradients(gen, stride):
     B, T, H, W, C = 2, 4, 16, 16, 192
