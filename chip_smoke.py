@@ -39,15 +39,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    is printed.  The kernel step's launch counts must equal what the
    architecture implies; every distinct call of the backward kernels (K5,
    K6, K7), K2's bare mode, K1's masked mode and K4 is replayed against
-   its plain version, timed beside its bound and a library yardstick.  Then
+   its plain version, timed beside its bound and a library yardstick, and
+   so is every K2 call of the step's three forwards (the ``pool_ln (train
+   step)`` row).  Then
    five timed steps of the kernel model: median step time, clips/s, peak
    memory, a profiled step's device time by kernel and idle share, a finite
    loss and parameters that move.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
-and modes, and of K4's train-step row, the train step; ``train_launches``
-counts the train step for all; K1, K4 and K5 carry their uses), the card's name and power limit, and last
+and modes, and of K2's and K4's train-step rows, the train step;
+``train_launches`` counts the train step for all; K1, K4 and K5 carry their
+uses), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
 ``chiprun_out/chip_smoke_detail.json``.  Without a card it exits 2.
 """
@@ -56,6 +59,7 @@ import base64
 import collections
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -95,6 +99,7 @@ KERNELS = {  # counter name -> (source, TPU kernels it replaces)
 # of the batch-8 forward
 FFN_SHAPES = ((200704, 96), (3136, 768))
 TRAIN_K4 = "pooled_attention (train step)"
+TRAIN_K2 = "pool_ln (train step)"
 TRAIN_KERNELS = {  # the train step's new kernels and modes, and K4
     "ln_linear_masked": ("svit_tpu_torch/csrc/ln_linear.cu",
                          "svit_tpu/ops/pallas_ffn.py:322 _ffn_res_kernel "
@@ -115,11 +120,16 @@ TRAIN_KERNELS = {  # the train step's new kernels and modes, and K4
     TRAIN_K4: ("svit_tpu_torch/csrc/attention.cu",
                "svit_tpu/ops/pallas_attention.py:167 _attn_kernel (the "
                "train step's three forwards)"),
+    TRAIN_K2: ("svit_tpu_torch/csrc/pool.cu",
+               "svit_tpu/ops/pallas_pool.py:175 _kernel_s1; "
+               "svit_tpu/ops/pallas_pool.py:250 _kernel_strided (the train "
+               "step's three forwards)"),
 }
 # a kernel table row -> the launch counter it reads
-COUNTER = {TRAIN_K4: "pooled_attention"}
+COUNTER = {TRAIN_K4: "pooled_attention", TRAIN_K2: "pool_ln"}
 # a recorded call's name -> the kernel whose cost and yardstick it takes
-KIND = {"ln_linear_masked": "ln_linear", TRAIN_K4: "pooled_attention"}
+KIND = {"ln_linear_masked": "ln_linear", TRAIN_K4: "pooled_attention",
+        TRAIN_K2: "pool_ln"}
 
 
 def log(*a):
@@ -283,12 +293,31 @@ def train_wrappers():
                                  "pooled_attention_bwd"),
         TRAIN_K4: (attn_ops, "pooled_attention_fwd",
                    attn_ops.pooled_attention_reference, TRAIN_K4),
+        TRAIN_K2: (pool, "fused_pool_ln", pool.pool_ln_reference, TRAIN_K2),
     }
+
+
+def touched(D, k, s):
+    """Input positions along one axis that some window of a pool (kernel
+    ``k``, stride ``s``, padding k//2) reads."""
+    out = (D + 2 * (k // 2) - k) // s + 1
+    return len({o * s - k // 2 + d for o in range(out) for d in range(k)}
+               & set(range(D)))
+
+
+def window_bytes(x, kernel, stride):
+    """Bytes of ``x`` [B, T, H, W, C] at the positions some window reads.
+    At stride <= kernel that is all of ``x``; at stride (1, 4, 4) with
+    kernel 3 the windows read 9/16 of the positions, at (1, 8, 8) 9/64.
+    Each position is C contiguous values (at least 192 bytes), so a kernel
+    can read only those rows: the bound counts no more."""
+    B, T, H, W, C = x.shape
+    return B * C * x.element_size() * math.prod(
+        touched(d, k, s) for d, k, s in zip((T, H, W), kernel, stride))
 
 
 def cost(name, args, kwargs):
     """(bytes the call must move, tensor-core flops, CUDA-core flops)."""
-    import math
 
     def nb(t):
         return 0 if t is None else t.numel() * t.element_size()
@@ -302,7 +331,7 @@ def cost(name, args, kwargs):
             g_numel = B * C * math.prod(
                 (d + 2 * (k // 2) - k) // s + 1
                 for d, k, s in zip((T, H, W), w.shape[2:], stride))
-            byts = nb(x) + nb(w) + 2 * g_numel
+            byts = window_bytes(x, w.shape[2:], stride) + nb(w) + 2 * g_numel
             taps = math.prod(w.shape[2:])
         elif name == "pool_conv_dx":
             g, w, stride, in_shape = args
@@ -311,7 +340,8 @@ def cost(name, args, kwargs):
         else:
             x, g, kernel, stride = args
             g_numel, taps = g.numel(), math.prod(kernel)
-            byts = nb(x) + nb(g) + 4 * taps * x.shape[-1]
+            byts = (window_bytes(x, kernel, stride) + nb(g)
+                    + 4 * taps * x.shape[-1])
         return byts, 0.0, 2.0 * taps * g_numel
     if name == "pooled_attention_bwd":
         # five Nq x Nk x head_dim products per head: S, dP, dq, dK, dV
@@ -339,8 +369,8 @@ def cost(name, args, kwargs):
         out = B * C * math.prod(
             (d + 2 * (k // 2) - k) // s + 1
             for d, k, s in zip((T, H, W), w.shape[2:], stride))
-        return nb(x) + nb(w) + nb(ls) + nb(lb) + 2 * out, 0.0, \
-            out * (2.0 * taps + 8)
+        return (window_bytes(x, w.shape[2:], stride) + nb(w) + nb(ls)
+                + nb(lb) + 2 * out, 0.0, out * (2.0 * taps + 8))
     if name == "pool_max":
         x, kernel, stride = args
         B, T, H, W, C = x.shape
@@ -489,9 +519,8 @@ def use_of(name, args, kwargs):
         if kwargs.get("round_then_bias"):
             return "fused_attention_proj (projection)"
         return "fused_ln_dense"
-    if name == "pool_ln":
-        return ("fused_pool_ln (stride 1)" if tuple(args[4]) == (1, 1, 1)
-                else "fused_pool_ln (strided)")
+    if name in ("pool_ln", TRAIN_K2):
+        return f"fused_pool_ln stride {tuple(args[4])}"
     return "fused_pool_max"
 
 
@@ -1113,7 +1142,7 @@ def main():
     log(f"build: {so.name} in {build_s:.1f} s")
     build_log = (_lib.BUILD / "build.log").read_text()
     ptxas = ptxas_report(build_log)
-    for fn, lines in ptxas.items():   # K1 per instance, with its spills
+    for fn, lines in ptxas.items():   # every instance, with its spills
         log(f"  {fn}: " + "; ".join(lines))
     for line in build_log.splitlines():
         if "Performance Loss" in line:

@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""Sweep kernels K2 and K7 (``svit_tpu_torch/csrc/pool.cu``) on one NVIDIA
+card.
+
+    python3 pool_probe.py [--sweep | --no-math]
+
+Every distinct pool call of the SViT-B/16 forwards (``configs/ssv2.yaml``:
+video batch 8 and 1, image batch 8, the train step's 128-frame consistency
+forward) as K2 with its LN, and every call of the train step's backward
+(video and image batch 8) as K2 in bare mode and as K7, on random bf16
+inputs from a seed: each at the launch of ``ops/pool.py:pool_plan``,
+checked against its plain twin in f32 (``chip_smoke``'s gate) and timed by
+device time (``chip_smoke.device_time_ms``) beside the library yardstick
+and the bound (``chip_smoke.cost``).  ``--sweep`` also times each call
+under other tiles (rows, columns, frames) than the plan's, where its bound
+is above 5 us.  ``--no-math`` times a build (``-DSVIT_POOL_NO_MATH``) whose
+kernels run only the tiles' loads and barriers, ungated: what the TMA halo
+ring costs alone.  Results go to ``chiprun_out/pool_probe.json`` (or
+``pool_probe_no_math.json``).  Without a card it exits 2.
+"""
+
+import functools
+import json
+import os
+import sys
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FORWARDS = {"video 8": (8, 16), "video 1": (1, 16), "image 8": (8, 1),
+            "consistency 128": (128, 1)}
+BACKWARD = ("video 8", "image 8")      # the train step's backward passes
+
+
+def calls():
+    """{(kind, input shape, stride): [uses, launches]}: K2 ("pool_ln") for
+    every forward's q and k|v pools, K2 bare ("pool_conv") and K7
+    ("pool_conv_dk") for the backward's."""
+    from svit_tpu_torch.config import get_cfg
+    from svit_tpu_torch.models.svit import SViTArch
+    from svit_tpu_torch.ops.pooling import out_size
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "ssv2.yaml"))
+    arch = SViTArch.from_cfg(cfg)
+    out = {}
+    for name, (B, frames) in FORWARDS.items():
+        size = (arch.patch_dims[0] if frames > 1 else 1, *arch.patch_dims[1:])
+        for s in arch.blocks:
+            q_shape = tuple(out_size(d, k, st) for d, k, st in
+                            zip(size, s.kernel_q, s.stride_q))
+            for C, stride in ((s.dim_out, tuple(s.stride_q)),
+                              (2 * s.dim_out, tuple(s.stride_kv))):
+                kinds = ["pool_ln"] + (["pool_conv", "pool_conv_dk"]
+                                       if name in BACKWARD else [])
+                for kind in kinds:
+                    row = out.setdefault((kind, (B, *size, C), stride),
+                                         [set(), 0])
+                    row[0].add(name)
+                    row[1] += 1
+            size = q_shape
+    return out
+
+
+def tiles(plan, To, Wo):
+    """Other launches of one call for ``--sweep``: rows, columns and frames
+    of a tile (the ring as planned)."""
+    chunks = sorted({To, -(-To // 2), -(-To // 4), 1})
+    widths = sorted({min(Wo, w) for w in (4, 7, 8, 14, 16)})
+    return [dict(rows=r, cols=c, frames=f, ring=plan.ring)
+            for r in (1, 2, 3, 4) for c in widths for f in chunks
+            if (r, c, f) != (plan.rows, plan.cols, plan.frames)]
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("pool_probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.ops import pool as tp
+
+    sweep = "--sweep" in sys.argv[1:]
+    no_math = "--no-math" in sys.argv[1:]
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    if no_math:
+        _lib.NVCC_FLAGS.append("-DSVIT_POOL_NO_MATH")
+    _lib.build()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    sms = _lib.sm_count(torch.device("cuda"))
+    plan_fn = tp.pool_plan
+
+    def r(*s, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(s, device="cuda", generator=gen)).to(dtype)
+
+    rows, ok_all = [], True
+    for (kind, shape, stride), (uses, count) in calls().items():
+        B, T, H, W, C = shape
+        To, Ho, Wo = (tp.out_size(d, 3, s) for d, s in zip((T, H, W), stride))
+        x, w = r(*shape), r(C, 1, 3, 3, 3, scale=0.2, dtype=torch.float32)
+        if kind == "pool_ln":
+            ls = 1 + r(C, scale=0.1, dtype=torch.float32)
+            lb = r(C, scale=0.1, dtype=torch.float32)
+            args = (x, w, ls, lb, stride, 96)
+            kernel, plain = tp.fused_pool_ln, tp.pool_ln_reference
+        elif kind == "pool_conv":
+            args = (x, w, stride, 96)
+            kernel = tp.depthwise_conv
+
+            def plain(x, w, stride, hd):
+                return tp.depthwise_conv_reference(x, w, stride)
+        else:
+            args = (x, r(B, To, Ho, Wo, C), (3, 3, 3), stride)
+            kernel, plain = tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference
+        plan = plan_fn(shape, (3, 3, 3), stride,
+                       "dk" if kind == "pool_conv_dk" else "pool", sms=sms)
+        with torch.inference_mode():
+            if no_math:                       # nothing computed to gate
+                err = err_p = float("nan")
+                ok = True
+            else:
+                y32 = cs.cat_outputs(plain(*cs.to_f32(args)))
+                err_p = cs.rel_err(cs.cat_outputs(plain(*args)), y32)
+                err = cs.rel_err(cs.cat_outputs(kernel(*args)), y32)
+                ok = err <= cs.TOL_RATIO * err_p + cs.TOL_ABS
+            ms = cs.device_time_ms(lambda: kernel(*args))
+            lib_ms = cs.device_time_ms(cs.library_call(kind, args, {}), 2)
+            byts, _, cflops = cs.cost(kind, args, {})
+            bound = max(byts / cs.HBM_BPS, cflops / cs.CORE_FLOPS) * 1e3
+            row = dict(kind=kind, shape=list(shape), stride=list(stride),
+                       uses=sorted(uses), launches=count, err=err,
+                       plain_err=err_p, ok=ok, ms=ms, library_ms=lib_ms,
+                       bound_ms=bound,
+                       plan=dict(rows=plan.rows, cols=plan.cols,
+                                 frames=plan.frames, ring=plan.ring,
+                                 grid=plan.grid, smem=plan.smem))
+            if sweep and bound > 0.005:       # the calls that move the total
+                row["sweep"] = []
+                for over in tiles(plan, To, Wo):
+                    try:
+                        tp.pool_plan = functools.partial(plan_fn, **over)
+                        alt = tp.pool_plan(shape, (3, 3, 3), stride,
+                                           "dk" if kind == "pool_conv_dk"
+                                           else "pool", sms=sms)
+                        row["sweep"].append(dict(
+                            over, grid=alt.grid, smem=alt.smem,
+                            ms=cs.device_time_ms(lambda: kernel(*args))))
+                    except ValueError:     # no such tile fits
+                        pass
+                    finally:
+                        tp.pool_plan = plan_fn
+                best = min(row["sweep"] + [dict(ms=ms)], key=lambda d: d["ms"])
+                row["best"] = best
+        ok_all &= ok
+        print(json.dumps({k: v for k, v in row.items() if k != "sweep"}),
+              flush=True)
+        rows.append(row)
+    total = {}
+    for row in rows:
+        t = total.setdefault(row["kind"], dict(ms=0.0, bound_ms=0.0,
+                                                library_ms=0.0))
+        for k in t:
+            t[k] += row[k] * row["launches"]
+    print("summed over the launches of the four forwards (pool_ln) and of "
+          "the step's backward (pool_conv, pool_conv_dk): "
+          + json.dumps(total), flush=True)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    name = "pool_probe_no_math.json" if no_math else "pool_probe.json"
+    with open(os.path.join(REPO, "chiprun_out", name), "w") as f:
+        json.dump(dict(card=card, rows=rows, total=total), f, indent=1)
+    print(card)
+    return 0 if ok_all else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

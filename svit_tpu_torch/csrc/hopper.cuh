@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the hand-written kernels: mbarriers,
-// TMA loads and stores through tensor maps, 1-D bulk copies, proxy fences,
+// TMA loads and stores through tensor maps (2-D, 3-D, and 5-D halo boxes
+// with zero fill and traversal strides), 1-D bulk copies, proxy fences,
 // named barriers, wgmma descriptors and the wgmma products themselves (A
 // from shared memory or from registers, B from shared memory, f32
 // accumulators), and the host-side encoding of tensor maps through libcuda's
@@ -141,6 +142,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row), "r"(batch)
+      : "memory");
+}
+
+// a box of a 5-D map (channel, w, h, t, batch), from signed coordinates:
+// every element outside the tensor lands as zero.  With traversal strides
+// the box takes every s-th element of its extent along that dimension.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c, int w, int h,
+                                            int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(w),
+      "r"(h), "r"(t), "r"(b)
       : "memory");
 }
 
@@ -490,6 +505,33 @@ static inline int encode_map(CUtensorMap* map, const void* ptr, int rank,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                   const_cast<void*>(ptr), d, strides, box, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TMAP;
+}
+
+// a channels-last bf16 grid [B, T, H, W, C] as a 5-D map, innermost first
+// (``dims``: C, W, H, T, B), no swizzle.  ``box`` is the extent a load
+// traverses along each dimension and ``step`` the traversal stride (1 to
+// 8): a load lands ceil(box / step) elements per dimension, and elements
+// outside the tensor (negative coordinates included) land as zero.
+static inline int encode_map_5d(CUtensorMap* map, const void* ptr,
+                                const long (&dims)[5], const int (&box)[5],
+                                const int (&step)[5]) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return ERR_ENTRY;
+  cuuint64_t d[5], strides[4];
+  cuuint32_t bx[5], el[5];
+  for (int i = 0; i < 5; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+    el[i] = (cuuint32_t)step[i];
+  }
+  strides[0] = d[0] * sizeof(bf16);
+  for (int i = 1; i < 4; ++i) strides[i] = strides[i - 1] * d[i];
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                  const_cast<void*>(ptr), d, strides, bx, el,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TMAP;

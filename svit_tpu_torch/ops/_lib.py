@@ -55,7 +55,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,                # x, w, ln_g, ln_b, out
         _I, _I, _I, _I, _I,                # B, T, H, W, C
         _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
-        _I, _I, _I, _I, _F, _I, _P,        # To, Ho, Wo, head_dim, eps, apply_ln, stream
+        _I, _I, _I, _I, _F, _I,            # To, Ho, Wo, head_dim, eps, apply_ln
+        _I, _I, _I, _I, _I, _I, _P,        # rows, cols, frames, ring, grid, smem, stream
     ],
     "svit_conv_dx": [
         _P, _P, _P,                        # g, w, dx
@@ -66,7 +67,8 @@ _SIGNATURES = {
     "svit_conv_dk": [
         _P, _P, _P, _P,                    # x, g, partial, dk
         _I, _I, _I, _I, _I, _I,            # B, T, H, W, C, kT
-        _I, _I, _I, _I, _I, _I, _I, _P,    # sT, sH, sW, To, Ho, Wo, chunks, stream
+        _I, _I, _I, _I, _I, _I,            # sT, sH, sW, To, Ho, Wo
+        _I, _I, _I, _I, _I, _I, _P,        # rows, cols, frames, ring, grid, smem, stream
     ],
     "svit_pool_max": [
         _P, _P,                            # x, out
@@ -194,8 +196,8 @@ def stream() -> int:
 @functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     """Streaming multiprocessors of ``device``: the kernels that split their
-    work (K1's N sweep, K5's query splits, K7's chunks) size their grids to
-    fill them."""
+    work (K1's N sweep, K5's query splits, K2's and K7's tile walkers) size
+    their grids to fill them."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

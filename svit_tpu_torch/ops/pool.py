@@ -13,6 +13,8 @@
   dtype (JAX ``pallas_depthwise_conv``'s forward).
 - ``depthwise_conv_dx`` (K6) and ``depthwise_conv_dk`` (K7): its input and
   filter gradients (JAX ``_pdc_bwd`` and ``_dk_pallas``).
+- ``pool_plan``: K2's and K7's launch (tile, TMA boxes, ring, grid), pure
+  Python so that the CPU tests check it.
 
 ``fused_pool_ln`` is differentiable.  Its backward follows JAX ``_fpl_bwd``
 -> ``_pool_ln_recompute``: the conv is recomputed by K2's bare mode and
@@ -28,7 +30,9 @@ each wrapper runs its plain version; on a CUDA tensor it launches the kernel
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,6 +42,163 @@ from svit_tpu_torch.ops.vjp import needs_grad, plain_vjp
 
 Triple = Tuple[int, int, int]
 EPS = 1e-6
+
+# K2 and K7's launch plan (``csrc/pool.cu``: ``Geo``, ``make_geo``)
+SLAB = 96                  # channels a block owns: one head group
+SMEM_BLOCK_MAX = 232448    # shared memory one block may take
+SMEM_SM = 233472           # shared memory of one SM; each block also
+SMEM_RESERVED = 1024       # takes this much for the system
+G_SLOTS = 2                # K7's g ring
+# registers a thread of the KT = 3 instances takes (``ptxas``, as
+# chip_smoke.py prints it), rounded up to the allocation unit of 8
+REGS = {"pool": 168, "dk": 128}
+REGS_SM = 65536
+# the tile by spatial stride (1, 2, 3 and more): output rows (one K2
+# consumer warp, or K7 walker, each) and the cap on its columns, as
+# ``pool_probe.py --sweep`` found them best over the main path's calls on
+# an H100 (PERF.md)
+TILES = {"pool": {1: (2, 16), 2: (4, 8), 3: (2, 4)},
+         "dk": {1: (2, 16), 2: (4, 8), 3: (4, 4)}}
+
+
+def pool_threads(kind: str, rows: int) -> int:
+    """Threads of a block: the consumers (K2 a warp per row, K7 48 per row
+    in whole warps) and the producer warp."""
+    return (32 * rows if kind == "pool" else _cdiv(48 * rows, 32) * 32) + 32
+
+
+def blocks_per_sm(kind: str, rows: int, smem: int) -> int:
+    """Blocks an SM holds by shared memory and registers."""
+    return min(SMEM_SM // (smem + SMEM_RESERVED),
+               REGS_SM // (pool_threads(kind, rows) * REGS[kind]))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round128(n: int) -> int:
+    return _cdiv(n, 128) * 128
+
+
+@dataclass(frozen=True)
+class PoolPlan:
+    """The launch of K2 (``kind`` "pool") or K7 ("dk") for one call.
+
+    A block owns one 96-channel slab (grid y) and walks the tiles
+    ``blockIdx.x, + grid, ...``: a tile is ``rows`` output rows by ``cols``
+    output columns of ``frames`` output frames of one clip.  Its input
+    frames pass through a ring of ``ring`` slots: a frame is one dense halo
+    box (``sparse`` False) or, at a spatial stride of 3 or more, nine boxes,
+    one per (dh, dw), at traversal strides ``step``."""
+    kind: str
+    sparse: bool
+    rows: int
+    cols: int
+    frames: int
+    ring: int
+    box: Tuple[int, ...]      # TMA box extent (C, W, H, T, B)
+    step: Tuple[int, ...]     # TMA traversal strides
+    landed: Tuple[int, ...]   # elements a box lands per dimension
+    slot_bytes: int
+    g_bytes: int
+    smem: int
+    tiles: Tuple[int, int, int, int]   # (B, frame chunks, h tiles, w tiles)
+    items: int
+    grid: int
+    slabs: int
+    threads: int
+    per_sm: int
+
+
+def pool_smem(kind: str, kT: int, rows: int, cols: int, ring: int,
+              stride: Triple):
+    """(box extent, traversal strides, landed extent, slot bytes, g slot
+    bytes, shared memory of one block), as ``make_geo`` lays them out: the
+    ring (or, if larger, K7's walker sums), K7's g ring, the barriers."""
+    _, sH, sW = stride
+    if max(sH, sW) > 2:
+        box = (SLAB, cols * sW, rows * sH, 1, 1)
+        step = (1, sW, sH, 1, 1)
+        landed = (SLAB, cols, rows, 1, 1)
+        slot = 9 * _round128(2 * SLAB * rows * cols)
+    else:
+        bw, bh = (cols - 1) * sW + 3, (rows - 1) * sH + 3
+        box = landed = (SLAB, bw, bh, 1, 1)
+        step = (1, 1, 1, 1, 1)
+        slot = _round128(2 * SLAB * bw * bh)
+    dk = kind == "dk"
+    g_bytes = _round128(2 * SLAB * rows * cols) if dk else 0
+    red = rows * kT * 9 * SLAB * 4 if dk else 0
+    smem = (max(ring * slot, red) + G_SLOTS * g_bytes
+            + 8 * (2 * ring + (2 * G_SLOTS if dk else 0)))
+    return box, step, landed, slot, g_bytes, smem
+
+
+def pool_plan(shape, kernel: Triple, stride: Triple, kind: str = "pool", *,
+              sms: int = 132, rows: Optional[int] = None,
+              cols: Optional[int] = None, ring: Optional[int] = None,
+              frames: Optional[int] = None) -> PoolPlan:
+    """The launch of K2 (``kind`` "pool", both modes) or K7 ("dk") for an
+    input grid ``shape`` [B, T, H, W, C].
+
+    A tile is ``rows`` output rows (one K2 consumer warp, or K7 walker,
+    each) by ``cols`` output columns (the row cut into near-equal parts of
+    at most the column cap) by ``frames`` output frames.  Rows and the cap
+    come from ``TILES`` by the spatial stride.  The ring takes 4 input-frame
+    slots, or 3 (at least kT) where that keeps more blocks an SM
+    (``blocks_per_sm``).  The frames of a tile are To, halved while the
+    tiles would not fill half a wave of blocks on ``sms`` SMs.  The grid is
+    at most one wave, each block walking an equal share of the tiles (K7:
+    one f32 partial a block).  The plan depends on the shape and ``sms``
+    only.  The keyword overrides are for sweeps (``pool_probe.py``)."""
+    B, T, H, W, C = shape
+    kT, kH, kW = kernel
+    sT, sH, sW = stride
+    if kind not in TILES:
+        raise ValueError(f"pool_plan: kind {kind!r}")
+    if kT not in (1, 3) or (kH, kW) != (3, 3) or sT != 1:
+        raise ValueError(f"K2 and K7 take kernels (1|3, 3, 3) at T stride 1, "
+                         f"not kernel {kernel} stride {stride}")
+    if C % SLAB or not (1 <= sH <= 8 and 1 <= sW <= 8):
+        raise ValueError(f"K2 and K7 take C a multiple of {SLAB} and spatial "
+                         f"strides 1 to 8 (C={C}, stride {stride})")
+    To, Ho, Wo = (out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), kernel, stride))
+    tile_rows, cap = TILES[kind][min(max(sH, sW), 3)]
+    rows = rows or tile_rows
+    cols = cols or _cdiv(Wo, _cdiv(Wo, cap))
+    fits = [(blocks_per_sm(kind, rows, smem), q) for q in
+            ((ring,) if ring else (4, 3))
+            if q >= kT and (smem := pool_smem(kind, kT, rows, cols, q,
+                                              stride)[-1]) <= SMEM_BLOCK_MAX]
+    if not fits or max(fits)[0] < 1 or not 1 <= rows <= 4:
+        raise ValueError(f"pool_plan: no tile fits ({shape}, {stride}, "
+                         f"rows={rows}, cols={cols}, ring={ring})")
+    per_sm, ring = max(fits)
+    box, step, landed, slot, g_bytes, smem = pool_smem(
+        kind, kT, rows, cols, ring, stride)
+    slabs = C // SLAB
+
+    def tiles(tt):
+        return (B, _cdiv(To, tt), _cdiv(Ho, rows), _cdiv(Wo, cols))
+
+    if frames is None:
+        frames = To
+        while (frames > 1
+               and 2 * math.prod(tiles(frames)) * slabs < per_sm * sms):
+            frames = _cdiv(frames, 2)
+    items = math.prod(tiles(frames))
+    wave = max(1, per_sm * sms // slabs)  # blocks a slab gets in one wave
+    grid = _cdiv(items, _cdiv(items, wave))
+    return PoolPlan(kind, max(sH, sW) > 2, rows, cols, frames, ring, box,
+                    step, landed, slot, g_bytes, smem, tiles(frames), items,
+                    grid, slabs, pool_threads(kind, rows), per_sm)
+
+
+def _plan_args(plan: PoolPlan):
+    return (plan.rows, plan.cols, plan.frames, plan.ring, plan.grid,
+            plan.smem)
 
 
 def _full_width(p: torch.Tensor, C: int) -> torch.Tensor:
@@ -82,9 +243,10 @@ def _pool_ln(x, weight, ln_w, ln_b, stride: Triple, head_dim: int,
     sT, sH, sW = stride
     _lib.check(x, "x", torch.bfloat16)
     _lib.check(weight, "weight", torch.float32, (C, 1, kT, kH, kW), x.device)
-    if C % head_dim or head_dim > 128:
-        raise ValueError(f"pool_ln needs head_dim <= 128 dividing C "
-                         f"(C={C}, head_dim={head_dim})")
+    if apply_ln and head_dim != SLAB:
+        raise ValueError(f"pool_ln takes head_dim {SLAB} (got {head_dim})")
+    plan = pool_plan(x.shape, (kT, kH, kW), stride, "pool",
+                     sms=_lib.sm_count(x.device))
     g = b = None
     if apply_ln:
         g = _full_width(ln_w, C).contiguous()
@@ -101,7 +263,8 @@ def _pool_ln(x, weight, ln_w, ln_b, stride: Triple, head_dim: int,
             "svit_pool_ln", "pool_ln" if apply_ln else "pool_conv",
             _lib.ptr(x), _lib.ptr(taps), _lib.ptr(g), _lib.ptr(b),
             _lib.ptr(out), B, T, H, W, C, kT, kH, kW, sT, sH, sW,
-            To, Ho, Wo, head_dim, EPS, int(apply_ln), _lib.stream())
+            To, Ho, Wo, head_dim, EPS, int(apply_ln), *_plan_args(plan),
+            _lib.stream())
     return out
 
 
@@ -194,19 +357,15 @@ def depthwise_conv_dk(x, g, kernel: Triple, stride: Triple):
     To, Ho, Wo = g.shape[1:4]
     _lib.check(x, "x", torch.bfloat16)
     _lib.check(g, "g", torch.bfloat16, (B, To, Ho, Wo, C), x.device)
-    if kT not in (1, 3) or (kH, kW) != (3, 3):
-        raise ValueError(f"conv_dk takes kernels (1|3, 3, 3), not {kernel}")
-    groups = -(-C // 32)
-    positions = B * To * Ho * Wo
-    chunks = max(1, min(-(-4 * _lib.sm_count(x.device) // groups),
-                        -(-positions // 64)))
-    partial = torch.empty((chunks, kT * kH * kW, C), dtype=torch.float32,
+    plan = pool_plan(x.shape, kernel, stride, "dk",
+                     sms=_lib.sm_count(x.device))
+    partial = torch.empty((plan.grid, kT * kH * kW, C), dtype=torch.float32,
                           device=x.device)
     dk = torch.empty((kT * kH * kW, C), dtype=torch.float32, device=x.device)
-    if positions:
+    if g.numel():
         _lib.launch("svit_conv_dk", "pool_conv_dk", _lib.ptr(x), _lib.ptr(g),
                     _lib.ptr(partial), _lib.ptr(dk), B, T, H, W, C, kT,
-                    *stride, To, Ho, Wo, chunks, _lib.stream())
+                    *stride, To, Ho, Wo, *_plan_args(plan), _lib.stream())
     else:
         dk.zero_()
     return dk.t().reshape(C, 1, kT, kH, kW)

@@ -45,6 +45,7 @@ for n in names:
 import attention_probe
 import chip_smoke
 import k1_probe
+import pool_probe
 leaked = sorted(m for m in sys.modules if blocked(m))
 assert not leaked, leaked
 print(len(names))
@@ -109,6 +110,15 @@ def test_k1_probe_exits_nonzero_without_cuda(mode):
 
 def test_attention_probe_exits_nonzero_without_cuda():
     r = subprocess.run([sys.executable, "attention_probe.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode == 2, r.stdout + r.stderr
+    assert "no CUDA device" in r.stderr
+
+
+@pytest.mark.parametrize("args", [[], ["--sweep"], ["--no-math"]])
+def test_pool_probe_exits_nonzero_without_cuda(args):
+    r = subprocess.run([sys.executable, "pool_probe.py", *args], cwd=REPO,
                        capture_output=True, text=True, timeout=300,
                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode == 2, r.stdout + r.stderr

@@ -300,6 +300,73 @@ def test_depthwise_conv_and_its_gradients(gen, stride):
           (3, 3, 3), stride)
 
 
+# every distinct (C, stride, input grid) of the pools of the SViT-B/16
+# forward (``configs/ssv2.yaml``): the q pools, then the fused k|v pools
+POOL_CALLS = [(96, 1, 56), (192, 2, 56), (192, 1, 28), (384, 2, 28),
+              (384, 1, 14), (768, 2, 14), (768, 1, 7), (192, 8, 56),
+              (384, 4, 56), (384, 4, 28), (768, 2, 28), (1536, 1, 14),
+              (1536, 1, 7)]
+# a clip of 8 latent frames at batch 1, and two images (T = 1, kT = 3)
+POOL_BT = [(1, 8), (2, 1)]
+
+
+def _pool_inputs(gen, B, T, H, W, C, stride):
+    x = _randn(gen, B, T, H, W, C)
+    w = _randn(gen, C, 1, 3, 3, 3, scale=0.2, dtype=torch.float32)
+    ls = 1 + _randn(gen, C, scale=0.1, dtype=torch.float32)
+    lb = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    To, Ho, Wo = (tp.out_size(d, 3, s) for d, s in zip((T, H, W), stride))
+    g = _randn(gen, B, To, Ho, Wo, C)
+    return x, w, ls, lb, g
+
+
+@pytest.mark.parametrize("B,T", POOL_BT)
+@pytest.mark.parametrize("C,s,side", POOL_CALLS)
+def test_pool_ln_main_path_shapes(gen, C, s, side, B, T):
+    """K2 in both modes and K7 at the main path's shapes."""
+    stride = (1, s, s)
+    x, w, ls, lb, g = _pool_inputs(gen, B, T, side, side, C, stride)
+    _gate(tp.fused_pool_ln, tp.pool_ln_reference, x, w, ls, lb, stride, 96)
+    _gate(lambda x, w: tp.depthwise_conv(x, w, stride, 96),
+          lambda x, w: tp.depthwise_conv_reference(x, w, stride), x, w)
+    _gate(tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference, x, g,
+          (3, 3, 3), stride)
+
+
+@pytest.mark.parametrize("stride", [(1, 1, 1), (1, 2, 2), (1, 4, 4), (1, 8, 8),
+                                    (1, 1, 2), (1, 3, 1)])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 19, 192), (1, 5, 9, 30, 96),
+                                   (3, 2, 33, 5, 288)])
+def test_pool_ragged_tiles(gen, shape, stride):
+    """Grids whose H and W are no multiple of the plan's tile, odd frame
+    counts and strides that differ between H and W; kT 1 and 3."""
+    B, T, H, W, C = shape
+    x, w, ls, lb, g = _pool_inputs(gen, B, T, H, W, C, stride)
+    _gate(tp.fused_pool_ln, tp.pool_ln_reference, x, w, ls, lb, stride, 96)
+    _gate(tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference, x, g,
+          (3, 3, 3), stride)
+    w1 = w[:, :, 1:2].contiguous()
+    _gate(lambda x, w: tp.depthwise_conv(x, w, stride, 96),
+          lambda x, w: tp.depthwise_conv_reference(x, w, stride), x, w1)
+    To, Ho, Wo = (tp.out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), (1, 3, 3), stride))
+    g1 = _randn(gen, B, To, Ho, Wo, C)
+    _gate(tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference, x, g1,
+          (1, 3, 3), stride)
+
+
+@pytest.mark.parametrize("C,s,side", [(96, 1, 56), (384, 4, 56),
+                                      (768, 2, 14)])
+def test_depthwise_conv_dk_is_deterministic(gen, C, s, side):
+    """K7 adds its partials in a fixed order: a rerun is bit-identical."""
+    stride = (1, s, s)
+    x, _, _, _, g = _pool_inputs(gen, 2, 8, side, side, C, stride)
+    one = tp.depthwise_conv_dk(x, g, (3, 3, 3), stride)
+    two = tp.depthwise_conv_dk(x, g, (3, 3, 3), stride)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
 def test_ffn_residual_masked(gen):
     B, rows, C = 4, 250, 96
     x_res, a = _randn(gen, B, rows, C), _randn(gen, B, rows, C)

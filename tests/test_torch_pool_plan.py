@@ -1,0 +1,366 @@
+"""K2 and K7's launch plan (pure Python, no card).
+
+``ops/pool.py:pool_plan`` for every K2 call (the q and k|v pools) of the
+SViT-B/16 forwards (video batch 8 and 1, image batch 8, the train step's
+128-frame consistency forward) and every K7 call of the step's backward:
+the shared memory fits a block, the TMA boxes are legal, the tiles cover
+each output position once.  Then an emulation in f32 of what the kernels
+do with the plan, block by block and tile by tile (the boxes' signed
+origins, traversal strides and zero fill, the frame window, the slide
+along W, the tap order of the sparse boxes, K7's partials added in block
+order), held against the plain twins at reduced size."""
+
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from svit_tpu_torch.config import get_cfg
+from svit_tpu_torch.models.svit import SViTArch
+from svit_tpu_torch.ops import pool as tp
+from svit_tpu_torch.ops.pooling import out_size
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMS = 132          # the H100 SXM's SMs
+FORWARDS = {"video batch 8": (8, 16), "video batch 1": (1, 16),
+            "image batch 8": (8, 1), "consistency 128 frames": (128, 1)}
+BACKWARD = ("video batch 8", "image batch 8")
+
+
+def _arch(**small):
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "ssv2.yaml"))
+    for key, v in small.items():
+        node, leaf = key.split(".")
+        cfg[node][leaf] = v
+    return SViTArch.from_cfg(cfg)
+
+
+def pool_calls(arch, B, frames):
+    """(input shape, kernel, stride) of every K2 launch of one forward: the
+    q pool, then the fused k|v pool of each block."""
+    size = (arch.patch_dims[0] if frames > 1 else 1, *arch.patch_dims[1:])
+    calls = []
+    for s in arch.blocks:
+        calls += [((B, *size, s.dim_out), tuple(s.kernel_q),
+                   tuple(s.stride_q)),
+                  ((B, *size, 2 * s.dim_out), tuple(s.kernel_kv),
+                   tuple(s.stride_kv))]
+        size = tuple(out_size(d, k, st) for d, k, st in
+                     zip(size, s.kernel_q, s.stride_q))
+    return calls
+
+
+def test_the_call_list_is_the_forward_s():
+    """32 K2 launches per forward at the main path's (C, stride, grid)."""
+    video = pool_calls(_arch(), 8, 16)
+    assert len(video) == 32
+    got = {(shape[-1], stride[1], shape[2]) for shape, _, stride in video}
+    assert got == {(96, 1, 56), (192, 2, 56), (192, 1, 28), (384, 2, 28),
+                   (384, 1, 14), (768, 2, 14), (768, 1, 7), (192, 8, 56),
+                   (384, 4, 56), (384, 4, 28), (768, 2, 28), (768, 2, 14),
+                   (1536, 1, 14), (1536, 1, 7)}
+    assert {k for _, k, _ in video} == {(3, 3, 3)}
+    assert {shape[1] for shape, _, _ in pool_calls(_arch(), 8, 1)} == {1}
+
+
+def _check_plan(plan, shape, kernel, stride):
+    B, T, H, W, C = shape
+    To, Ho, Wo = (out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), kernel, stride))
+    what = f"{shape} {stride} {plan}"
+    assert plan.smem <= tp.SMEM_BLOCK_MAX, what
+    assert plan.per_sm >= 1, what
+    assert plan.smem == tp.pool_smem(plan.kind, kernel[0], plan.rows,
+                                     plan.cols, plan.ring, stride)[-1]
+    assert all(1 <= d <= 256 for d in plan.box), what
+    assert plan.box[0] * 2 % 16 == 0, what            # inner box bytes
+    assert all(1 <= s <= 8 for s in plan.step), what
+    assert plan.landed == tuple(-(-b // s) for b, s in
+                                zip(plan.box, plan.step)), what
+    assert plan.ring >= kernel[0], what
+    assert plan.slabs == C // tp.SLAB, what
+    assert 1 <= plan.grid <= plan.items, what
+    # the tiles cover each output position once: the tile counts are the
+    # least that reach the extent, so no tile starts past it
+    for n, size, ext in zip(plan.tiles, (1, plan.frames, plan.rows,
+                                         plan.cols), (B, To, Ho, Wo)):
+        assert n * size >= ext and (n - 1) * size < ext, what
+    assert plan.items == math.prod(plan.tiles), what
+    threads = (32 * plan.rows if plan.kind == "pool"
+               else -(-48 * plan.rows // 32) * 32) + 32
+    assert plan.threads == threads <= 224, what
+
+
+@pytest.mark.parametrize("forward", list(FORWARDS))
+def test_pool_plan_fits_and_covers(forward):
+    """K2 (both modes share the plan) at every call of each forward."""
+    B, frames = FORWARDS[forward]
+    for shape, kernel, stride in pool_calls(_arch(), B, frames):
+        _check_plan(tp.pool_plan(shape, kernel, stride, "pool", sms=SMS),
+                    shape, kernel, stride)
+
+
+@pytest.mark.parametrize("forward", BACKWARD)
+def test_dk_plan_fits_and_covers(forward):
+    """K7 at every call of the train step's backward; its partial count
+    (the grid) depends on the shape only."""
+    B, frames = FORWARDS[forward]
+    for shape, kernel, stride in pool_calls(_arch(), B, frames):
+        plan = tp.pool_plan(shape, kernel, stride, "dk", sms=SMS)
+        _check_plan(plan, shape, kernel, stride)
+        again = tp.pool_plan(tuple(shape), tuple(kernel), tuple(stride), "dk",
+                             sms=SMS)
+        assert again == plan
+
+
+def test_plan_rejects_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        tp.pool_plan((2, 4, 8, 8, 100), (3, 3, 3), (1, 1, 1))   # C % 96
+    with pytest.raises(ValueError):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 5, 5), (1, 1, 1))    # kernel
+    with pytest.raises(ValueError):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (2, 1, 1))    # T stride
+    with pytest.raises(ValueError):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (1, 9, 9))    # > 8
+
+
+# ---- the emulation -------------------------------------------------------
+
+def tma_box(x, origin, box, step):
+    """A TMA load of a 5-D map over [C, W, H, T, B] (innermost first) from
+    ``x`` [B, T, H, W, C]: ``box`` elements traversed from the signed
+    ``origin`` at traversal strides ``step``, everything outside the tensor
+    zero.  Returns [H', W', C'] (the T and B extents are 1)."""
+    B, T, H, W, C = x.shape
+    c, w, h, t, b = origin
+    idx = [torch.arange(o, o + n, s) for o, n, s in zip(origin, box, step)]
+    cs, ws, hs = idx[0], idx[1], idx[2]
+    out = x.new_zeros((len(hs), len(ws), len(cs)))
+    if not (0 <= t < T and 0 <= b < B):
+        return out
+    hm = (hs >= 0) & (hs < H)
+    wm = (ws >= 0) & (ws < W)
+    cm = (cs >= 0) & (cs < C)
+    sub = x[b, t][hs[hm]][:, ws[wm]][:, :, cs[cm]]
+    out[torch.nonzero(hm).flatten()[:, None, None],
+        torch.nonzero(wm).flatten()[None, :, None],
+        torch.nonzero(cm).flatten()[None, None, :]] = sub
+    return out
+
+
+def item_of(plan, item, To, T, kT):
+    """csrc/pool.cu item_of: (b, t_lo, t_hi, h0, w0, f_lo, f_hi)."""
+    nb, ntc, nh, nw = plan.tiles
+    wx = item % nw
+    r = item // nw
+    hy = r % nh
+    r //= nh
+    tc = r % ntc
+    b = r // ntc
+    t_lo = tc * plan.frames
+    t_hi = min(To, t_lo + plan.frames)
+    pT = kT // 2
+    return (b, t_lo, t_hi, hy * plan.rows, wx * plan.cols, max(0, t_lo - pT),
+            min(T - 1, t_hi - 1 - pT + kT - 1))
+
+
+def frame_slot(x, plan, b, f, h0, w0, c0, stride):
+    """What the producer lands for input frame ``f`` of a tile: one dense
+    halo box [bh, bw, 96], or the nine strided boxes [9, rows, cols, 96]."""
+    _, sH, sW = stride
+    if not plan.sparse:
+        return tma_box(x, (c0, w0 * sW - 1, h0 * sH - 1, f, b), plan.box,
+                       plan.step)
+    return torch.stack([tma_box(x, (c0, w0 * sW - 1 + dw, h0 * sH - 1 + dh,
+                                    f, b), plan.box, plan.step)
+                        for dh in range(3) for dw in range(3)])
+
+
+def tap(slot, plan, r, o, dh, dw, stride):
+    """csrc/pool.cu tap_at: the slab vector of tap (dh, dw) of output (r, o)."""
+    _, sH, sW = stride
+    if plan.sparse:
+        return slot[dh * 3 + dw, r, o]
+    return slot[sH * r + dh, sW * o + dw]
+
+
+def walk(x, plan, kernel, stride, visit):
+    """Every block of the grid, its tiles in order, each tile's output
+    frames with the slots of their window's frames in the clip:
+    ``visit(block, c0, b, to, h0, w0, ncols, slots)`` with ``slots`` a list
+    of (dt, slot)."""
+    B, T, H, W, C = x.shape
+    kT = kernel[0]
+    To, Ho, Wo = (out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), kernel, stride))
+    for slab in range(plan.slabs):
+        c0 = slab * tp.SLAB
+        for block in range(plan.grid):
+            for item in range(block, plan.items, plan.grid):
+                b, t_lo, t_hi, h0, w0, f_lo, f_hi = item_of(plan, item, To,
+                                                            T, kT)
+                ncols = min(plan.cols, Wo - w0)
+                frames = {f: frame_slot(x, plan, b, f, h0, w0, c0, stride)
+                          for f in range(f_lo, f_hi + 1)}
+                for to in range(t_lo, t_hi):
+                    slots = [(dt, frames[to - kT // 2 + dt])
+                             for dt in range(kT)
+                             if f_lo <= to - kT // 2 + dt <= f_hi]
+                    visit(block, c0, b, to, h0, w0, ncols, slots)
+
+
+def emulate_pool(x, weight, ln_w, ln_b, stride, apply_ln):
+    """K2 by the plan, in f32: the conv from the slots, then the LN per slab
+    (or none).  Also counts the writes of each output position."""
+    B, T, H, W, C = x.shape
+    kernel = tuple(weight.shape[2:])
+    plan = tp.pool_plan(x.shape, kernel, stride, "pool", sms=2)
+    To, Ho, Wo = (out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), kernel, stride))
+    taps = weight.reshape(C, -1).t()               # [kT*9, C], tap-major
+    out = x.new_zeros((B, To, Ho, Wo, C))
+    writes = torch.zeros((B, To, Ho, Wo, C // tp.SLAB), dtype=torch.int64)
+
+    def visit(block, c0, b, to, h0, w0, ncols, slots):
+        for r in range(plan.rows):
+            if h0 + r >= Ho:
+                continue
+            for o in range(ncols):
+                acc = x.new_zeros(tp.SLAB)
+                for dt, slot in slots:
+                    for dh in range(3):
+                        for dw in range(3):
+                            k = (dt * 3 + dh) * 3 + dw
+                            acc += (tap(slot, plan, r, o, dh, dw, stride)
+                                    * taps[k, c0:c0 + tp.SLAB])
+                if apply_ln:
+                    m = acc.mean()
+                    d = acc - m
+                    acc = (d * torch.rsqrt(d.square().mean() + tp.EPS)
+                           * ln_w[c0:c0 + tp.SLAB] + ln_b[c0:c0 + tp.SLAB])
+                out[b, to, h0 + r, w0 + o, c0:c0 + tp.SLAB] = acc
+                writes[b, to, h0 + r, w0 + o, c0 // tp.SLAB] += 1
+
+    walk(x, plan, kernel, stride, visit)
+    return out, writes
+
+
+def emulate_dk(x, g, kernel, stride):
+    """K7 by the plan, in f32: each block's partial [taps, C] from its
+    tiles (x slots against the g tile), then the partials added in block
+    order."""
+    B, T, H, W, C = x.shape
+    plan = tp.pool_plan(x.shape, kernel, stride, "dk", sms=2)
+    kT = kernel[0]
+    partial = x.new_zeros((plan.grid, kT * 9, C))
+
+    def visit(block, c0, b, to, h0, w0, ncols, slots):
+        g_tile = tma_box(g, (c0, w0, h0, to, b),
+                         (tp.SLAB, plan.cols, plan.rows, 1, 1), (1,) * 5)
+        for r in range(plan.rows):
+            for o in range(plan.cols):       # zero-filled past the grid
+                gv = g_tile[r, o]
+                for dt, slot in slots:
+                    for dh in range(3):
+                        for dw in range(3):
+                            k = (dt * 3 + dh) * 3 + dw
+                            partial[block, k, c0:c0 + tp.SLAB] += (
+                                tap(slot, plan, r, min(o, ncols - 1), dh, dw,
+                                    stride) * gv)
+
+    walk(x, plan, kernel, stride, visit)
+    dk = x.new_zeros((kT * 9, C))
+    for block in range(plan.grid):
+        dk += partial[block]
+    return dk.t().reshape(C, 1, *kernel)
+
+
+EMU_STRIDES = [(1, 1, 1), (1, 2, 2), (1, 4, 4), (1, 8, 8)]
+# reduced size: a 2-frame clip and an image (T = 1 with kT = 3), 2 slabs,
+# H and W that no tile divides
+EMU_SHAPES = {"clip": (2, 2, 13, 17, 192), "image": (2, 1, 10, 9, 192)}
+
+
+def _inputs(shape, kernel, stride, seed=0):
+    rs = np.random.RandomState(seed)
+    B, T, H, W, C = shape
+    To, Ho, Wo = (out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), kernel, stride))
+    f = (lambda *s, scale=1.0: torch.from_numpy(
+        (scale * rs.randn(*s)).astype(np.float32)))
+    return (f(*shape), f(C, 1, *kernel, scale=0.2), 1 + f(C, scale=0.1),
+            f(C, scale=0.1), f(B, To, Ho, Wo, C))
+
+
+def _close(a, b):
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(
+        b.abs().max()))
+
+
+@pytest.mark.parametrize("apply_ln", [True, False])
+@pytest.mark.parametrize("what", list(EMU_SHAPES))
+@pytest.mark.parametrize("stride", EMU_STRIDES)
+def test_emulated_pool_matches_the_twin(stride, what, apply_ln):
+    """K2's plan and layout, emulated in f32, against pool_ln_reference
+    (LN mode) and depthwise_conv_reference (bare mode); each output
+    position written once.  1e-5 relative: the order of the sums."""
+    x, w, ls, lb, _ = _inputs(EMU_SHAPES[what], (3, 3, 3), stride)
+    got, writes = emulate_pool(x, w, ls, lb, stride, apply_ln)
+    assert bool((writes == 1).all())
+    want = (tp.pool_ln_reference(x, w, ls, lb, stride, tp.SLAB) if apply_ln
+            else tp.depthwise_conv_reference(x, w, stride))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("what", list(EMU_SHAPES))
+@pytest.mark.parametrize("stride", EMU_STRIDES)
+def test_emulated_dk_matches_the_twin(stride, what):
+    """K7's plan, tiles, partials and their order, emulated in f32, against
+    depthwise_conv_dk_reference."""
+    x, _, _, _, g = _inputs(EMU_SHAPES[what], (3, 3, 3), stride)
+    _close(emulate_dk(x, g, (3, 3, 3), stride),
+           tp.depthwise_conv_dk_reference(x, g, (3, 3, 3), stride))
+
+
+def test_emulated_kernels_with_one_frame_taps():
+    """kT = 1 (the bare conv and K7 take it)."""
+    stride = (1, 2, 2)
+    x, w, ls, lb, _ = _inputs((2, 3, 11, 12, 96), (1, 3, 3), stride)
+    got, writes = emulate_pool(x, w, ls, lb, stride, False)
+    assert bool((writes == 1).all())
+    _close(got, tp.depthwise_conv_reference(x, w, stride))
+    g = _inputs((2, 3, 11, 12, 96), (1, 3, 3), stride, seed=1)[-1]
+    _close(emulate_dk(x, g, (1, 3, 3), stride),
+           tp.depthwise_conv_dk_reference(x, g, (1, 3, 3), stride))
+
+
+@pytest.mark.parametrize("stride", EMU_STRIDES)
+def test_reduced_model_calls_are_covered_once(stride):
+    """At the reduced size of tests/conftest.py (4 frames, 56 px: a 2 x 14
+    x 14 grid), enumerate every tile of the plan for each K2 and K7 call of
+    that stride: each output position is in exactly one tile."""
+    arch = _arch(**{"DATA.NUM_FRAMES": 4, "DATA.TRAIN_CROP_SIZE": 56,
+                    "DATA.TEST_CROP_SIZE": 56})
+    calls = [c for c in pool_calls(arch, 2, 4) + pool_calls(arch, 2, 1)
+             if tuple(c[2]) == stride]
+    if stride == (1, 4, 4):
+        # the reduced schedule has no (1,4,4) pool: take the 14x14 grid
+        calls = [((2, 2, 14, 14, 192), (3, 3, 3), stride)]
+    assert calls
+    for shape, kernel, st in calls:
+        B, T, H, W, C = shape
+        To, Ho, Wo = (out_size(d, k, s) for d, k, s in
+                      zip((T, H, W), kernel, st))
+        for kind in ("pool", "dk"):
+            plan = tp.pool_plan(shape, kernel, st, kind, sms=SMS)
+            seen = np.zeros((B, To, Ho, Wo), np.int64)
+            for block in range(plan.grid):
+                for item in range(block, plan.items, plan.grid):
+                    b, t_lo, t_hi, h0, w0, _, _ = item_of(plan, item, To, T,
+                                                          kernel[0])
+                    seen[b, t_lo:t_hi, h0:h0 + plan.rows,
+                         w0:w0 + plan.cols] += 1
+            assert (seen == 1).all(), (shape, st, kind, plan)
