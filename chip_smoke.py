@@ -43,8 +43,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    so is every K2 call of the step's three forwards (the ``pool_ln (train
    step)`` row).  Then
    five timed steps of the kernel model: median step time, clips/s, peak
-   memory, a profiled step's device time by kernel and idle share, a finite
-   loss and parameters that move.
+   memory, a profiled step's device time by kernel and idle share (with its
+   GEMM rows by operand type, and the operand types of every product of
+   the LN-linear backward), a finite loss and parameters that move.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
@@ -109,8 +110,10 @@ TRAIN_KERNELS = {  # the train step's new kernels and modes, and K4
                   "svit_tpu/ops/pallas_pool.py:250 _kernel_strided "
                   "(apply_ln=False, pallas_depthwise_conv :1095)"),
     "pool_conv_dx": ("svit_tpu_torch/csrc/pool.cu",
-                     "svit_tpu/ops/pallas_pool.py:175 _kernel_s1 (dx of "
-                     "_pdc_bwd :1115, flipped filter)"),
+                     "svit_tpu/ops/pallas_pool.py:175 _kernel_s1; "
+                     "svit_tpu/ops/pallas_pool.py:250 _kernel_strided (dx "
+                     "of _pdc_bwd :1115: the zero-stuffed cotangent, "
+                     "flipped filter)"),
     "pool_conv_dk": ("svit_tpu_torch/csrc/pool.cu",
                      "svit_tpu/ops/pallas_pool.py:898 _kernel_dk_s1; "
                      "svit_tpu/ops/pallas_pool.py:935 _kernel_dk_strided"),
@@ -781,18 +784,56 @@ def run_train_phase(cfg, torch):
     return result, table, uses, details
 
 
+def gemm_rows(rows):
+    """The profile's GEMM rows (cuBLAS and CUTLASS kernels), each with the
+    operand type its kernel name gives.  cuBLAS's Hopper kernels are named
+    ``nvjet_<operands><accumulator><output>_...`` (t bf16, s f32, h f16):
+    ``torch.mm`` of bf16 operands with an f32 output runs
+    ``nvjet_tss_...`` (measured on an H100, torch 2.11)."""
+    out = []
+    for name, count, ms in rows:
+        low = name.lower()
+        if low.startswith("nvjet_"):
+            kind = {"t": "bf16", "s": "f32", "h": "f16"}.get(low[6], "other")
+        elif any(k in low for k in ("gemm", "xmma", "cutlass")):
+            kind = ("bf16" if "bf16" in low else "tf32" if "tf32" in low
+                    else "f32" if any(k in low for k in ("sgemm", "f32f32"))
+                    else "other")
+        else:
+            continue
+        out.append({"name": name, "count": count, "ms": ms, "dtype": kind})
+    return out
+
+
 def profile_step(step, state, video, image, torch, step_ms):
     """One train step under torch.profiler: device time by kernel, the
-    hand-written kernels' share and the idle share against ``step_ms``."""
+    hand-written kernels' share and the idle share against ``step_ms``;
+    the GEMM rows by name and operand type, and the operand types of every
+    product of the LN-linear backward (``ops/ln_linear.py:_mm``, recorded
+    for this step)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from svit_tpu_torch.ops import ln_linear as ll
+
+    products, flop = collections.Counter(), [0]
+    mm = ll._mm
+
+    def recorded(a, b):
+        products[f"{a.dtype} x {b.dtype}"] += 1
+        flop[0] += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        return mm(a, b)
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, video, image, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    ll._mm = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, video, image, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ll._mm = mm
     rows = device_rows(prof, torch)
     device_ms = sum(r[2] for r in rows)
     ours_ms = sum(r[2] for r in rows if any(k in r[0] for k in OUR_KERNELS))
@@ -802,8 +843,22 @@ def profile_step(step, state, video, image, torch, step_ms):
         f"share {idle:.3f} against the unprofiled {step_ms:.1f} ms")
     for name, count, ms in rows[:16]:
         log(f"  {ms:9.3f} ms x{count:<5d} {name[:90]}")
+    gemms = gemm_rows(rows)
+    by_type = collections.Counter()
+    for g in gemms:
+        by_type[g["dtype"]] += g["ms"]
+    log(f"LN-linear backward products: {sum(products.values())} calls, "
+        f"operands {dict(products)}, {flop[0] / 1e12:.3f} TFLOP; GEMM rows "
+        f"of the step by operand type (ms): "
+        f"{ {k: round(v, 3) for k, v in by_type.items()} }")
+    for g in gemms[:12]:
+        log(f"  {g['ms']:9.3f} ms x{g['count']:<5d} {g['dtype']:5s} "
+            f"{g['name'][:80]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels_ms": ours_ms,
             "idle_share": idle,
+            "ln_linear_bwd_products": dict(products),
+            "ln_linear_bwd_tflop": flop[0] / 1e12,
+            "gemm_ms_by_type": dict(by_type), "gemms": gemms,
             "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:30]]}
 
 
@@ -994,7 +1049,8 @@ def time_forward(model, arch, torch, batch):
 
 
 OUR_KERNELS = ("ln_linear_kernel", "pool_ln_kernel", "pool_max_kernel",
-               "attn_fwd_kernel", "attn_bwd_", "conv_dx_kernel", "conv_dk_")
+               "attn_fwd_kernel", "attn_bwd_", "halo_gen_kernel",
+               "dx_kernel", "conv_dk_", "dk_gen_kernel")
 
 
 def device_rows(prof, torch):

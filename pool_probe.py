@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Sweep kernels K2 and K7 (``svit_tpu_torch/csrc/pool.cu``) on one NVIDIA
-card.
+"""Sweep kernels K2, K6 and K7 (``svit_tpu_torch/csrc/pool.cu``) on one
+NVIDIA card.
 
     python3 pool_probe.py [--sweep | --no-math]
 
 Every distinct pool call of the SViT-B/16 forwards (``configs/ssv2.yaml``:
 video batch 8 and 1, image batch 8, the train step's 128-frame consistency
 forward) as K2 with its LN, and every call of the train step's backward
-(video and image batch 8) as K2 in bare mode and as K7, on random bf16
+(video and image batch 8) as K2 in bare mode, as K6 (the input gradient:
+K2's bare loop on the flipped filter at stride 1, the parity-class kernel
+at strides 2, 4 and 8) and as K7, on random bf16
 inputs from a seed: each at the launch of ``ops/pool.py:pool_plan``,
 checked against its plain twin in f32 (``chip_smoke``'s gate) and timed by
 device time (``chip_smoke.device_time_ms``) beside the library yardstick
-and the bound (``chip_smoke.cost``).  ``--sweep`` also times each call
+and the bound (``chip_smoke.cost``).  Then the same four kernels at shapes
+beyond the main path's (``WIDE``: head widths 64 and 128, a (3, 5, 5)
+kernel, a T stride of 2, strides that differ between H and W), which the
+general instance serves; they are left out of the main path's sums.
+``--sweep`` also times each main-path call
 under other tiles (rows, columns, frames) than the plan's, where its bound
 is above 5 us.  ``--no-math`` times a build (``-DSVIT_POOL_NO_MATH``) whose
 kernels run only the tiles' loads and barriers, ungated: what the TMA halo
@@ -31,9 +37,10 @@ BACKWARD = ("video 8", "image 8")      # the train step's backward passes
 
 
 def calls():
-    """{(kind, input shape, stride): [uses, launches]}: K2 ("pool_ln") for
-    every forward's q and k|v pools, K2 bare ("pool_conv") and K7
-    ("pool_conv_dk") for the backward's."""
+    """{(kind, input shape, kernel, stride, head_dim): [uses, launches]}:
+    K2 ("pool_ln") for every forward's q and k|v pools, K2 bare
+    ("pool_conv"), K6 ("pool_conv_dx") and K7 ("pool_conv_dk") for the
+    backward's."""
     from svit_tpu_torch.config import get_cfg
     from svit_tpu_torch.models.svit import SViTArch
     from svit_tpu_torch.ops.pooling import out_size
@@ -49,20 +56,49 @@ def calls():
                             zip(size, s.kernel_q, s.stride_q))
             for C, stride in ((s.dim_out, tuple(s.stride_q)),
                               (2 * s.dim_out, tuple(s.stride_kv))):
-                kinds = ["pool_ln"] + (["pool_conv", "pool_conv_dk"]
-                                       if name in BACKWARD else [])
+                kinds = ["pool_ln"] + (
+                    ["pool_conv", "pool_conv_dx", "pool_conv_dk"]
+                    if name in BACKWARD else [])
                 for kind in kinds:
-                    row = out.setdefault((kind, (B, *size, C), stride),
-                                         [set(), 0])
+                    row = out.setdefault((kind, (B, *size, C), (3, 3, 3),
+                                          stride, 96), [set(), 0])
                     row[0].add(name)
                     row[1] += 1
             size = q_shape
     return out
 
 
-def tiles(plan, To, Wo):
+# (input shape, kernel, stride, head_dim) beyond the main path's, at the
+# grids of a batch-8 clip of 8 latent frames
+WIDE = [((8, 8, 56, 56, 128), (3, 3, 3), (1, 1, 1), 64),
+        ((8, 8, 56, 56, 128), (3, 3, 3), (1, 2, 2), 64),
+        ((8, 8, 28, 28, 256), (3, 3, 3), (1, 2, 2), 128),
+        ((8, 8, 28, 28, 192), (3, 5, 5), (1, 1, 1), 96),
+        ((8, 8, 56, 56, 192), (3, 5, 5), (1, 4, 4), 96),
+        ((8, 8, 56, 56, 192), (3, 3, 3), (2, 2, 2), 96),
+        ((8, 8, 56, 56, 192), (3, 3, 3), (1, 2, 1), 96)]
+
+
+def wide_calls():
+    """``WIDE`` as K2 (both modes), K6 and, where it takes the stride, K7:
+    {(kind, input shape, kernel, stride, head_dim): [{"wide"}, 1]}."""
+    from svit_tpu_torch.ops import pool as tp
+
+    return {(kind, shape, kernel, stride, hd): [{"wide"}, 1]
+            for shape, kernel, stride, hd in WIDE
+            for kind in ("pool_ln", "pool_conv", "pool_conv_dx",
+                         "pool_conv_dk")
+            if kind != "pool_conv_dk" or tp.dk_takes(shape, kernel, stride)}
+
+
+PLAN_KIND = {"pool_ln": "pool", "pool_conv": "pool", "pool_conv_dx": "dx",
+             "pool_conv_dk": "dk"}
+
+
+def tiles(plan):
     """Other launches of one call for ``--sweep``: rows, columns and frames
-    of a tile (the ring as planned)."""
+    of a tile of base positions (the ring as planned)."""
+    To, Wo = plan.axes[0].base, plan.axes[2].base
     chunks = sorted({To, -(-To // 2), -(-To // 4), 1})
     widths = sorted({min(Wo, w) for w in (4, 7, 8, 14, 16)})
     return [dict(rows=r, cols=c, frames=f, ring=plan.ring)
@@ -97,26 +133,31 @@ def main():
         return (scale * torch.randn(s, device="cuda", generator=gen)).to(dtype)
 
     rows, ok_all = [], True
-    for (kind, shape, stride), (uses, count) in calls().items():
+    for (kind, shape, kern, stride, hd), (uses, count) in {
+            **calls(), **wide_calls()}.items():
         B, T, H, W, C = shape
-        To, Ho, Wo = (tp.out_size(d, 3, s) for d, s in zip((T, H, W), stride))
-        x, w = r(*shape), r(C, 1, 3, 3, 3, scale=0.2, dtype=torch.float32)
+        To, Ho, Wo = (tp.out_size(d, k, s) for d, k, s in
+                      zip((T, H, W), kern, stride))
+        x, w = r(*shape), r(C, 1, *kern, scale=0.2, dtype=torch.float32)
         if kind == "pool_ln":
             ls = 1 + r(C, scale=0.1, dtype=torch.float32)
             lb = r(C, scale=0.1, dtype=torch.float32)
-            args = (x, w, ls, lb, stride, 96)
+            args = (x, w, ls, lb, stride, hd)
             kernel, plain = tp.fused_pool_ln, tp.pool_ln_reference
         elif kind == "pool_conv":
-            args = (x, w, stride, 96)
+            args = (x, w, stride, hd)
             kernel = tp.depthwise_conv
 
             def plain(x, w, stride, hd):
                 return tp.depthwise_conv_reference(x, w, stride)
+        elif kind == "pool_conv_dx":
+            args = (r(B, To, Ho, Wo, C), w, stride, shape)
+            kernel, plain = tp.depthwise_conv_dx, tp.depthwise_conv_dx_reference
         else:
-            args = (x, r(B, To, Ho, Wo, C), (3, 3, 3), stride)
+            args = (x, r(B, To, Ho, Wo, C), kern, stride)
             kernel, plain = tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference
-        plan = plan_fn(shape, (3, 3, 3), stride,
-                       "dk" if kind == "pool_conv_dk" else "pool", sms=sms)
+        plan_kw = dict(head_dim=hd if kind == "pool_ln" else None, sms=sms)
+        plan = plan_fn(shape, kern, stride, PLAN_KIND[kind], **plan_kw)
         with torch.inference_mode():
             if no_math:                       # nothing computed to gate
                 err = err_p = float("nan")
@@ -130,21 +171,22 @@ def main():
             lib_ms = cs.device_time_ms(cs.library_call(kind, args, {}), 2)
             byts, _, cflops = cs.cost(kind, args, {})
             bound = max(byts / cs.HBM_BPS, cflops / cs.CORE_FLOPS) * 1e3
-            row = dict(kind=kind, shape=list(shape), stride=list(stride),
+            row = dict(kind=kind, shape=list(shape), kernel=list(kern),
+                       stride=list(stride), head_dim=hd,
                        uses=sorted(uses), launches=count, err=err,
                        plain_err=err_p, ok=ok, ms=ms, library_ms=lib_ms,
                        bound_ms=bound,
-                       plan=dict(rows=plan.rows, cols=plan.cols,
+                       plan=dict(route=plan.route, rows=plan.rows,
+                                 cols=plan.cols,
                                  frames=plan.frames, ring=plan.ring,
                                  grid=plan.grid, smem=plan.smem))
-            if sweep and bound > 0.005:       # the calls that move the total
+            if sweep and bound > 0.005 and "wide" not in uses:
                 row["sweep"] = []
-                for over in tiles(plan, To, Wo):
+                for over in tiles(plan):
                     try:
                         tp.pool_plan = functools.partial(plan_fn, **over)
-                        alt = tp.pool_plan(shape, (3, 3, 3), stride,
-                                           "dk" if kind == "pool_conv_dk"
-                                           else "pool", sms=sms)
+                        alt = tp.pool_plan(shape, kern, stride,
+                                           PLAN_KIND[kind], **plan_kw)
                         row["sweep"].append(dict(
                             over, grid=alt.grid, smem=alt.smem,
                             ms=cs.device_time_ms(lambda: kernel(*args))))
@@ -160,13 +202,14 @@ def main():
         rows.append(row)
     total = {}
     for row in rows:
-        t = total.setdefault(row["kind"], dict(ms=0.0, bound_ms=0.0,
-                                                library_ms=0.0))
+        name = row["kind"] + (" (wide)" if "wide" in row["uses"] else "")
+        t = total.setdefault(name, dict(ms=0.0, bound_ms=0.0,
+                                        library_ms=0.0))
         for k in t:
             t[k] += row[k] * row["launches"]
     print("summed over the launches of the four forwards (pool_ln) and of "
-          "the step's backward (pool_conv, pool_conv_dk): "
-          + json.dumps(total), flush=True)
+          "the step's backward (pool_conv, pool_conv_dx, pool_conv_dk), and "
+          "over the WIDE shapes once each: " + json.dumps(total), flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     name = "pool_probe_no_math.json" if no_math else "pool_probe.json"
     with open(os.path.join(REPO, "chiprun_out", name), "w") as f:

@@ -19,7 +19,13 @@ their plain twins (``use_kernels=False``):
   mode under stochastic depth ``fused_ffn_residual_masked`` (K1 masked).
 
 The extras' projections, pools and FFN are tiny and stay plain PyTorch, as
-the JAX package leaves them to XLA.
+the JAX package leaves them to XLA.  So do the paths the JAX package runs
+as plain XLA ops whatever its kernels: the ``max`` and ``avg`` pool modes
+(the grid pooled with padding k // 2, the extras passing through), the
+separate q, k and v projections of ``MVIT.SEPARATE_QKV`` on the normed
+streams, and the unfused residual tail with its own projection under
+``MVIT.DIM_MUL_IN_ATT=False``.  A block without q or k|v pooling leaves
+that stream as it is.
 
 Train mode follows the JAX package's ``use_pallas`` path
 (``svit_tpu/models/attention.py:752-807``): a block with a drop-path rate
@@ -92,40 +98,57 @@ class _PoolConv(nn.Module):
         self.weight = nn.Parameter(torch.empty(head_dim, 1, *kernel))
 
 
+def _dense(x, layer: nn.Linear, dtype):
+    """flax ``nn.Dense(dtype=...)`` on a stream of any rank: the product
+    rounded to ``dtype``, the bias added in ``dtype``."""
+    return ll.ln_linear_reference(
+        x.reshape(-1, x.shape[-1]).to(dtype), layer.weight.to(dtype),
+        layer.bias, round_then_bias=True).view(*x.shape[:-1],
+                                                layer.out_features)
+
+
 class MultiScaleAttention(nn.Module):
     def __init__(self, dim, dim_out, num_heads, input_size, *, qkv_bias,
                  kernel_q, kernel_kv, stride_q, stride_kv, mode, has_cls,
                  rel_pos_spatial, rel_pos_temporal, residual_pooling,
                  separate_qkv):
         super().__init__()
-        if mode != "conv":
-            raise NotImplementedError(f"pool mode {mode!r}: the port pools "
-                                      "by depthwise conv only")
-        if separate_qkv:
-            raise NotImplementedError("MVIT.SEPARATE_QKV is not ported")
+        if mode not in ("conv", "max", "avg"):
+            raise NotImplementedError(f"unsupported pool mode {mode!r}")
+        self.mode = mode
+        self.separate_qkv = separate_qkv
         self.dim_out = dim_out
         self.num_heads = num_heads
         self.head_dim = dim_out // num_heads
         self.use_qkv_bias = qkv_bias
+        self.kernel_q, self.kernel_kv = tuple(kernel_q), tuple(kernel_kv)
         self.stride_q, self.stride_kv = tuple(stride_q), tuple(stride_kv)
         self.has_cls = has_cls
         self.residual_pooling = residual_pooling
-        if not (_needs_pool(kernel_q, stride_q)
-                and _needs_pool(kernel_kv, stride_kv)):
-            raise NotImplementedError("the port expects q and k|v pooling "
-                                      "in every block")
+        self.pool_q_on = _needs_pool(kernel_q, stride_q)
+        self.pool_kv_on = _needs_pool(kernel_kv, stride_kv)
         hd = self.head_dim
-        # the qkv bias always exists (the JAX tree has it); it is used only
-        # under MVIT.QKV_BIAS
-        self.qkv = nn.Linear(dim, 3 * dim_out)
+        if separate_qkv:
+            for n in "qkv":
+                setattr(self, n, nn.Linear(dim, dim_out, bias=qkv_bias))
+        else:
+            # the qkv bias always exists (the JAX tree has it); it is used
+            # only under MVIT.QKV_BIAS
+            self.qkv = nn.Linear(dim, 3 * dim_out)
         self.proj = nn.Linear(dim_out, dim_out)
-        for n, k in (("q", kernel_q), ("k", kernel_kv), ("v", kernel_kv)):
-            setattr(self, f"pool_{n}", _PoolConv(hd, tuple(k)))
-            setattr(self, f"norm_{n}", LayerNorm(hd))
+        if mode == "conv":
+            for n, k, on in (("q", kernel_q, self.pool_q_on),
+                             ("k", kernel_kv, self.pool_kv_on),
+                             ("v", kernel_kv, self.pool_kv_on)):
+                if on:
+                    setattr(self, f"pool_{n}", _PoolConv(hd, tuple(k)))
+                    setattr(self, f"norm_{n}", LayerNorm(hd))
         if rel_pos_spatial:
             assert input_size[1] == input_size[2]
             size = input_size[1]
-            sp_dim = 2 * max(size // stride_q[1], size // stride_kv[1]) - 1
+            sq = stride_q[1] if self.pool_q_on else 1
+            skv = stride_kv[1] if self.pool_kv_on else 1
+            sp_dim = 2 * max(size // sq, size // skv) - 1
             self.rel_pos_h = nn.Parameter(torch.zeros(sp_dim, hd))
             self.rel_pos_w = nn.Parameter(torch.zeros(sp_dim, hd))
         else:
@@ -137,48 +160,47 @@ class MultiScaleAttention(nn.Module):
 
     def forward(self, grid, extras, ln1, use_kernels, dtype, drop=None):
         """grid [B, T, H, W, C_in] and extras [B, E, C_in] are the RAW
-        streams: norm1 (``ln1``) is applied here, fused into the projection.
-        ``drop`` (train mode with ``MVIT.DROPOUT_RATE``) is applied to both
-        outputs.  Returns (grid_out [B, To, Ho, Wo, C], extras_out [B, E, C])."""
+        streams with ``ln1`` (norm1's weight and bias), fused into the
+        projection, or the normed streams with ``ln1`` None (separate q, k
+        and v).  ``drop`` (train mode with ``MVIT.DROPOUT_RATE``) is applied
+        to both outputs.  Returns (grid_out [B, To, Ho, Wo, C], extras_out
+        [B, E, C])."""
         ops = _ops(use_kernels)
         B, E = grid.shape[0], extras.shape[1]
         C, heads, hd = self.dim_out, self.num_heads, self.head_dim
         scale = hd ** -0.5
-        w = self.qkv.weight.to(dtype)
-        b = self.qkv.bias if self.use_qkv_bias else None
 
-        qg, kvg = ops.ln_qkv(grid, ln1[0], ln1[1], w, b, C)
-        en = ll.layer_norm(extras, ln1[0], ln1[1])
-        qe = _dense_extras(en, w[:C], None if b is None else b[:C])
-        kve = _dense_extras(en, w[C:], None if b is None else b[C:])
+        if self.separate_qkv:
+            qg, qe = (_dense(t, self.q, dtype) for t in (grid, extras))
+            kvg, kve = (torch.cat([_dense(t, self.k, dtype),
+                                   _dense(t, self.v, dtype)], dim=-1)
+                        for t in (grid, extras))
+        else:
+            w = self.qkv.weight.to(dtype)
+            b = self.qkv.bias if self.use_qkv_bias else None
+            qg, kvg = ops.ln_qkv(grid, ln1[0], ln1[1], w, b, C)
+            en = ll.layer_norm(extras, ln1[0], ln1[1])
+            qe = _dense_extras(en, w[:C], None if b is None else b[:C])
+            kve = _dense_extras(en, w[C:], None if b is None else b[C:])
 
-        # q pool: conv + per-head LN on the grid; the exact per-channel
-        # multiplier and the same LN on the object tokens (cls passes)
-        wq = self.pool_q.weight.repeat(heads, 1, 1, 1, 1)
-        qg = ops.pool_ln(qg, wq, self.norm_q.weight, self.norm_q.bias,
-                         self.stride_q, hd)
-        qe = self._pool_extras(qe, wq, self.stride_q, self.norm_q.weight,
-                               self.norm_q.bias)
-        # ONE pool for the fused k|v grid: conv and per-head LN are
-        # channel-local, so pool_k | pool_v tiled over heads is exact
-        wkv = torch.cat([self.pool_k.weight.repeat(heads, 1, 1, 1, 1),
-                         self.pool_v.weight.repeat(heads, 1, 1, 1, 1)])
-        ls = torch.cat([self.norm_k.weight.repeat(heads),
-                        self.norm_v.weight.repeat(heads)])
-        lb = torch.cat([self.norm_k.bias.repeat(heads),
-                        self.norm_v.bias.repeat(heads)])
-        kvg = ops.pool_ln(kvg, wkv, ls, lb, self.stride_kv, hd)
-        kve = self._pool_extras(kve, wkv, self.stride_kv, ls, lb)
+        if self.pool_q_on:
+            qg, qe = self._pool(ops, qg, qe, ("q",), self.kernel_q,
+                                self.stride_q)
+        if self.pool_kv_on:
+            # ONE pool for the fused k|v grid: conv and per-head LN are
+            # channel-local, so pool_k | pool_v tiled over heads is exact
+            kvg, kve = self._pool(ops, kvg, kve, ("k", "v"), self.kernel_kv,
+                                  self.stride_kv)
 
         q_shape = tuple(qg.shape[1:4])
         k_shape = tuple(kvg.shape[1:4])
         q_l, k_l = int(np.prod(q_shape)), int(np.prod(k_shape))
-        kv_all = torch.cat([kvg.view(B, k_l, 2 * C), kve], dim=1)
+        kv_all = torch.cat([kvg.reshape(B, k_l, 2 * C), kve], dim=1)
         bias_src = attn_ops.build_bias_inputs_grid(
             qg, heads, q_shape, k_shape, rel_pos_h=self.rel_pos_h,
             rel_pos_w=self.rel_pos_w, rel_pos_t=self.rel_pos_t)
         wp = self.proj.weight.to(dtype)
-        og = ops.attention_proj(qg.view(B, q_l, C), kv_all, bias_src,
+        og = ops.attention_proj(qg.reshape(B, q_l, C), kv_all, bias_src,
                                 k_shape, wp, self.proj.bias, scale, heads,
                                 self.residual_pooling)
         # extras queries: no rel-pos bias, same keys and values
@@ -192,6 +214,27 @@ class MultiScaleAttention(nn.Module):
         if drop is not None:
             og, oe = drop(og), drop(oe)
         return og.view(B, *q_shape, C), oe
+
+    def _pool(self, ops, grid, extras, names, kernel, stride):
+        """Pool one stream pair.  conv: the depthwise conv + per-head LN on
+        the grid (the filters of ``names`` tiled over heads, concatenated),
+        the exact multiplier and the same LN on the object tokens (cls
+        passes).  max / avg: the grid alone, extras unchanged."""
+        if self.mode != "conv":
+            fn = pooling.max_pool3d if self.mode == "max" else \
+                pooling.avg_pool3d
+            return fn(grid, kernel, stride), extras
+        heads = self.num_heads
+        w = torch.cat([getattr(self, f"pool_{n}").weight.repeat(
+            heads, 1, 1, 1, 1) for n in names])
+        norms = [getattr(self, f"norm_{n}") for n in names]
+        if len(norms) == 1:   # the q pool keeps head_dim-wide LN params
+            ls, lb = norms[0].weight, norms[0].bias
+        else:
+            ls = torch.cat([n.weight.repeat(heads) for n in norms])
+            lb = torch.cat([n.bias.repeat(heads) for n in norms])
+        grid = ops.pool_ln(grid, w, ls, lb, stride, self.head_dim)
+        return grid, self._pool_extras(extras, w, stride, ls, lb)
 
     def _pool_extras(self, x, weight, stride, ln_w, ln_b):
         mult = pooling.conv_obj_multiplier(weight, stride).to(x.dtype)
@@ -208,20 +251,21 @@ class MultiScaleBlock(nn.Module):
                  has_cls, rel_pos_spatial, rel_pos_temporal, residual_pooling,
                  dim_mul_in_att, separate_qkv, drop_path=0.0, drop_rate=0.0):
         super().__init__()
-        if not dim_mul_in_att:
-            raise NotImplementedError("MVIT.DIM_MUL_IN_ATT=False is not ported")
         self.dim, self.dim_out = dim, dim_out
+        self.dim_mul_in_att = dim_mul_in_att
+        self.separate_qkv = separate_qkv
         self.drop_path, self.drop_rate = drop_path, drop_rate
         self.stride_q = tuple(stride_q)
+        att_dim = dim_out if dim_mul_in_att else dim
         self.norm1 = LayerNorm(dim)
         self.attn = MultiScaleAttention(
-            dim, dim_out, num_heads, input_size, qkv_bias=qkv_bias,
+            dim, att_dim, num_heads, input_size, qkv_bias=qkv_bias,
             kernel_q=kernel_q, kernel_kv=kernel_kv, stride_q=stride_q,
             stride_kv=stride_kv, mode=mode, has_cls=has_cls,
             rel_pos_spatial=rel_pos_spatial, rel_pos_temporal=rel_pos_temporal,
             residual_pooling=residual_pooling, separate_qkv=separate_qkv)
-        self.norm2 = LayerNorm(dim_out)
-        self.mlp = Mlp(dim_out, int(dim_out * mlp_ratio), dim_out)
+        self.norm2 = LayerNorm(att_dim)
+        self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out)
         self.proj = nn.Linear(dim, dim_out) if dim != dim_out else None
 
     def forward(self, grid, extras, use_kernels: bool, dtype, train=False,
@@ -232,13 +276,23 @@ class MultiScaleBlock(nn.Module):
             def drop(t):
                 return dropout(t, self.drop_rate, generator)
         ln1 = (self.norm1.weight, self.norm1.bias)
-        ag, ae = self.attn(grid, extras, ln1, use_kernels, dtype, drop)
-        if self.proj is not None:
-            # norm1 again inside the dim-change projection (the attention's
-            # copy stays fused in its qkv launch)
-            wpj = self.proj.weight.to(dtype)
-            grid = ops.ln_dense(grid, ln1[0], ln1[1], wpj, self.proj.bias)
-            extras = _dense_extras(extras, wpj, self.proj.bias, ln=ln1)
+        if self.separate_qkv:
+            # norm1 is not fused into separate projections: the attention
+            # and the dim-change projection take the normed streams
+            gn, en = self.norm1(grid), self.norm1(extras)
+            ag, ae = self.attn(gn, en, None, use_kernels, dtype, drop)
+        else:
+            ag, ae = self.attn(grid, extras, ln1, use_kernels, dtype, drop)
+        if self.proj is not None and self.dim_mul_in_att:
+            if self.separate_qkv:
+                grid = _dense(gn, self.proj, dtype)
+                extras = _dense(en, self.proj, dtype)
+            else:
+                # norm1 again inside the dim-change projection (the
+                # attention's copy stays fused in its qkv launch)
+                wpj = self.proj.weight.to(dtype)
+                grid = ops.ln_dense(grid, ln1[0], ln1[1], wpj, self.proj.bias)
+                extras = _dense_extras(extras, wpj, self.proj.bias, ln=ln1)
         if self.stride_q and int(np.prod(self.stride_q)) > 1:
             # residual skip: max pool with kernel s+1 where the q stride is s
             kernel_skip = tuple(s + 1 if s > 1 else s for s in self.stride_q)
@@ -252,9 +306,10 @@ class MultiScaleBlock(nn.Module):
             B = grid.shape[0]
             masks = (keep_mask(B, keep, generator, grid.device),
                      keep_mask(B, keep, generator, grid.device))
-        if drop is not None:
-            return self._unfused_tail(grid, extras, ag, ae, ln2, w1, w2, drop,
-                                      masks, keep)
+        if drop is not None or (self.proj is not None
+                                and not self.dim_mul_in_att):
+            return self._unfused_tail(grid, extras, ag, ae, ln2, drop, masks,
+                                      keep, dtype)
         if masks is None:
             out_g = ops.ffn_residual(grid, ag, *ln2, w1, fc1.bias, w2,
                                      fc2.bias)
@@ -268,23 +323,30 @@ class MultiScaleBlock(nn.Module):
             ye = ll.drop_path_scale(ye, masks[1], keep)
         return out_g, ex + ye
 
-    def _unfused_tail(self, grid, extras, ag, ae, ln2, w1, w2, drop, masks,
-                      keep):
-        """The residual tail with MLP dropout, in plain PyTorch (JAX's
-        unfused path: ``_drop_path_pair`` around norm2 and a dense MLP)."""
+    def _unfused_tail(self, grid, extras, ag, ae, ln2, drop, masks, keep,
+                      dtype):
+        """The residual tail in plain PyTorch (JAX's unfused path:
+        ``_drop_path_pair`` around norm2 and a dense MLP), with the MLP's
+        dropout (``drop``) and, under ``MVIT.DIM_MUL_IN_ATT=False`` at a
+        change of width, the residual's projection of the normed stream."""
         if masks is not None:
             ag = ll.drop_path_scale(ag, masks[0], keep)
             ae = ll.drop_path_scale(ae, masks[0], keep)
         grid, extras = grid + ag, extras + ae
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        if drop is None:
+            def drop(t):
+                return t
 
         def mlp(t):
-            h = _dense_extras(ll.layer_norm(t, *ln2).flatten(1, -2), w1,
-                              fc1.bias)
-            h = drop(torch.nn.functional.gelu(h))
-            return drop(_dense_extras(h, w2, fc2.bias)).view(t.shape)
+            h = drop(torch.nn.functional.gelu(_dense(t, fc1, dtype)))
+            return drop(_dense(h, fc2, dtype))
 
-        mg, me = mlp(grid), mlp(extras)
+        g2, e2 = ll.layer_norm(grid, *ln2), ll.layer_norm(extras, *ln2)
+        mg, me = mlp(g2), mlp(e2)
+        if self.proj is not None and not self.dim_mul_in_att:
+            grid = _dense(g2, self.proj, dtype)
+            extras = _dense(e2, self.proj, dtype)
         if masks is not None:
             mg = ll.drop_path_scale(mg, masks[1], keep)
             me = ll.drop_path_scale(me, masks[1], keep)

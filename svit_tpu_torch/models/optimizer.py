@@ -1,14 +1,23 @@
 """The optimizer (counterpart of ``svit_tpu/models/optimizer.py``).
 
-AdamW (b1 0.9, b2 0.999, eps 1e-8) over two parameter groups, with and
-without weight decay, grouped as the reference groups them: a parameter
-takes no decay when its bare name is in ``no_weight_decay_names`` (only
-parameters at the model root can match, as in the reference's dotted-name
-check), or when ``SOLVER.ZERO_WD_1D_PARAM`` is set and it is 1-D or a bias.
+``SOLVER.OPTIMIZING_METHOD``, as the JAX package's optax chain:
+- ``adamw`` (b1 0.9, b2 0.999, eps 1e-8) over two parameter groups, with
+  and without weight decay, grouped as the reference groups them: a
+  parameter takes no decay when its bare name is in
+  ``no_weight_decay_names`` (only parameters at the model root can match,
+  as in the reference's dotted-name check), or when
+  ``SOLVER.ZERO_WD_1D_PARAM`` is set and it is 1-D or a bias;
+- ``adam`` (``optax.adam``: the same moments, no decay);
+- ``sgd``: the weight decay added to the gradient under the same groups
+  (``optax.add_decayed_weights``), then SGD with ``SOLVER.MOMENTUM`` and
+  ``SOLVER.NESTEROV`` (``optax.sgd``'s trace: ``t = g + m t``, the update
+  ``t`` or, Nesterov, ``g + m t``).
 The learning rate is a per-step table of the configured policy, set on the
-groups before each update by ``Transform.apply``.  Clipping matches
-``optax.clip_by_global_norm``: ``g / ||g|| * max`` when ``||g|| >= max``
-(``clip_grad_norm_`` adds 1e-6 to the norm and differs).
+groups before each update by ``Transform.apply``.  Clipping comes first:
+``SOLVER.CLIP_GRAD_VAL`` clips each element to +-v (``optax.clip``),
+else ``SOLVER.CLIP_GRAD_L2NORM`` matches ``optax.clip_by_global_norm``:
+``g / ||g|| * max`` when ``||g|| >= max`` (``clip_grad_norm_`` adds 1e-6
+to the norm and differs).
 """
 
 from __future__ import annotations
@@ -88,6 +97,7 @@ class Transform:
     optimizer: torch.optim.Optimizer
     lr_table: np.ndarray
     clip_l2norm: Optional[float] = None
+    clip_value: Optional[float] = None
 
     def apply(self, params, step: int) -> torch.Tensor:
         """Clip the gradients of ``params``, step the optimizer at step
@@ -97,7 +107,11 @@ class Transform:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        if self.clip_l2norm:
+        if self.clip_value:
+            norm = global_norm(grads)
+            for g in grads:
+                g.clamp_(-self.clip_value, self.clip_value)
+        elif self.clip_l2norm:
             norm = clip_by_global_norm(grads, self.clip_l2norm)
         else:
             norm = global_norm(grads)
@@ -112,19 +126,28 @@ def construct_optimizer(cfg, model: torch.nn.Module, steps_per_epoch: int):
     """Return (transform, lr table), as the JAX package returns (optax
     transform, schedule)."""
     sol = cfg.SOLVER
-    if sol.OPTIMIZING_METHOD != "adamw":
-        raise NotImplementedError(
-            f"the port trains with adamw, not {sol.OPTIMIZING_METHOD}")
-    if sol.CLIP_GRAD_VAL:
-        raise NotImplementedError("SOLVER.CLIP_GRAD_VAL is not ported")
+    method = sol.OPTIMIZING_METHOD
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     mask = wd_mask(named, sol.ZERO_WD_1D_PARAM, no_weight_decay_names(cfg))
-    groups = [
+    groups = [g for g in (
         {"params": [p for n, p in named if mask[n]],
          "weight_decay": sol.WEIGHT_DECAY},
         {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
-    ]
+    ) if g["params"]]
     table = lr_table(cfg, steps_per_epoch)
-    opt = torch.optim.AdamW([g for g in groups if g["params"]],
-                            lr=float(table[0]), betas=(0.9, 0.999), eps=1e-8)
-    return Transform(opt, table, sol.CLIP_GRAD_L2NORM), table
+    lr = float(table[0])
+    if method == "adamw":
+        opt = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    elif method == "adam":
+        opt = torch.optim.Adam([p for _, p in named], lr=lr,
+                               betas=(0.9, 0.999), eps=1e-8)
+    elif method == "sgd":
+        # torch's SGD adds the decay to the gradient before the momentum,
+        # as add_decayed_weights does before optax.sgd; Nesterov without
+        # momentum is plain SGD in optax and refused by torch
+        opt = torch.optim.SGD(groups, lr=lr, momentum=sol.MOMENTUM,
+                              nesterov=bool(sol.NESTEROV and sol.MOMENTUM))
+    else:
+        raise NotImplementedError(f"Does not support {method} optimizer")
+    return Transform(opt, table, sol.CLIP_GRAD_L2NORM,
+                     sol.CLIP_GRAD_VAL), table

@@ -344,7 +344,7 @@ class SViT(nn.Module):
             for s in arch.blocks
         ])
         if arch.norm_stem:
-            raise NotImplementedError("MVIT.NORM_STEM is not ported")
+            self.norm_stem = LayerNorm(C)
         self.norm = LayerNorm(arch.final_dim)
         self.head = SViTHead(arch)
 
@@ -399,6 +399,8 @@ class SViT(nn.Module):
         if train and arch.drop_rate > 0:
             grid = dropout(grid, arch.drop_rate, generator)
             extras = dropout(extras, arch.drop_rate, generator)
+        if arch.norm_stem:
+            grid, extras = self.norm_stem(grid), self.norm_stem(extras)
 
         for blk in self.blocks:
             grid, extras = blk(grid, extras, self.use_kernels, dt, train,

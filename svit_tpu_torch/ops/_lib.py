@@ -56,18 +56,21 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,                # B, T, H, W, C
         _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
         _I, _I, _I, _I, _F, _I,            # To, Ho, Wo, head_dim, eps, apply_ln
+        _I, _I,                            # gen, slab
         _I, _I, _I, _I, _I, _I, _P,        # rows, cols, frames, ring, grid, smem, stream
     ],
     "svit_conv_dx": [
         _P, _P, _P,                        # g, w, dx
         _I, _I, _I, _I, _I,                # B, T, H, W, C
         _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
-        _I, _I, _I, _P,                    # To, Ho, Wo, stream
+        _I, _I, _I, _I, _I,                # To, Ho, Wo, gen, slab
+        _I, _I, _I, _I, _I, _I, _P,        # rows, cols, frames, ring, grid, smem, stream
     ],
     "svit_conv_dk": [
         _P, _P, _P, _P,                    # x, g, partial, dk
-        _I, _I, _I, _I, _I, _I,            # B, T, H, W, C, kT
-        _I, _I, _I, _I, _I, _I,            # sT, sH, sW, To, Ho, Wo
+        _I, _I, _I, _I, _I,                # B, T, H, W, C
+        _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
+        _I, _I, _I, _I, _I,                # To, Ho, Wo, gen, slab
         _I, _I, _I, _I, _I, _I, _P,        # rows, cols, frames, ring, grid, smem, stream
     ],
     "svit_pool_max": [

@@ -23,9 +23,16 @@ activation goes through device memory) and its drop-path form
 ``fused_ffn_residual_masked``, which scales ``a`` by ``mask_add / keep`` in
 the prologue and the output by ``mask_out / keep`` before the residual, each
 op rounded to the IO dtype, and ``fused_ffn`` (two launches, no residual).
-Each use is differentiable: its gradient is the autograd of its plain twin
-recomputed from the saved inputs (``ops/vjp.py``), as the JAX package's
-custom VJPs do.
+Each use is differentiable.  Its backward recomputes from the saved inputs,
+as the JAX package's custom VJPs do (``jax.vjp`` of ``_ffn_reference`` and
+its siblings): the sum ``x + x_add`` with its drop-path scaling, the LN
+statistics in f32 and ``xn`` rounded to the IO dtype; then every product
+(the recomputed forward product where a GELU needs it, dX = g W and dW =
+g^T xn) takes its operands in the IO dtype, the cotangent rounded to it
+once, and accumulates in f32 (``_mm``): bf16 GEMMs on the tensor cores on
+the card, as the reference's dots take ``xn.astype(w.dtype)`` with
+``preferred_element_type=f32``.  The GELU, LN and drop-path backward are
+elementwise torch ops in the reference's op order.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from svit_tpu_torch.ops import _lib
-from svit_tpu_torch.ops.vjp import plain_vjp
+from svit_tpu_torch.ops.vjp import kernel_vjp
 
 EPS = 1e-6
 
@@ -293,6 +300,133 @@ def _flat(x):
     return x.reshape(-1, x.shape[-1])
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the operands in their (IO) dtype and the sum in f32,
+    returned in f32: on the card cuBLAS's GEMM with an f32 output (bf16 on
+    the tensor cores), on the CPU the f32 product of the same values."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _dense_bwd(xn, w, gacc, want_w=True):
+    """Gradients of ``acc = xn @ w.T`` (f32 sum of IO-dtype operands) from
+    the f32 cotangent ``gacc`` [M, N]: (dxn, dw) in the IO dtype, the
+    cotangent rounded to it once before both products."""
+    gd = gacc.to(xn.dtype)
+    dxn = _mm(gd, w).to(xn.dtype)
+    dw = _mm(gd.t(), xn).to(w.dtype) if want_w else None
+    return dxn, dw
+
+
+def _prologue(x, x_add=None, ln=None, mask_add=None, keep=1.0, rows=1):
+    """Recompute ``s = x (+ x_add / keep * mask)`` and ``xn = LN(s)`` (or s)
+    under autograd from detached leaves; returns (leaves, s, xn) with
+    leaves (x, x_add, ln weight, ln bias), None where absent."""
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (x, x_add, *(ln or (None, None)))]
+    lx, la, lw, lb = leaves
+    with torch.enable_grad():
+        if la is not None and mask_add is not None:
+            la_s = drop_path_scale(la, mask_add, keep, rows)
+        else:
+            la_s = la
+        s = lx if la is None else lx + la_s
+        xn = s if ln is None else layer_norm(s, lw, lb)
+    return leaves, s, xn
+
+
+def _prologue_grads(leaves, outs, grads, wanted):
+    """The prologue's gradients: ``outs`` (xn, and s where it is also an
+    output) against ``grads``, for the ``wanted`` leaves."""
+    take = [t for t, w in zip(leaves, wanted) if t is not None and w]
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], take,
+                                   [g for _, g in pairs], allow_unused=True)
+               if take else ())
+    return [next(got) if t is not None and w else None
+            for t, w in zip(leaves, wanted)]
+
+
+def _gelu_bwd(dh, z):
+    """d gelu(z) (exact erf) times the cotangent ``dh``, in f32."""
+    return torch.ops.aten.gelu_backward(dh.float(), z)
+
+
+def _ln_dense_vjp(tensors, static, grads, wanted):
+    """Backward of ``fused_ln_qkv`` (split output) and ``fused_ln_dense``:
+    LN, then ``xn @ w.T + b`` (f32) rounded."""
+    x, ln_w, ln_b, w, b = tensors
+    split = static[0]
+    leaves, _, xn = _prologue(_flat(x), ln=(ln_w, ln_b))
+    if split is None:
+        gy = _flat(grads[0])
+    else:
+        M, N = xn.shape[0], w.shape[0]
+        gy = torch.cat([xn.new_zeros(M, n) if g is None else _flat(g)
+                        for g, n in zip(grads, (split, N - split))], dim=-1)
+    gacc = gy.float()
+    dxn, dw = _dense_bwd(xn.detach(), w, gacc, wanted[3])
+    gx, _, glw, glb = _prologue_grads(leaves, [xn], [dxn],
+                                      [wanted[0], False, *wanted[1:3]])
+    db = gacc.sum(0) if b is not None and wanted[4] else None
+    return [None if gx is None else gx.view(x.shape), glw, glb, dw, db]
+
+
+def _ffn_vjp(residual):
+    """Backward of ``fused_ffn_residual(_masked)`` (``residual``) and
+    ``fused_ffn``: the prologue, ``z = xn @ w1.T + b1`` recomputed (f32),
+    ``h = gelu(z)`` rounded, ``y = h @ w2.T + b2`` rounded (drop-path
+    scaled, plus the residual s)."""
+    def backward(tensors, static, grads, wanted):
+        if residual:
+            x_res, a, ln_w, ln_b, w1, b1, w2, b2, *masks = tensors
+            ma, my = masks if masks else (None, None)
+            keep = static[0] if masks else 1.0
+            rows = x_res[0].numel() // x_res.shape[-1]
+            leaves, s, xn = _prologue(_flat(x_res), _flat(a), (ln_w, ln_b),
+                                      ma, keep, rows)
+            want_pro = wanted[:4]
+            wb = wanted[4:8]
+        else:
+            x, ln_w, ln_b, w1, b1, w2, b2 = tensors
+            my, keep, rows = None, 1.0, 1
+            leaves, s, xn = _prologue(_flat(x), ln=(ln_w, ln_b))
+            want_pro = [wanted[0], False, wanted[1], wanted[2]]
+            wb = wanted[3:7]
+        xd = xn.detach()
+        z = _mm(xd, w1.t()) + b1.float()
+        h = torch.nn.functional.gelu(z).to(xd.dtype)
+        g = _flat(grads[0])
+        gy = g if my is None else drop_path_scale(g, my, keep, rows)
+        gacc2 = gy.float()
+        dh, dw2 = _dense_bwd(h, w2, gacc2, wb[2])
+        dz = _gelu_bwd(dh, z)
+        dxn, dw1 = _dense_bwd(xd, w1, dz, wb[0])
+        outs, cots = ([xn, s], [dxn, g]) if residual else ([xn], [dxn])
+        gp = _prologue_grads(leaves, outs, cots, want_pro)
+        db1 = dz.sum(0) if wb[1] else None
+        db2 = gacc2.sum(0) if wb[3] else None
+        lead = (x_res if residual else x).shape
+        gp = [None if t is None else t.view(lead) if i < 2 else t
+              for i, t in enumerate(gp)]
+        if residual:
+            return [gp[0], gp[1], gp[2], gp[3], dw1, db1, dw2, db2,
+                    *[None] * (len(tensors) - 8)]
+        return [gp[0], gp[2], gp[3], dw1, db1, dw2, db2]
+    return backward
+
+
+def _proj_vjp(tensors, static, grads, wanted):
+    """Backward of ``linear_proj``: ``xn @ w.T`` rounded, ``+ b`` in the IO
+    dtype."""
+    x, w, b = tensors
+    gy = _flat(grads[0])
+    dx, dw = _dense_bwd(_flat(x), w, gy.float(), wanted[1])
+    db = gy.sum(0).to(b.dtype) if wanted[2] else None
+    return [dx.view(x.shape), dw, db]
+
+
 def _fused_ln_qkv(op, x, ln_w, ln_b, w_qkv, b_qkv, dim_out
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     q, kv = op(_flat(x), w_qkv, b_qkv, ln=(ln_w, ln_b), split=dim_out)
@@ -308,9 +442,8 @@ def ln_qkv_reference(x, ln_w, ln_b, w_qkv, b_qkv, dim_out):
 def fused_ln_qkv(x, ln_w, ln_b, w_qkv, b_qkv, dim_out):
     """norm1 + the q and k|v projections in one launch over ``[Wq | Wkv]``:
     x is read once, q and kv are written as two outputs."""
-    return plain_vjp(
-        lambda *a: _fused_ln_qkv(ln_linear, *a), ln_qkv_reference,
-        (x, ln_w, ln_b, w_qkv, b_qkv), dim_out)
+    return kernel_vjp(lambda *a: _fused_ln_qkv(ln_linear, *a), _ln_dense_vjp,
+                      (x, ln_w, ln_b, w_qkv, b_qkv), dim_out)
 
 
 def ln_dense_reference(x, ln_w, ln_b, w, b):
@@ -325,7 +458,8 @@ def _ln_dense(x, ln_w, ln_b, w, b):
 
 def fused_ln_dense(x, ln_w, ln_b, w, b):
     """LN + one dense layer (bias added in f32, then rounded)."""
-    return plain_vjp(_ln_dense, ln_dense_reference, (x, ln_w, ln_b, w, b))
+    return kernel_vjp(lambda *a: _ln_dense(*a[:5]), _ln_dense_vjp,
+                      (x, ln_w, ln_b, w, b), None)
 
 
 def _fused_ffn_residual(op, x_res, a, ln_w, ln_b, w1, b1, w2, b2,
@@ -346,8 +480,8 @@ def fused_ffn_residual(x_res, a, ln_w, ln_b, w1, b1, w2, b2):
     """The block's residual tail ``x = x_res + a; out = x + mlp(ln2(x))`` as
     two K1 launches: (x_res + a) -> LN -> fc1 + b1 -> GELU writes h and x;
     then h @ W2 + b2 is rounded and x added in the IO dtype."""
-    return plain_vjp(
-        lambda *t: _fused_ffn_residual(ln_linear, *t), ffn_residual_reference,
+    return kernel_vjp(
+        lambda *t: _fused_ffn_residual(ln_linear, *t), _ffn_vjp(True),
         (x_res, a, ln_w, ln_b, w1, b1, w2, b2))
 
 
@@ -366,9 +500,8 @@ def fused_ffn_residual_masked(keep, x_res, a, ln_w, ln_b, w1, b1, w2, b2,
     ``fused_ffn_residual_masked``): ``ma`` and ``my`` are the block's two
     per-sample 0/1 masks [B] (f32), ``keep`` the keep probability.  Two K1
     launches in masked mode."""
-    return plain_vjp(
-        lambda *t: _fused_ffn_residual(ln_linear, *t),
-        lambda *t: ffn_residual_masked_reference(t[10], *t[:10]),
+    return kernel_vjp(
+        lambda *t: _fused_ffn_residual(ln_linear, *t), _ffn_vjp(True),
         (x_res, a, ln_w, ln_b, w1, b1, w2, b2, ma, my), keep)
 
 
@@ -387,16 +520,16 @@ def fused_ffn(x, ln_w, ln_b, w1, b1, w2, b2):
     order) as two K1 launches: LN -> fc1 + b1 in f32 -> exact GELU -> one
     rounding; then fc2 + b2 in f32 and one rounding.  No model path calls
     it, as in the JAX package: the extras keep ``ffn_reference``."""
-    return plain_vjp(lambda *t: _ffn(ln_linear, *t), ffn_reference,
-                     (x, ln_w, ln_b, w1, b1, w2, b2))
+    return kernel_vjp(lambda *t: _ffn(ln_linear, *t), _ffn_vjp(False),
+                      (x, ln_w, ln_b, w1, b1, w2, b2))
 
 
 def linear_proj(x, w, b):
     """The attention out-projection: the f32 product is rounded to the IO
     dtype, then the bias is added in the IO dtype."""
-    return plain_vjp(
+    return kernel_vjp(
         lambda x, w, b: ln_linear(_flat(x), w, b, round_then_bias=True).view(
-            *x.shape[:-1], w.shape[0]), linear_proj_reference, (x, w, b))
+            *x.shape[:-1], w.shape[0]), _proj_vjp, (x, w, b))
 
 
 def linear_proj_reference(x, w, b):

@@ -13,14 +13,20 @@
   dtype (JAX ``pallas_depthwise_conv``'s forward).
 - ``depthwise_conv_dx`` (K6) and ``depthwise_conv_dk`` (K7): its input and
   filter gradients (JAX ``_pdc_bwd`` and ``_dk_pallas``).
-- ``pool_plan``: K2's and K7's launch (tile, TMA boxes, ring, grid), pure
-  Python so that the CPU tests check it.
+- ``pool_plan``: the launch of K2, K6 and K7 (instance, slab, tile, TMA
+  boxes, ring, grid), pure Python so that the CPU tests check it.  The
+  tuned instance takes the main path's shapes ((1|3) x 3 x 3 kernels at T
+  stride 1, 96-channel slabs; K6 at stride 1 as K2's bare loop on the
+  flipped filter); the general one kernels (1|3, 3|5, 3|5), T stride 1 or
+  2, spatial strides 1 to 8 and head widths 64, 96 and 128 (K7: T stride
+  1, sH = sW).  Other shapes raise.
 
 ``fused_pool_ln`` is differentiable.  Its backward follows JAX ``_fpl_bwd``
 -> ``_pool_ln_recompute``: the conv is recomputed by K2's bare mode and
 rounded (the forward does not round before the LN; the recompute does), the
 per-head LN goes through autograd, then K6 gives dx and K7 the filter
-gradient.
+gradient (the tap formulation where K7 does not take the stride, as JAX
+``_pdc_bwd`` falls back to XLA's).
 
 Streams are channels-last ``[B, T, H, W, C]`` at their exact widths; filters
 keep the PyTorch depthwise layout ``[C, 1, kT, kH, kW]``.  On a CPU tensor
@@ -43,34 +49,56 @@ from svit_tpu_torch.ops.vjp import needs_grad, plain_vjp
 Triple = Tuple[int, int, int]
 EPS = 1e-6
 
-# K2 and K7's launch plan (``csrc/pool.cu``: ``Geo``, ``make_geo``)
-SLAB = 96                  # channels a block owns: one head group
+# The launch plans of K2, K6 and K7 (``csrc/pool.cu``: ``Geo``, ``make_geo``)
+SLAB = 96                  # channels a block of the tuned instances owns
+SLABS = (64, 96, 128)      # a general instance's slab: one head group
 SMEM_BLOCK_MAX = 232448    # shared memory one block may take
 SMEM_SM = 233472           # shared memory of one SM; each block also
 SMEM_RESERVED = 1024       # takes this much for the system
 G_SLOTS = 2                # K7's g ring
-# registers a thread of the KT = 3 instances takes (``ptxas``, as
-# chip_smoke.py prints it), rounded up to the allocation unit of 8
-REGS = {"pool": 168, "dk": 128}
+TAB_BYTES = 2048           # a general instance's tap tables
+GROUP_TAPS = 27            # the taps one thread of the general K7 sums
+# registers a thread takes (``ptxas``, as chip_smoke.py prints it), rounded
+# up to the allocation unit of 8: the tuned KT = 3 instances, and the
+# general ones
+REGS = {"pool": 168, "dk": 128, "gen": 128, "dkgen": 128}
 REGS_SM = 65536
 # the tile by spatial stride (1, 2, 3 and more): output rows (one K2
 # consumer warp, or K7 walker, each) and the cap on its columns, as
 # ``pool_probe.py --sweep`` found them best over the main path's calls on
-# an H100 (PERF.md)
+# an H100 (PERF.md).  The general instance's tile is in base positions (K6:
+# one stride-sized cell of dx each): "dx" by K6's stride (the sweep's best
+# at 2, 4 and 8), "gen" for every other call.
 TILES = {"pool": {1: (2, 16), 2: (4, 8), 3: (2, 4)},
-         "dk": {1: (2, 16), 2: (4, 8), 3: (4, 4)}}
+         "dk": {1: (2, 16), 2: (4, 8), 3: (4, 4)},
+         "dx": {2: (2, 16), 4: (3, 8), 8: (4, 8)},
+         "gen": (4, 8)}
+KINDS = ("pool", "dk", "dx")
 
 
-def pool_threads(kind: str, rows: int) -> int:
-    """Threads of a block: the consumers (K2 a warp per row, K7 48 per row
-    in whole warps) and the producer warp."""
-    return (32 * rows if kind == "pool" else _cdiv(48 * rows, 32) * 32) + 32
+def pool_threads(kind: str, rows: int, route: str = "tuned", slab: int = SLAB,
+                 taps: int = 27) -> int:
+    """Threads of a block: the consumers and the producer warp.  Consumers:
+    K2 and K6 a warp per row; the tuned K7 48 per row, the general K7
+    ``slab / 2`` per group of ``GROUP_TAPS`` taps, in whole warps."""
+    if kind != "dk":
+        n = 32 * rows
+    elif route == "tuned":
+        n = 48 * rows
+    else:
+        n = slab // 2 * _cdiv(taps, GROUP_TAPS)
+    return _cdiv(n, 32) * 32 + 32
 
 
-def blocks_per_sm(kind: str, rows: int, smem: int) -> int:
+def blocks_per_sm(kind: str, rows: int, smem: int, route: str = "tuned",
+                  slab: int = SLAB, taps: int = 27) -> int:
     """Blocks an SM holds by shared memory and registers."""
+    if route == "tuned":
+        regs = REGS["dk" if kind == "dk" else "pool"]
+    else:
+        regs = REGS["dkgen" if kind == "dk" else "gen"]
     return min(SMEM_SM // (smem + SMEM_RESERVED),
-               REGS_SM // (pool_threads(kind, rows) * REGS[kind]))
+               REGS_SM // (pool_threads(kind, rows, route, slab, taps) * regs))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -82,40 +110,46 @@ def _round128(n: int) -> int:
 
 
 @dataclass(frozen=True)
-class PoolPlan:
-    """The launch of K2 (``kind`` "pool") or K7 ("dk") for one call.
+class Axis:
+    """One axis of a launch, in base positions: the pooled output (K2,
+    K7), or a stride-sized cell of dx (K6).  Base position q reads input
+    positions ``q * step + org`` .. ``+ span - 1`` (input: x, or K6's g) and
+    writes outputs ``q * out_step + r`` for each class r; ``classes[r]``
+    lists its taps as (offset in the window, filter tap)."""
+    step: int
+    org: int
+    span: int
+    out_step: int
+    base: int                     # base positions
+    out: int                      # output extent
+    classes: Tuple[Tuple[Tuple[int, int], ...], ...]
 
-    A block owns one 96-channel slab (grid y) and walks the tiles
-    ``blockIdx.x, + grid, ...``: a tile is ``rows`` output rows by ``cols``
-    output columns of ``frames`` output frames of one clip.  Its input
-    frames pass through a ring of ``ring`` slots: a frame is one dense halo
-    box (``sparse`` False) or, at a spatial stride of 3 or more, nine boxes,
-    one per (dh, dw), at traversal strides ``step``."""
-    kind: str
-    sparse: bool
-    rows: int
-    cols: int
-    frames: int
-    ring: int
-    box: Tuple[int, ...]      # TMA box extent (C, W, H, T, B)
-    step: Tuple[int, ...]     # TMA traversal strides
-    landed: Tuple[int, ...]   # elements a box lands per dimension
-    slot_bytes: int
-    g_bytes: int
-    smem: int
-    tiles: Tuple[int, int, int, int]   # (B, frame chunks, h tiles, w tiles)
-    items: int
-    grid: int
-    slabs: int
-    threads: int
-    per_sm: int
+
+def conv_axis(n: int, k: int, s: int, kind: str) -> Axis:
+    """Axis of extent ``n`` (the conv's input) with kernel ``k`` (odd,
+    padding k // 2) and stride ``s``.  For K2 and K7 one class holds every
+    tap.  For K6 (``kind`` "dx") input position i = q s + r of dx takes
+    tap u with ``(r + pad - u) % s == 0`` from g at ``q + (r + pad - u) //
+    s``: the parity classes, some of them empty at s > 2."""
+    p = k // 2
+    if kind != "dx":
+        o = out_size(n, k, s)
+        return Axis(s, -p, k, 1, o, o, (tuple((u, u) for u in range(k)),))
+    hits = [(r, (r + p - u) // s, u) for r in range(s) for u in range(k)
+            if (r + p - u) % s == 0]
+    dmin = min(d for _, d, _ in hits)
+    dmax = max(d for _, d, _ in hits)
+    classes = tuple(tuple((d - dmin, u) for rr, d, u in hits if rr == r)
+                    for r in range(s))
+    return Axis(1, dmin, dmax - dmin + 1, s, _cdiv(n, s), n, classes)
 
 
 def pool_smem(kind: str, kT: int, rows: int, cols: int, ring: int,
               stride: Triple):
-    """(box extent, traversal strides, landed extent, slot bytes, g slot
-    bytes, shared memory of one block), as ``make_geo`` lays them out: the
-    ring (or, if larger, K7's walker sums), K7's g ring, the barriers."""
+    """The tuned instances' (box extent, traversal strides, landed extent,
+    slot bytes, g slot bytes, shared memory of one block), as ``make_geo``
+    lays them out: the ring (or, if larger, K7's walker sums), K7's g ring,
+    the barriers."""
     _, sH, sW = stride
     if max(sH, sW) > 2:
         box = (SLAB, cols * sW, rows * sH, 1, 1)
@@ -135,70 +169,207 @@ def pool_smem(kind: str, kT: int, rows: int, cols: int, ring: int,
     return box, step, landed, slot, g_bytes, smem
 
 
-def pool_plan(shape, kernel: Triple, stride: Triple, kind: str = "pool", *,
-              sms: int = 132, rows: Optional[int] = None,
-              cols: Optional[int] = None, ring: Optional[int] = None,
-              frames: Optional[int] = None) -> PoolPlan:
-    """The launch of K2 (``kind`` "pool", both modes) or K7 ("dk") for an
-    input grid ``shape`` [B, T, H, W, C].
+def gen_smem(kind: str, slab: int, axes, rows: int, cols: int, ring: int):
+    """The general instance's (box extent, slot bytes, g slot bytes, shared
+    memory of one block), as ``make_geo`` lays them out: the ring of dense
+    halo boxes, K7's g ring or the K2/K6 filter slab in f32, the tap
+    tables, the barriers."""
+    at, ah, aw = axes
+    bw, bh = (cols - 1) * aw.step + aw.span, (rows - 1) * ah.step + ah.span
+    box = (slab, bw, bh, 1, 1)
+    slot = _round128(2 * slab * bw * bh)
+    taps = _taps(axes)
+    dk = kind == "dk"
+    g_bytes = _round128(2 * slab * rows * cols) if dk else 0
+    side = G_SLOTS * g_bytes if dk else _round128(4 * slab * taps)
+    smem = (ring * slot + side + TAB_BYTES
+            + 8 * (2 * ring + (2 * G_SLOTS if dk else 0)))
+    return box, slot, g_bytes, smem
 
-    A tile is ``rows`` output rows (one K2 consumer warp, or K7 walker,
-    each) by ``cols`` output columns (the row cut into near-equal parts of
-    at most the column cap) by ``frames`` output frames.  Rows and the cap
-    come from ``TILES`` by the spatial stride.  The ring takes 4 input-frame
-    slots, or 3 (at least kT) where that keeps more blocks an SM
-    (``blocks_per_sm``).  The frames of a tile are To, halved while the
-    tiles would not fill half a wave of blocks on ``sms`` SMs.  The grid is
-    at most one wave, each block walking an equal share of the tiles (K7:
-    one f32 partial a block).  The plan depends on the shape and ``sms``
-    only.  The keyword overrides are for sweeps (``pool_probe.py``)."""
-    B, T, H, W, C = shape
+
+def _taps(axes) -> int:
+    return math.prod(sum(len(c) for c in a.classes) for a in axes)
+
+
+@dataclass(frozen=True)
+class PoolPlan:
+    """The launch of K2 (``kind`` "pool"), K6 ("dx") or K7 ("dk") for one
+    call.
+
+    ``route`` "tuned" is the main path's instance ((1|3) x 3 x 3 kernels at
+    T stride 1 on 96-channel slabs; K6 at stride 1 is K2's bare loop on
+    the flipped filter), "gen" the general one.  A block owns one
+    ``slab``-channel slab (grid y) and walks the tiles ``blockIdx.x, +
+    grid, ...``: a tile is ``rows`` rows by ``cols`` columns of ``frames``
+    frames of base positions of one clip.  Its input frames pass through a
+    ring of ``ring`` slots: a frame is one dense halo box (``sparse``
+    False) or, in the tuned instance at a spatial stride of 3 or more, nine
+    boxes, one per (dh, dw), at traversal strides ``step``."""
+    kind: str
+    route: str
+    slab: int
+    axes: Tuple[Axis, Axis, Axis]
+    sparse: bool
+    rows: int
+    cols: int
+    frames: int
+    ring: int
+    box: Tuple[int, ...]      # TMA box extent (C, W, H, T, B)
+    step: Tuple[int, ...]     # TMA traversal strides
+    landed: Tuple[int, ...]   # elements a box lands per dimension
+    slot_bytes: int
+    g_bytes: int
+    smem: int
+    tiles: Tuple[int, int, int, int]   # (B, frame chunks, h tiles, w tiles)
+    items: int
+    grid: int
+    slabs: int
+    threads: int
+    per_sm: int
+
+    @property
+    def fstep(self) -> int:
+        """Input frames between two that the ring loads: 2 where a T stride
+        of 2 meets a one-frame kernel, else 1."""
+        a = self.axes[0]
+        return a.step if a.span < a.step else 1
+
+
+def _tuned(C: int, kernel: Triple, stride: Triple) -> bool:
+    """Whether the tuned instances take the conv: (1|3, 3, 3) kernels at T
+    stride 1 and spatial strides 1 to 8 on 96-channel slabs."""
+    return (tuple(kernel[1:]) == (3, 3) and kernel[0] in (1, 3)
+            and stride[0] == 1 and 1 <= stride[1] <= 8
+            and 1 <= stride[2] <= 8 and C % SLAB == 0)
+
+
+def dk_takes(shape, kernel: Triple, stride: Triple) -> bool:
+    """Whether K7 takes the call: the tuned instance's shapes, or else T
+    stride 1 and sH = sW, as JAX ``_dk_pallas`` asserts."""
+    return (_tuned(shape[-1], kernel, stride)
+            or (stride[0] == 1 and stride[1] == stride[2]))
+
+
+def _route(shape, kernel, stride, kind, head_dim):
+    """(route, slab) of a call, or a ValueError naming the limit."""
+    C = shape[-1]
     kT, kH, kW = kernel
     sT, sH, sW = stride
-    if kind not in TILES:
+    tuned = _tuned(C, kernel, stride) and head_dim in (None, SLAB)
+    if kind == "dx":
+        tuned = tuned and (sH, sW) == (1, 1)
+    if kind == "dk" and not dk_takes(shape, kernel, stride):
+        raise ValueError(f"K7 takes T stride 1 and sH = sW, as JAX "
+                         f"_dk_pallas does (stride {stride})")
+    if tuned:
+        return "tuned", SLAB
+    if (kT not in (1, 3) or kH not in (3, 5) or kW not in (3, 5)
+            or sT not in (1, 2) or not (1 <= sH <= 8 and 1 <= sW <= 8)):
+        raise ValueError(
+            f"K2, K6 and K7 take kernels (1|3, 3|5, 3|5), T stride 1 or 2 "
+            f"and spatial strides 1 to 8 (kernel {kernel}, stride {stride})")
+    if head_dim is not None:
+        if head_dim not in SLABS or C % head_dim:
+            raise ValueError(f"K2's LN takes head_dim 64, 96 or 128 dividing "
+                             f"C (head_dim {head_dim}, C={C})")
+        return "gen", head_dim
+    for slab in (96, 128, 64):
+        if C % slab == 0:
+            return "gen", slab
+    raise ValueError(f"K2, K6 and K7 take C a multiple of 64 or 96 (C={C})")
+
+
+def pool_plan(shape, kernel: Triple, stride: Triple, kind: str = "pool", *,
+              head_dim: Optional[int] = None, sms: int = 132,
+              rows: Optional[int] = None, cols: Optional[int] = None,
+              ring: Optional[int] = None,
+              frames: Optional[int] = None) -> PoolPlan:
+    """The launch of K2 (``kind`` "pool", both modes: ``head_dim`` for the
+    LN, None for the bare conv), K6 ("dx") or K7 ("dk") for the conv's
+    input grid ``shape`` [B, T, H, W, C] (K6: dx's shape).
+
+    The route is the tuned instance where it takes the call, else the
+    general one; anything else raises (``_route``).  A tile is ``rows``
+    base rows (one K2 or K6 consumer warp, or tuned K7 walker, each) by
+    ``cols`` base columns (the row cut into near-equal parts of at most the
+    column cap, halved in the general instance until the block fits) by
+    ``frames`` base frames.  Rows and the cap come from ``TILES``.  The
+    ring takes 4 input-frame slots, or fewer (at least the frames a base
+    frame reads, and 2) where that keeps more blocks an SM
+    (``blocks_per_sm``).  The frames of a tile are all base frames, halved
+    while the tiles would not fill half a wave of blocks on ``sms`` SMs.
+    The grid is at most one wave, each block walking an equal share of the
+    tiles (K7: one f32 partial a block).  The plan depends on the shape and
+    ``sms`` only.  The keyword overrides are for sweeps
+    (``pool_probe.py``)."""
+    if kind not in KINDS:
         raise ValueError(f"pool_plan: kind {kind!r}")
-    if kT not in (1, 3) or (kH, kW) != (3, 3) or sT != 1:
-        raise ValueError(f"K2 and K7 take kernels (1|3, 3, 3) at T stride 1, "
-                         f"not kernel {kernel} stride {stride}")
-    if C % SLAB or not (1 <= sH <= 8 and 1 <= sW <= 8):
-        raise ValueError(f"K2 and K7 take C a multiple of {SLAB} and spatial "
-                         f"strides 1 to 8 (C={C}, stride {stride})")
-    To, Ho, Wo = (out_size(d, k, s) for d, k, s in
-                  zip((T, H, W), kernel, stride))
-    tile_rows, cap = TILES[kind][min(max(sH, sW), 3)]
+    if kind != "pool":
+        head_dim = None
+    B, T, H, W, C = shape
+    route, slab = _route(shape, kernel, stride, kind, head_dim)
+    axes = tuple(conv_axis(n, k, s, kind)
+                 for n, k, s in zip((T, H, W), kernel, stride))
+    at, ah, aw = axes
+    kT = kernel[0]
+    taps = _taps(axes)
+    sparse = route == "tuned" and max(stride[1:]) > 2
+    if route == "tuned":
+        tkind = "pool" if kind == "dx" else kind
+        tile_rows, cap = TILES[tkind][min(max(stride[1:]), 3)]
+
+        def layout(rows, cols, q):
+            return pool_smem(tkind, kT, rows, cols, q, stride)
+    else:
+        tile_rows, cap = (TILES["dx"].get(stride[1], TILES["gen"])
+                          if kind == "dx" and stride[1] == stride[2]
+                          else TILES["gen"])
+
+        def layout(rows, cols, q):
+            box, slot, g_bytes, smem = gen_smem(kind, slab, axes, rows, cols,
+                                                q)
+            return box, (1,) * 5, box, slot, g_bytes, smem
     rows = rows or tile_rows
-    cols = cols or _cdiv(Wo, _cdiv(Wo, cap))
-    fits = [(blocks_per_sm(kind, rows, smem), q) for q in
-            ((ring,) if ring else (4, 3))
-            if q >= kT and (smem := pool_smem(kind, kT, rows, cols, q,
-                                              stride)[-1]) <= SMEM_BLOCK_MAX]
-    if not fits or max(fits)[0] < 1 or not 1 <= rows <= 4:
+    cols = cols or _cdiv(aw.base, _cdiv(aw.base, cap))
+    rings = (ring,) if ring else (4, 3) if route == "tuned" else (4, 3, 2)
+
+    def fits(cols):
+        return [(blocks_per_sm(kind, rows, smem, route, slab, taps), q)
+                for q in rings if q >= max(at.span, 2)
+                and (smem := layout(rows, cols, q)[-1]) <= SMEM_BLOCK_MAX]
+
+    options = fits(cols)
+    while route == "gen" and not options and cols > 1:
+        cols = _cdiv(cols, 2)
+        options = fits(cols)
+    if not options or max(options)[0] < 1 or not 1 <= rows <= 4:
         raise ValueError(f"pool_plan: no tile fits ({shape}, {stride}, "
                          f"rows={rows}, cols={cols}, ring={ring})")
-    per_sm, ring = max(fits)
-    box, step, landed, slot, g_bytes, smem = pool_smem(
-        kind, kT, rows, cols, ring, stride)
-    slabs = C // SLAB
+    per_sm, ring = max(options)
+    box, step, landed, slot, g_bytes, smem = layout(rows, cols, ring)
+    slabs = C // slab
 
     def tiles(tt):
-        return (B, _cdiv(To, tt), _cdiv(Ho, rows), _cdiv(Wo, cols))
+        return (B, _cdiv(at.base, tt), _cdiv(ah.base, rows),
+                _cdiv(aw.base, cols))
 
     if frames is None:
-        frames = To
+        frames = at.base
         while (frames > 1
                and 2 * math.prod(tiles(frames)) * slabs < per_sm * sms):
             frames = _cdiv(frames, 2)
     items = math.prod(tiles(frames))
     wave = max(1, per_sm * sms // slabs)  # blocks a slab gets in one wave
     grid = _cdiv(items, _cdiv(items, wave))
-    return PoolPlan(kind, max(sH, sW) > 2, rows, cols, frames, ring, box,
-                    step, landed, slot, g_bytes, smem, tiles(frames), items,
-                    grid, slabs, pool_threads(kind, rows), per_sm)
+    return PoolPlan(kind, route, slab, axes, sparse, rows, cols, frames,
+                    ring, box, step, landed, slot, g_bytes, smem,
+                    tiles(frames), items, grid, slabs,
+                    pool_threads(kind, rows, route, slab, taps), per_sm)
 
 
 def _plan_args(plan: PoolPlan):
-    return (plan.rows, plan.cols, plan.frames, plan.ring, plan.grid,
-            plan.smem)
+    return (int(plan.route == "gen"), plan.slab, plan.rows, plan.cols,
+            plan.frames, plan.ring, plan.grid, plan.smem)
 
 
 def _full_width(p: torch.Tensor, C: int) -> torch.Tensor:
@@ -238,14 +409,12 @@ def _pool_ln(x, weight, ln_w, ln_b, stride: Triple, head_dim: int,
         if not apply_ln:
             return depthwise_conv_reference(x, weight, stride)
         return pool_ln_reference(x, weight, ln_w, ln_b, stride, head_dim)
-    B, T, H, W, C = x.shape
-    kT, kH, kW = weight.shape[2:]
-    sT, sH, sW = stride
+    C = x.shape[-1]
+    kernel = tuple(weight.shape[2:])
     _lib.check(x, "x", torch.bfloat16)
-    _lib.check(weight, "weight", torch.float32, (C, 1, kT, kH, kW), x.device)
-    if apply_ln and head_dim != SLAB:
-        raise ValueError(f"pool_ln takes head_dim {SLAB} (got {head_dim})")
-    plan = pool_plan(x.shape, (kT, kH, kW), stride, "pool",
+    _lib.check(weight, "weight", torch.float32, (C, 1, *kernel), x.device)
+    plan = pool_plan(x.shape, kernel, stride, "pool",
+                     head_dim=head_dim if apply_ln else None,
                      sms=_lib.sm_count(x.device))
     g = b = None
     if apply_ln:
@@ -253,18 +422,27 @@ def _pool_ln(x, weight, ln_w, ln_b, stride: Triple, head_dim: int,
         b = _full_width(ln_b, C).contiguous()
         _lib.check(g, "ln weight", torch.float32, (C,), x.device)
         _lib.check(b, "ln bias", torch.float32, (C,), x.device)
-    # tap-major [kT*kH*kW, C] filter: lanes read neighbouring channels
-    taps = weight.reshape(C, kT * kH * kW).t().contiguous()
+    return _launch_pool(x, _tap_major(weight), g, b, kernel, stride,
+                        head_dim, plan, "pool_ln" if apply_ln else "pool_conv")
+
+
+def _tap_major(weight):
+    """[kT*kH*kW, C] filter: lanes read neighbouring channels."""
+    return weight.reshape(weight.shape[0], -1).t().contiguous()
+
+
+def _launch_pool(x, taps, g, b, kernel, stride, head_dim, plan, counter):
+    B, T, H, W, C = x.shape
     To, Ho, Wo = (out_size(d, k, s) for d, k, s in
-                  zip((T, H, W), (kT, kH, kW), stride))
+                  zip((T, H, W), kernel, stride))
     out = torch.empty((B, To, Ho, Wo, C), dtype=x.dtype, device=x.device)
     if out.numel():
         _lib.launch(
-            "svit_pool_ln", "pool_ln" if apply_ln else "pool_conv",
+            "svit_pool_ln", counter,
             _lib.ptr(x), _lib.ptr(taps), _lib.ptr(g), _lib.ptr(b),
-            _lib.ptr(out), B, T, H, W, C, kT, kH, kW, sT, sH, sW,
-            To, Ho, Wo, head_dim, EPS, int(apply_ln), *_plan_args(plan),
-            _lib.stream())
+            _lib.ptr(out), B, T, H, W, C, *kernel, *stride,
+            To, Ho, Wo, head_dim, EPS, int(g is not None),
+            *_plan_args(plan), _lib.stream())
     return out
 
 
@@ -304,23 +482,32 @@ def depthwise_conv_dx_reference(g, weight, stride: Triple, in_shape):
 
 def depthwise_conv_dx(g, weight, stride: Triple, in_shape):
     """Kernel K6: the input gradient of the depthwise conv (padding k//2,
-    ``stride``) as a transposed conv by gather.  g: [B, To, Ho, Wo, C]
-    bf16; weight: [C, 1, kT, kH, kW] f32; returns bf16 ``in_shape``."""
+    ``stride``).  g: [B, To, Ho, Wo, C] bf16; weight: [C, 1, kT, kH, kW]
+    f32; returns bf16 ``in_shape``.  At stride 1 it is the same-padding
+    conv of g with the flipped filter: K2's bare loop (the tuned route).
+    At other strides a tile of base positions (one stride-sized cell of dx
+    each) reads a halo box of g and writes every parity class of its cells
+    with the class's own taps."""
     if g.device.type == "cpu":
         return depthwise_conv_dx_reference(g, weight, stride, in_shape)
     B, T, H, W, C = in_shape
-    kT, kH, kW = weight.shape[2:]
-    To, Ho, Wo = g.shape[1:4]
-    _lib.check(g, "g", torch.bfloat16)
-    _lib.check(weight, "weight", torch.float32, (C, 1, kT, kH, kW), g.device)
-    if C % 8 or tuple(g.shape) != (B, To, Ho, Wo, C):
-        raise ValueError(f"conv_dx: g {tuple(g.shape)} against input {in_shape}")
-    taps = weight.reshape(C, kT * kH * kW).t().contiguous()
+    kernel = tuple(weight.shape[2:])
+    To, Ho, Wo = (out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), kernel, stride))
+    _lib.check(g, "g", torch.bfloat16, (B, To, Ho, Wo, C))
+    _lib.check(weight, "weight", torch.float32, (C, 1, *kernel), g.device)
+    plan = pool_plan(tuple(in_shape), kernel, stride, "dx",
+                     sms=_lib.sm_count(g.device))
+    if plan.route == "tuned":
+        return _launch_pool(g, _tap_major(weight.flip(2, 3, 4)), None, None,
+                            kernel, (1, 1, 1), plan.slab, plan,
+                            "pool_conv_dx")
     dx = torch.empty(tuple(in_shape), dtype=g.dtype, device=g.device)
     if dx.numel():
         _lib.launch("svit_conv_dx", "pool_conv_dx", _lib.ptr(g),
-                    _lib.ptr(taps), _lib.ptr(dx), B, T, H, W, C, kT, kH, kW,
-                    *stride, To, Ho, Wo, _lib.stream())
+                    _lib.ptr(_tap_major(weight)), _lib.ptr(dx), B, T, H, W,
+                    C, *kernel, *stride, To, Ho, Wo, *_plan_args(plan),
+                    _lib.stream())
     return dx
 
 
@@ -349,7 +536,7 @@ def depthwise_conv_dk_reference(x, g, kernel: Triple, stride: Triple):
 def depthwise_conv_dk(x, g, kernel: Triple, stride: Triple):
     """Kernel K7: the filter gradient ``dk[tap, c] = sum over batch and
     output positions of x_pad[out * s + tap, c] * g[out, c]`` in f32 (x and
-    g bf16).  Returns [C, 1, kT, kH, kW] f32."""
+    g bf16).  Returns [C, 1, kT, kH, kW] f32.  Shapes: ``dk_takes``."""
     if x.device.type == "cpu":
         return depthwise_conv_dk_reference(x, g, kernel, stride)
     B, T, H, W, C = x.shape
@@ -364,7 +551,7 @@ def depthwise_conv_dk(x, g, kernel: Triple, stride: Triple):
     dk = torch.empty((kT * kH * kW, C), dtype=torch.float32, device=x.device)
     if g.numel():
         _lib.launch("svit_conv_dk", "pool_conv_dk", _lib.ptr(x), _lib.ptr(g),
-                    _lib.ptr(partial), _lib.ptr(dk), B, T, H, W, C, kT,
+                    _lib.ptr(partial), _lib.ptr(dk), B, T, H, W, C, *kernel,
                     *stride, To, Ho, Wo, *_plan_args(plan), _lib.stream())
     else:
         dk.zero_()
@@ -389,7 +576,12 @@ class _PoolLnFn(torch.autograd.Function):
             gy, glw, glb = torch.autograd.grad(out, leaves, g)
         gy = gy.contiguous()
         dx = depthwise_conv_dx(gy, weight, stride, x.shape)
-        dk = depthwise_conv_dk(x, gy, tuple(weight.shape[2:]), stride)
+        # K7 where it takes the stride; else the tap formulation, as JAX
+        # ``_pdc_bwd`` falls back to XLA's
+        dk_fn = (depthwise_conv_dk
+                 if dk_takes(x.shape, tuple(weight.shape[2:]), stride)
+                 else depthwise_conv_dk_reference)
+        dk = dk_fn(x, gy, tuple(weight.shape[2:]), stride)
         return dx, dk, glw, glb, None, None
 
 

@@ -57,6 +57,16 @@ def max_pool3d(x: torch.Tensor, kernel: Triple, stride: Triple) -> torch.Tensor:
     return _cl(F.max_pool3d(_cf(x), tuple(kernel), tuple(stride), pad))
 
 
+def avg_pool3d(x: torch.Tensor, kernel: Triple, stride: Triple) -> torch.Tensor:
+    """AvgPool3d of a channels-last grid, padding k//2, the zeros of the
+    padding counted (``count_include_pad``, as the JAX package's sum over
+    the window divided by its size)."""
+    pad = [k // 2 for k in reversed(kernel) for _ in (0, 1)]
+    # the zeros padded first: torch refuses a window larger than the
+    # unpadded input (a 2-frame clip under kT 3)
+    return _cl(F.avg_pool3d(F.pad(_cf(x), pad), tuple(kernel), tuple(stride)))
+
+
 def conv_obj_multiplier(weight: torch.Tensor, stride: Triple) -> torch.Tensor:
     """Per-channel multiplier equivalent to the reference's object-token conv.
 

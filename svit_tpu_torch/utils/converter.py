@@ -86,6 +86,8 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         if "proj" in b:
             put_linear(b["proj"], f"{tp}.proj")
 
+    if "norm_stem" in p:
+        put_ln(p["norm_stem"], "norm_stem")
     put_ln(p["norm"], "norm")
     h = p["head"]
     if "projection" in h:

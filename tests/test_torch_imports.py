@@ -1,6 +1,7 @@
 """The PyTorch port imports without JAX and without the JAX package, and
 its entry points refuse to run on the CPU unless asked to."""
 
+import collections
 import os
 import subprocess
 import sys
@@ -114,6 +115,29 @@ def test_attention_probe_exits_nonzero_without_cuda():
                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode == 2, r.stdout + r.stderr
     assert "no CUDA device" in r.stderr
+
+
+def test_pool_probe_lists_the_step_s_k6_calls():
+    """pool_probe.py's rows (imported with JAX blocked above) hold every
+    K6 call shape of the train step's two backward passes, at strides 1,
+    2, 4 and 8, each with a plan: 2 x 32 pools (the step launches 62 of
+    them: the last block's q pool takes no gradient); its WIDE rows plan on
+    the general instance."""
+    import pool_probe
+    from svit_tpu_torch.ops import pool as tp
+
+    rows = {k: v for k, v in pool_probe.calls().items()
+            if k[0] == "pool_conv_dx"}
+    assert sum(n for _, n in rows.values()) == 64
+    assert {k[3][1] for k in rows} == {1, 2, 4, 8}
+    for kind, shape, kernel, stride, hd in rows:
+        plan = tp.pool_plan(shape, kernel, stride, "dx")
+        assert plan.route == ("tuned" if stride == (1, 1, 1) else "gen")
+    routes = collections.Counter(
+        tp.pool_plan(shape, kernel, stride, pool_probe.PLAN_KIND[kind],
+                     head_dim=hd if kind == "pool_ln" else None).route
+        for kind, shape, kernel, stride, hd in pool_probe.wide_calls())
+    assert routes["gen"] >= 20, routes
 
 
 @pytest.mark.parametrize("args", [[], ["--sweep"], ["--no-math"]])

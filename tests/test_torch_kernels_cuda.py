@@ -10,6 +10,8 @@ plain version in f32 on the same bf16 inputs must stay within 3x the plain
 bf16 version's own error + 2e-3.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -367,6 +369,92 @@ def test_depthwise_conv_dk_is_deterministic(gen, C, s, side):
     assert torch.equal(one, two)
 
 
+# the widened K2, K6 and K7 (shape, kernel, stride, head_dim of the LN):
+# head widths 64 and 128, (3, 5, 5) and (1, 3, 5) kernels, T stride 2 and
+# strides that differ between H and W, ragged grids
+WIDE = [((2, 4, 14, 14, 128), (3, 3, 3), (1, 1, 1), 64),
+        ((2, 4, 14, 14, 256), (3, 3, 3), (1, 2, 2), 128),
+        ((1, 5, 15, 13, 192), (3, 5, 5), (1, 1, 1), 64),
+        ((1, 6, 17, 19, 128), (3, 5, 5), (1, 2, 1), 128),
+        ((2, 5, 13, 12, 128), (3, 3, 3), (2, 2, 2), 64),
+        ((1, 4, 29, 31, 192), (3, 5, 5), (1, 4, 4), 96),
+        ((1, 3, 33, 35, 128), (1, 3, 5), (2, 8, 8), 128),
+        ((2, 3, 11, 9, 96), (3, 5, 3), (1, 3, 2), 96)]
+
+
+def _wide_inputs(gen, shape, kernel, stride):
+    B, T, H, W, C = shape
+    x = _randn(gen, *shape)
+    w = _randn(gen, C, 1, *kernel, scale=0.2, dtype=torch.float32)
+    ls = 1 + _randn(gen, C, scale=0.1, dtype=torch.float32)
+    lb = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    To, Ho, Wo = (tp.out_size(d, k, s) for d, k, s in
+                  zip((T, H, W), kernel, stride))
+    return x, w, ls, lb, _randn(gen, B, To, Ho, Wo, C)
+
+
+@pytest.mark.parametrize("shape,kernel,stride,hd", WIDE)
+def test_pool_widened_shapes(gen, shape, kernel, stride, hd):
+    """K2 (LN and bare), K6 and, where it takes the stride, K7 at the shapes
+    the JAX package's fused_pool_ln takes beyond the main path's."""
+    x, w, ls, lb, g = _wide_inputs(gen, shape, kernel, stride)
+    _gate(tp.fused_pool_ln, tp.pool_ln_reference, x, w, ls, lb, stride, hd)
+    _gate(lambda x, w: tp.depthwise_conv(x, w, stride, hd),
+          lambda x, w: tp.depthwise_conv_reference(x, w, stride), x, w)
+    _gate(tp.depthwise_conv_dx, tp.depthwise_conv_dx_reference, g, w, stride,
+          shape)
+    if tp.dk_takes(shape, kernel, stride):
+        _gate(tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference, x, g,
+              kernel, stride)
+    else:
+        with pytest.raises(ValueError, match="_dk_pallas"):
+            tp.depthwise_conv_dk(x, g, kernel, stride)
+
+
+def test_pool_raises_outside_the_set(gen):
+    """A shape no instance takes raises, naming the limit; nothing falls
+    back."""
+    x = _randn(gen, 1, 4, 8, 8, 96)
+    ls = torch.ones(96, device="cuda")
+    for kernel, stride, hd, what in (((3, 7, 7), (1, 1, 1), 96, "kernels"),
+                                     ((3, 3, 3), (3, 1, 1), 96, "T stride"),
+                                     ((3, 3, 3), (1, 1, 1), 32, "head_dim")):
+        w = torch.zeros(96, 1, *kernel, device="cuda")
+        with pytest.raises(ValueError, match=what):
+            tp.fused_pool_ln(x, w, ls, ls, stride, hd)
+    with pytest.raises(ValueError, match="multiple"):
+        tp.depthwise_conv(_randn(gen, 1, 4, 8, 8, 100),
+                          torch.zeros(100, 1, 3, 3, 3, device="cuda"),
+                          (1, 1, 1), 100)
+
+
+@pytest.mark.parametrize("B,T", POOL_BT)
+@pytest.mark.parametrize("C,s,side", POOL_CALLS)
+def test_conv_dx_main_path_shapes(gen, C, s, side, B, T):
+    """K6 at the main path's shapes: the parity classes at stride 2, 4 and
+    8, K2's bare loop on the flipped filter at stride 1."""
+    stride = (1, s, s)
+    _, w, _, _, g = _pool_inputs(gen, B, T, side, side, C, stride)
+    before = _lib.LAUNCHES["pool_conv_dx"]
+    _gate(tp.depthwise_conv_dx, tp.depthwise_conv_dx_reference, g, w, stride,
+          (B, T, side, side, C))
+    assert _lib.LAUNCHES["pool_conv_dx"] == before + 1
+
+
+@pytest.mark.parametrize("C,s,side", [(96, 1, 56), (192, 2, 56),
+                                      (384, 4, 56), (192, 8, 56)])
+def test_conv_dx_is_deterministic(gen, C, s, side):
+    """K6 sums each dx position's taps in a fixed order: a rerun is
+    bit-identical."""
+    stride = (1, s, s)
+    _, w, _, _, g = _pool_inputs(gen, 2, 8, side, side, C, stride)
+    shape = (2, 8, side, side, C)
+    one = tp.depthwise_conv_dx(g, w, stride, shape)
+    two = tp.depthwise_conv_dx(g, w, stride, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
 def test_ffn_residual_masked(gen):
     B, rows, C = 4, 250, 96
     x_res, a = _randn(gen, B, rows, C), _randn(gen, B, rows, C)
@@ -425,6 +513,143 @@ def test_autograd_through_the_kernels(gen):
     launched = _lib.LAUNCHES - before
     for name in ("pool_conv", "pool_conv_dx", "pool_conv_dk"):
         assert launched[name] >= 1, name
+
+
+# the LN-linear uses and their plain twins, for the backward on the card
+def _ln_linear_uses(gen, M, C):
+    x, a = _randn(gen, M, C), _randn(gen, M, C)
+    ln = (1 + _randn(gen, C, scale=0.1, dtype=torch.float32),
+          _randn(gen, C, scale=0.1, dtype=torch.float32))
+    w1 = _randn(gen, 4 * C, C, scale=C ** -0.5)
+    w2 = _randn(gen, C, 4 * C, scale=(4 * C) ** -0.5)
+    b1 = _randn(gen, 4 * C, scale=0.1, dtype=torch.float32)
+    b2 = _randn(gen, C, scale=0.1, dtype=torch.float32)
+    wq = _randn(gen, 3 * C, C, scale=C ** -0.5)
+    bq = _randn(gen, 3 * C, scale=0.1, dtype=torch.float32)
+    B = 4
+    ma = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda")
+    my = torch.tensor([0.0, 1.0, 1.0, 1.0], device="cuda")
+    xb, ab = x.view(B, M // B, C), a.view(B, M // B, C)
+    return {
+        "ln_qkv": (lambda *t: tl.fused_ln_qkv(*t, C),
+                   lambda *t: tl.ln_qkv_reference(*t, C),
+                   (xb, *ln, wq, bq), 2),
+        "ln_dense": (tl.fused_ln_dense, tl.ln_dense_reference,
+                     (xb, *ln, w1, b1), 1),
+        "ffn_residual": (tl.fused_ffn_residual, tl.ffn_residual_reference,
+                         (xb, ab, *ln, w1, b1, w2, b2), 1),
+        "ffn_residual_masked": (
+            lambda *t: tl.fused_ffn_residual_masked(0.6, *t, ma, my),
+            lambda *t: tl.ffn_residual_masked_reference(0.6, *t, ma, my),
+            (xb, ab, *ln, w1, b1, w2, b2), 1),
+        "ffn": (tl.fused_ffn, tl.ffn_reference, (xb, *ln, w1, b1, w2, b2), 1),
+        "linear_proj": (tl.linear_proj, tl.linear_proj_reference,
+                        (xb, w2[:, :C].contiguous(), b2), 1),
+    }
+
+
+@pytest.mark.parametrize("use", ["ln_qkv", "ln_dense", "ffn_residual",
+                                 "ffn_residual_masked", "ffn", "linear_proj"])
+@pytest.mark.parametrize("M,C", [(3136, 96), (1568, 768)])
+def test_ln_linear_backward_on_the_tensor_cores(gen, use, M, C):
+    """The backward of each K1 use: its gradients against the plain twin's
+    f32 gradients under the gate, and every product of the path on bf16
+    operands (a recording ``_mm``): no f32 GEMM, no twin recomputed."""
+    kernel, plain, inputs, n_out = _ln_linear_uses(gen, M, C)[use]
+    with torch.no_grad():
+        outs = kernel(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cots = [_randn(gen, *o.shape) for o in outs]
+    seen = []
+    mm = tl._mm
+
+    def record(a, b):
+        seen.append((a.dtype, b.dtype))
+        return mm(a, b)
+
+    def grads(fn):
+        def run(*a):
+            leaves = [t.detach().clone().requires_grad_() for t in a[:-n_out]]
+            torch.autograd.backward(fn(*leaves), list(a[-n_out:]))
+            return [t.grad for t in leaves]
+        return run
+
+    def kernel_grads(*a):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tl, "_mm", record)
+            mp.setattr(tl, "ln_linear_reference", None)   # no twin recompute
+            return grads(kernel)(*a)
+
+    _gate(kernel_grads, grads(plain), *inputs, *cots)
+    assert seen and set(seen) == {(BF, BF)}, seen
+
+
+def _option_cfg(option, side=56):
+    from svit_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "ssv2.yaml"))
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = side
+    cfg.DATA.NUM_FRAMES = 4
+    cfg.MVIT.DEPTH = 2
+    cfg.MVIT.POOL_Q_STRIDE = [[0, 1, 1, 1], [1, 1, 2, 2]]
+    cfg.MVIT.DIM_MUL = [[1, 2.0]]
+    cfg.MVIT.HEAD_MUL = [[1, 2.0]]
+    if option in ("max", "avg"):
+        cfg.MVIT.MODE = option
+    elif option == "separate_qkv":
+        cfg.MVIT.SEPARATE_QKV = True
+    elif option == "no_q_pool":
+        cfg.MVIT.POOL_Q_STRIDE = [[1, 1, 2, 2]]
+    elif option == "no_kv_pool":
+        cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = None
+        cfg.MVIT.POOL_KV_STRIDE = [[1, 1, 2, 2]]
+    elif option == "dim_mul_in_att_false":
+        cfg.MVIT.DIM_MUL_IN_ATT = False
+    elif option == "norm_stem":
+        cfg.MVIT.NORM_STEM = True
+    return cfg
+
+
+@pytest.mark.parametrize("option", ["max", "avg", "separate_qkv",
+                                    "no_q_pool", "no_kv_pool",
+                                    "dim_mul_in_att_false", "norm_stem"])
+def test_model_options_through_the_kernels(gen, option):
+    """Each model option at 56 px, 4 frames, 2 blocks of head_dim 96: the
+    kernel model in bf16 against the plain model in f32 under the gate,
+    through the kernels.  Without k|v pooling at 224 px the first block's
+    key grid (2 x 56 x 56) takes K4 past its rel-pos limit (kT + kH + kW
+    <= 48): that raises."""
+    from svit_tpu_torch.models import build_model
+
+    cfg = _option_cfg(option)
+    model, arch = build_model(cfg, device="cuda")
+    plain16, _ = build_model(cfg, use_kernels=False, device="cuda")
+    plain32, _ = build_model(cfg, dtype=torch.float32, use_kernels=False,
+                             device="cuda")
+    for m in (plain16, plain32):
+        m.load_state_dict(model.state_dict())
+    x = torch.randn((2, 4, 56, 56, 3), device="cuda", generator=gen)
+    before = _lib.LAUNCHES.copy()
+    with torch.inference_mode():
+        outs = [m(x) for m in (model, plain16, plain32)]
+    torch.cuda.synchronize()
+    launched = _lib.LAUNCHES - before
+    assert launched["ln_linear"] and launched["pooled_attention"]
+    if option not in ("max", "avg"):
+        assert launched["pool_ln"]
+    (lk, ek), (l16, e16), (l32, e32) = outs
+    for a, b, c in ((lk, l16, l32),
+                    (ek["pred_bboxes"], e16["pred_bboxes"],
+                     e32["pred_bboxes"])):
+        assert torch.isfinite(a).all()
+        assert _rel(a.float(), c.float()) <= 3 * _rel(b.float(), c.float()) + 2e-3
+    if option == "no_kv_pool":
+        big, _ = build_model(_option_cfg(option, 224), device="cuda")
+        x = torch.randn((1, 4, 224, 224, 3), device="cuda", generator=gen)
+        with torch.inference_mode(), pytest.raises(ValueError, match="R="):
+            big(x)
 
 
 def test_wrapper_rejects_f32_on_the_card(gen):

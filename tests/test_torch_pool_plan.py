@@ -117,14 +117,28 @@ def test_dk_plan_fits_and_covers(forward):
 
 
 def test_plan_rejects_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError):
-        tp.pool_plan((2, 4, 8, 8, 100), (3, 3, 3), (1, 1, 1))   # C % 96
-    with pytest.raises(ValueError):
-        tp.pool_plan((2, 4, 8, 8, 96), (3, 5, 5), (1, 1, 1))    # kernel
-    with pytest.raises(ValueError):
-        tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (2, 1, 1))    # T stride
-    with pytest.raises(ValueError):
+    """Outside the stated set: C no multiple of 64 or 96, a kernel side of
+    7 or an even one, a T stride of 3, a spatial stride past 8, an LN head
+    width other than 64, 96 and 128, and K7 at a T stride of 2 or sH != sW
+    off the tuned instance's shapes."""
+    with pytest.raises(ValueError, match="multiple"):
+        tp.pool_plan((2, 4, 8, 8, 100), (3, 3, 3), (1, 1, 1))   # C
+    with pytest.raises(ValueError, match="kernels"):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 7, 7), (1, 1, 1))    # kernel
+    with pytest.raises(ValueError, match="kernels"):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 4, 4), (1, 1, 1))    # even
+    with pytest.raises(ValueError, match="T stride"):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (3, 1, 1))    # T stride
+    with pytest.raises(ValueError, match="strides 1 to 8"):
         tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (1, 9, 9))    # > 8
+    with pytest.raises(ValueError, match="head_dim"):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (1, 1, 1),
+                     head_dim=32)
+    for stride in ((2, 2, 2), (1, 2, 1)):
+        with pytest.raises(ValueError, match="_dk_pallas"):
+            tp.pool_plan((2, 4, 8, 8, 128), (3, 5, 5), stride, "dk")
+    with pytest.raises(ValueError, match="kind"):
+        tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (1, 1, 1), "max")
 
 
 # ---- the emulation -------------------------------------------------------
@@ -364,3 +378,222 @@ def test_reduced_model_calls_are_covered_once(stride):
                     seen[b, t_lo:t_hi, h0:h0 + plan.rows,
                          w0:w0 + plan.cols] += 1
             assert (seen == 1).all(), (shape, st, kind, plan)
+
+
+# ---- the general instance (K2 at other shapes, K6, K7 at other shapes) ---
+
+def gen_walk(inp, plan, visit):
+    """Every block of the general instance's grid, its tiles in order, each
+    base frame with the slots of its window's frames in the clip: ``visit(
+    block, c0, b, to, h0, w0, ncols, slots)`` with ``slots`` {dt: slot}.
+    ``inp`` is what the ring loads (x, or K6's g)."""
+    at, ah, aw = plan.axes
+    Tin = inp.shape[1]
+    nb, ntc, nh, nw = plan.tiles
+    for slab in range(plan.slabs):
+        c0 = slab * plan.slab
+        for block in range(plan.grid):
+            for item in range(block, plan.items, plan.grid):
+                wx, r = item % nw, item // nw
+                hy, r = r % nh, r // nh
+                tc, b = r % ntc, r // ntc
+                t_lo = tc * plan.frames
+                t_hi = min(at.base, t_lo + plan.frames)
+                h0, w0 = hy * plan.rows, wx * plan.cols
+                f_lo = max(0, t_lo * at.step + at.org)
+                f_hi = min(Tin - 1, (t_hi - 1) * at.step + at.org
+                           + at.span - 1)
+                frames = {f: tma_box(inp, (c0, w0 * aw.step + aw.org,
+                                           h0 * ah.step + ah.org, f, b),
+                                     plan.box, plan.step)
+                          for f in range(f_lo, f_hi + 1, plan.fstep)}
+                for to in range(t_lo, t_hi):
+                    slots = {dt: frames[f] for dt in range(at.span)
+                             if (f := to * at.step + at.org + dt) in frames}
+                    visit(block, c0, b, to, h0, w0,
+                          min(plan.cols, aw.base - w0), slots)
+
+
+def _tap_index(kernel, ut, uh, uw):
+    return (ut * kernel[1] + uh) * kernel[2] + uw
+
+
+def emulate_gen(inp, weight, ln_w, ln_b, plan, apply_ln):
+    """The general K2 / K6 kernel by the plan, in f32: per base position
+    and class, the class's taps from the slots, the LN over the slab (or
+    none).  Also counts the writes of each output position."""
+    at, ah, aw = plan.axes
+    kernel = tuple(weight.shape[2:])
+    C, S = inp.shape[-1], plan.slab
+    taps = weight.reshape(C, -1).t()
+    out = inp.new_zeros((inp.shape[0], at.out, ah.out, aw.out, C))
+    writes = torch.zeros(out.shape[:4] + (C // S,), dtype=torch.int64)
+
+    def visit(block, c0, b, to, h0, w0, ncols, slots):
+        for r in range(plan.rows):
+            qh = h0 + r
+            if qh >= ah.base:
+                continue
+            for o in range(ncols):
+                for rt, ct in enumerate(at.classes):
+                    ot = to * at.out_step + rt
+                    for rh, ch in enumerate(ah.classes):
+                        oh = qh * ah.out_step + rh
+                        for rw, cw in enumerate(aw.classes):
+                            ow = (w0 + o) * aw.out_step + rw
+                            if ot >= at.out or oh >= ah.out or ow >= aw.out:
+                                continue
+                            acc = inp.new_zeros(S)
+                            for dt, ut in ct:
+                                if dt not in slots:
+                                    continue
+                                for dh, uh in ch:
+                                    for dw, uw in cw:
+                                        acc += (slots[dt][r * ah.step + dh,
+                                                          o * aw.step + dw]
+                                                * taps[_tap_index(
+                                                    kernel, ut, uh, uw),
+                                                    c0:c0 + S])
+                            if apply_ln:
+                                d = acc - acc.mean()
+                                acc = (d * torch.rsqrt(d.square().mean()
+                                                       + tp.EPS)
+                                       * ln_w[c0:c0 + S] + ln_b[c0:c0 + S])
+                            out[b, ot, oh, ow, c0:c0 + S] = acc
+                            writes[b, ot, oh, ow, c0 // S] += 1
+
+    gen_walk(inp, plan, visit)
+    return out, writes
+
+
+def emulate_gen_dk(x, g, kernel, stride):
+    """The general K7 by the plan, in f32: each block's partial from its
+    tiles (every tap against the g tile at each base position), then the
+    partials added in block order."""
+    C = x.shape[-1]
+    plan = tp.pool_plan(x.shape, kernel, stride, "dk", sms=2)
+    assert plan.route == "gen"
+    at, ah, aw = plan.axes
+    S = plan.slab
+    partial = x.new_zeros((plan.grid, math.prod(kernel), C))
+
+    def visit(block, c0, b, to, h0, w0, ncols, slots):
+        g_tile = tma_box(g, (c0, w0, h0, to, b), (S, plan.cols, plan.rows,
+                                                  1, 1), (1,) * 5)
+        nrows = min(plan.rows, ah.base - h0)
+        for dt, ut in at.classes[0]:
+            if dt not in slots:
+                continue
+            for dh, uh in ah.classes[0]:
+                for dw, uw in aw.classes[0]:
+                    k = _tap_index(kernel, ut, uh, uw)
+                    for r in range(nrows):
+                        for o in range(ncols):
+                            partial[block, k, c0:c0 + S] += (
+                                slots[dt][r * ah.step + dh, o * aw.step + dw]
+                                * g_tile[r, o])
+
+    gen_walk(x, plan, visit)
+    dk = x.new_zeros(partial.shape[1:])
+    for block in range(plan.grid):
+        dk += partial[block]
+    return dk.t().reshape(C, 1, *kernel)
+
+
+# (shape, kernel, stride, head_dim) of the widened K2: head widths 64 and
+# 128, a (3, 5, 5) kernel, strides that differ between H and W, T stride 2
+GEN_POOL = [((2, 3, 9, 11, 128), (3, 3, 3), (1, 1, 1), 64),
+            ((2, 3, 9, 11, 128), (3, 3, 3), (1, 2, 2), 128),
+            ((1, 4, 10, 9, 128), (3, 5, 5), (1, 2, 1), 64),
+            ((1, 5, 9, 10, 128), (3, 3, 3), (2, 2, 2), 128),
+            ((1, 5, 8, 9, 192), (1, 5, 3), (2, 1, 3), 96),
+            ((1, 2, 17, 13, 128), (3, 5, 5), (1, 4, 4), None),
+            ((2, 1, 19, 17, 64), (3, 3, 5), (1, 8, 8), None)]
+
+
+@pytest.mark.parametrize("shape,kernel,stride,hd", GEN_POOL)
+def test_emulated_general_pool_matches_the_twin(shape, kernel, stride, hd):
+    """The general K2 instance, emulated in f32, against pool_ln_reference
+    (with ``hd``) or depthwise_conv_reference; each output written once."""
+    x, w, ls, lb, _ = _inputs(shape, kernel, stride)
+    plan = tp.pool_plan(shape, kernel, stride, "pool", head_dim=hd, sms=2)
+    assert plan.route == "gen" and plan.slab == (hd or plan.slab)
+    _check_gen_plan(plan)
+    got, writes = emulate_gen(x, w, ls, lb, plan, hd is not None)
+    assert bool((writes == 1).all())
+    want = (tp.pool_ln_reference(x, w, ls, lb, stride, hd) if hd
+            else tp.depthwise_conv_reference(x, w, stride))
+    _close(got, want)
+
+
+def _check_gen_plan(plan):
+    assert plan.smem <= tp.SMEM_BLOCK_MAX and plan.per_sm >= 1
+    assert all(1 <= d <= 256 for d in plan.box), plan
+    assert plan.box[0] * 2 % 16 == 0
+    assert plan.ring >= max(plan.axes[0].span, 2)
+    assert 1 <= plan.grid <= plan.items == math.prod(plan.tiles)
+    assert plan.threads <= (224 if plan.kind == "dk" else 160)
+    # every tap in one class of each axis
+    for a in plan.axes:
+        taps = sorted(u for c in a.classes for _, u in c)
+        assert taps == sorted(set(taps))
+
+
+# K6 at the main path's strides and others, on ragged grids; stride 1 of a
+# (1|3, 3, 3) kernel on 96-channel slabs is the tuned K2 bare loop
+DX_CASES = [((2, 3, 13, 17, 192), (3, 3, 3), (1, 2, 2)),
+            ((2, 2, 17, 19, 96), (3, 3, 3), (1, 4, 4)),
+            ((1, 2, 19, 23, 96), (3, 3, 3), (1, 8, 8)),
+            ((2, 1, 9, 10, 96), (3, 3, 3), (1, 2, 2)),
+            ((1, 5, 9, 10, 128), (3, 5, 5), (2, 2, 1)),
+            ((1, 4, 8, 9, 64), (1, 3, 5), (2, 3, 2)),
+            ((1, 3, 9, 8, 128), (3, 5, 3), (1, 1, 1))]
+
+
+@pytest.mark.parametrize("shape,kernel,stride", DX_CASES)
+def test_emulated_dx_matches_the_twin(shape, kernel, stride):
+    """K6's parity classes by the plan, emulated in f32, against
+    depthwise_conv_dx_reference (JAX ``_pdc_bwd``'s zero-stuffed, flipped
+    conv); every dx position written once, the empty classes as zeros."""
+    x, w, _, _, g = _inputs(shape, kernel, stride)
+    plan = tp.pool_plan(shape, kernel, stride, "dx", sms=2)
+    assert plan.route == "gen"
+    _check_gen_plan(plan)
+    got, writes = emulate_gen(g, w, None, None, plan, False)
+    assert bool((writes == 1).all())
+    _close(got, tp.depthwise_conv_dx_reference(g, w, stride, shape))
+
+
+def test_dx_at_stride_one_is_the_flipped_bare_conv():
+    """The tuned route of K6: K2's bare loop on the flipped filter over g
+    (emulated with K2's plan) is dx."""
+    shape, stride = (2, 3, 13, 17, 192), (1, 1, 1)
+    assert tp.pool_plan(shape, (3, 3, 3), stride, "dx").route == "tuned"
+    _, w, _, _, g = _inputs(shape, (3, 3, 3), stride)
+    got, writes = emulate_pool(g, w.flip(2, 3, 4), None, None, stride, False)
+    assert bool((writes == 1).all())
+    _close(got, tp.depthwise_conv_dx_reference(g, w, stride, shape))
+
+
+def test_dx_parity_classes_at_the_main_strides():
+    """At k = 3: stride 2 has classes of 1 and 2 taps (1, 2, 2, 4 in H x
+    W); at strides 4 and 8 the classes that touch no tap are empty."""
+    for s, sizes in ((2, [1, 2]), (4, [1, 1, 0, 1]),
+                     (8, [1, 1, 0, 0, 0, 0, 0, 1])):
+        a = tp.conv_axis(56, 3, s, "dx")
+        assert [len(c) for c in a.classes] == sizes
+        assert (a.step, a.span, a.out_step, a.base) == (1, 2, s, 56 // s)
+
+
+GEN_DK = [((2, 3, 9, 11, 128), (3, 5, 5), (1, 2, 2)),
+          ((1, 3, 13, 10, 64), (3, 3, 3), (1, 1, 1)),
+          ((1, 2, 17, 19, 128), (1, 5, 5), (1, 4, 4))]
+
+
+@pytest.mark.parametrize("shape,kernel,stride", GEN_DK)
+def test_emulated_general_dk_matches_the_twin(shape, kernel, stride):
+    """The general K7 instance's groups of taps and partials, emulated in
+    f32, against depthwise_conv_dk_reference."""
+    x, _, _, _, g = _inputs(shape, kernel, stride)
+    _close(emulate_gen_dk(x, g, kernel, stride),
+           tp.depthwise_conv_dk_reference(x, g, kernel, stride))
