@@ -47,11 +47,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    GEMM rows by operand type, and the operand types of every product of
    the LN-linear backward), a finite loss and parameters that move.
 
+8. test: a synthetic SSv2 tree in a temp dir (4 videos of 24 JPEG frames
+   at 427 x 240, written through PIL from seed 0), then at
+   ``configs/ssv2.yaml``'s full size: one timed and one profiled batch-64
+   forward; ``engine.test.test(cfg)`` (10 views x 3 crops, 120 clips) for
+   kernels in bf16 at the config's batch of 64, and the plain versions in
+   bf16 and f32 at batch 16, the video-level scores gated as above, each
+   run's top-1 and top-5, the kernel run's launches against the forward's
+   per batch, its test loop's clips/s; ``make_eval_step`` with the loss
+   (consistency l1: a 128-frame frames forward) on a val batch of 8 from
+   the tree and ``make_image_eval_step`` on phase 7's image batch, the
+   losses gated, the top-k verdicts of kernels and plain f32 compared
+   (a row may differ only within bf16's resolution), the launches
+   counted; and a two-block model whose first block has no k|v pool at 16
+   x 224 (key grid 8 x 56 x 56, kT + kH + kW = 120) forward and backward
+   through K4 and K5's wide instance, gated.
+
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
 and modes, and of K2's and K4's train-step rows, the train step;
-``train_launches`` counts the train step for all; K1, K4 and K5 carry their
-uses), the card's name and power limit, and last
+``train_launches`` counts the train step for all, ``test_launches`` one
+batch-64 test forward; K1, K4 and K5 carry their uses), the card's name
+and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
 ``chiprun_out/chip_smoke_detail.json``.  Without a card it exits 2.
 """
@@ -805,6 +822,67 @@ def gemm_rows(rows):
     return out
 
 
+def tagged_rows(prof, tags, torch):
+    """(kernel name, launches, device ms) of the kernels launched inside the
+    profiler ranges named ``tags`` (``record_function`` on the host: every
+    op below such a range, with the kernels each launched), busiest
+    first."""
+    acc = collections.defaultdict(lambda: [0, 0.0])
+
+    def walk(e):
+        for k in e.kernels:
+            acc[k.name][0] += 1
+            acc[k.name][1] += k.duration / 1e3
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name in tags and e.device_type == torch.autograd.DeviceType.CPU:
+            walk(e)
+    return sorted(((n, c, ms) for n, (c, ms) in acc.items()),
+                  key=lambda r: -r[2])
+
+
+def bias_rows(prof, torch):
+    """The rel-pos bias builder's kernels in a profile (forward and the
+    backward of its products), with their GEMM rows by operand type."""
+    from svit_tpu_torch.ops import attention as ta
+
+    rows = tagged_rows(prof, (ta.BIAS_TAG, ta.BIAS_BWD_TAG), torch)
+    by_type = collections.Counter()
+    for g in gemm_rows(rows):
+        by_type[g["dtype"]] += g["ms"]
+    return {"ms": sum(r[2] for r in rows),
+            "launches": sum(r[1] for r in rows),
+            "gemm_ms_by_type": dict(by_type),
+            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:8]]}
+
+
+def gemm_owners(prof, torch):
+    """The ops that launched the profile's f32 GEMM kernels: (the launching
+    op, its nearest autograd node or outermost op, its input shapes) ->
+    [launches, device ms], busiest first."""
+    acc = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        for g in gemm_rows([(k.name, 1, k.duration / 1e3)
+                            for k in e.kernels]):
+            if g["dtype"] != "f32":
+                continue
+            top, p = e, e.cpu_parent
+            while p is not None:
+                top = p
+                if p.name.startswith("autograd::engine::evaluate_function"):
+                    break
+                p = p.cpu_parent
+            key = f"{e.name} < {top.name} {e.input_shapes}"
+            acc[key][0] += 1
+            acc[key][1] += g["ms"]
+    return sorted(([k, c, ms] for k, (c, ms) in acc.items()),
+                  key=lambda r: -r[2])
+
+
 def profile_step(step, state, video, image, torch, step_ms):
     """One train step under torch.profiler: device time by kernel, the
     hand-written kernels' share and the idle share against ``step_ms``;
@@ -826,8 +904,8 @@ def profile_step(step, state, video, image, torch, step_ms):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     ll._mm = recorded
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             step(state, video, image, gen)
             torch.cuda.synchronize()
@@ -854,8 +932,17 @@ def profile_step(step, state, video, image, torch, step_ms):
     for g in gemms[:12]:
         log(f"  {g['ms']:9.3f} ms x{g['count']:<5d} {g['dtype']:5s} "
             f"{g['name'][:80]}")
+    bias = bias_rows(prof, torch)
+    log(f"rel-pos bias builder (forward and its products' backward): "
+        f"{bias['ms']:.3f} ms over {bias['launches']} launches, GEMM rows by "
+        f"operand type (ms) "
+        f"{ {k: round(v, 3) for k, v in bias['gemm_ms_by_type'].items()} }")
+    owners = gemm_owners(prof, torch)
+    log("f32 GEMM rows of the step by launching op:")
+    for key, count, ms in owners[:8]:
+        log(f"  {ms:9.3f} ms x{count:<5d} {key[:150]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels_ms": ours_ms,
-            "idle_share": idle,
+            "idle_share": idle, "bias_builder": bias, "f32_gemm_owners": owners,
             "ln_linear_bwd_products": dict(products),
             "ln_linear_bwd_tflop": flop[0] / 1e12,
             "gemm_ms_by_type": dict(by_type), "gemms": gemms,
@@ -1169,6 +1256,364 @@ def run_serving_phase(cfg, torch):
         thread.join(timeout=60)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the multi-view test path, the eval steps, K4 and K5 at R = 120
+# ---------------------------------------------------------------------------
+
+TEST_VIDEOS, TEST_FRAMES = 4, 24
+SSV2_FRAME = (427, 240)      # width, height of an SSv2 frame
+# The plain twins test at this batch: at 64 the f32 twin's dense attention
+# logits of the first stage are 10.5 GB a tensor.  A clip's scores do not
+# depend on the clips beside it in the batch.
+PLAIN_TEST_BATCH = 16
+EVAL_BATCH = 8
+
+
+def make_ssv2_tree(root, num_classes):
+    """A standard-split SSv2 tree in the layout ``data/ssv2.py`` reads:
+    ``TEST_VIDEOS`` videos of ``TEST_FRAMES`` JPEG frames at 427 x 240
+    (random pixels through PIL, from seed 0), labels under
+    ``num_classes``, the label and split JSONs and a box-tracking JSON per
+    video.  Video ids are kept out of the repo's ``empty_bbox_*.json`` skip
+    lists.  Returns (ids, labels)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED)
+    skip = set()
+    for split in ("train", "val"):
+        with open(os.path.join(REPO, "data", "ssv2",
+                               f"empty_bbox_{split}.json")) as f:
+            skip |= set(json.load(f))
+    vids = [str(9000000 + i) for i in range(TEST_VIDEOS)]
+    assert not skip & set(vids)
+    labels = rng.randint(0, num_classes, TEST_VIDEOS)
+    for d in ("sm/annotations", "json_files", "bbox_jsons"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    templates = [f"Doing thing {i}" for i in range(num_classes)]
+    with open(os.path.join(root, "sm/annotations",
+                           "something-something-v2-labels.json"), "w") as f:
+        json.dump({t: str(i) for i, t in enumerate(templates)}, f)
+    entries = [{"id": v, "template": templates[l]}
+               for v, l in zip(vids, labels)]
+    for split in ("train", "validation"):
+        with open(os.path.join(root, "json_files",
+                               f"something-something-v2-{split}.json"),
+                  "w") as f:
+            json.dump(entries, f)
+    W, H = SSV2_FRAME
+    for v in vids:
+        os.makedirs(os.path.join(root, "frames", v))
+        frames = []
+        for t in range(TEST_FRAMES):
+            name = "%04d.jpg" % (t + 1)
+            Image.fromarray(rng.randint(0, 255, (H, W, 3), np.uint8)).save(
+                os.path.join(root, "frames", v, name))
+            x1, y1 = float(rng.uniform(0, W / 2)), float(rng.uniform(0, H / 2))
+            frames.append({"name": f"frames/{v}/{name}", "labels": [{
+                "standard_category": "hand",
+                "box2d": {"x1": x1, "y1": y1, "x2": x1 + 40.0,
+                          "y2": y1 + 40.0}}]})
+        with open(os.path.join(root, "bbox_jsons", f"{int(v)}.json"),
+                  "w") as f:
+            json.dump(frames, f)
+    return vids, labels
+
+
+def test_cfg(root, name, batch=None):
+    """configs/ssv2.yaml at full size on the tree at ``root`` (its test
+    batch unless ``batch`` is given): ``name`` is kernels (bf16),
+    plain_bf16 or plain_f32."""
+    from svit_tpu_torch.config import assert_and_infer_cfg, get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(CFG)
+    cfg.SSV2.DATA_ROOT = root
+    cfg.OUTPUT_DIR = root
+    if batch is not None:
+        cfg.TEST.BATCH_SIZE = batch
+    cfg.TEST.SAVE_RESULTS_PATH = os.path.join(root, f"results_{name}.pkl")
+    cfg.TRAIN.MIXED_PRECISION = name != "plain_f32"
+    cfg.TPU.USE_PALLAS_ATTENTION = name == "kernels"
+    cfg.SVIT.CONSISTENCY_LOSS = "l1"
+    return assert_and_infer_cfg(cfg)
+
+
+RUNS = ("kernels", "plain_bf16", "plain_f32")
+
+
+def gate(what, values, result):
+    """The gate on ``values[run]`` (tensors or arrays), relative L2 against
+    plain_f32; records and raises on failure."""
+    import torch
+
+    vk, v16, v32 = (torch.as_tensor(np.asarray(values[n], np.float64))
+                    for n in RUNS)
+    err_k, err_p = rel_err(vk, v32), rel_err(v16, v32)
+    ok = bool(np.isfinite(vk.numpy()).all()) and \
+        err_k <= TOL_RATIO * err_p + TOL_ABS
+    log(f"phase 8 gate {what}: err(kernels)={err_k:.3e} err(plain bf16)="
+        f"{err_p:.3e} {'ok' if ok else 'FAIL'}")
+    result[f"gate_{what}"] = {"err_kernels": err_k, "err_plain_bf16": err_p}
+    if not ok:
+        raise SystemExit(f"test gate failed on {what}")
+
+
+def run_multiview_test(root, arch, torch):
+    """``engine.test.test(cfg)`` three times from one weight seed: the
+    video-level scores gated against plain f32, each run's top-1 and
+    top-5, the kernel run's launches against ``expected_launches`` per
+    batch, its wall time and clips/s."""
+    import pickle
+
+    from svit_tpu_torch.engine import test as test_mod
+    from svit_tpu_torch.ops import _lib
+
+    result, preds = {}, {}
+    loop = {}
+    perform = test_mod.perform_test
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = perform(*args)
+        torch.cuda.synchronize()
+        loop["s"] = time.perf_counter() - t0
+        loop["batches"] = len(args[1])
+        return out
+
+    test_mod.perform_test = timed
+    try:
+        for name in RUNS:
+            cfg = test_cfg(root, name, None if name == "kernels"
+                           else PLAIN_TEST_BATCH)
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            stats = test_mod.test(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_lib.LAUNCHES)
+            with open(cfg.TEST.SAVE_RESULTS_PATH, "rb") as f:
+                saved = pickle.load(f)
+            preds[name] = saved["video_preds"]
+            clips = len(saved["video_labels"]) * cfg.TEST.NUM_ENSEMBLE_VIEWS \
+                * cfg.TEST.NUM_SPATIAL_CROPS
+            run = {"stats": stats, "wall_s": wall, "loop_s": loop["s"],
+                   "batches": loop["batches"], "batch": cfg.TEST.BATCH_SIZE,
+                   "clips": clips, "clips_per_s": clips / loop["s"],
+                   "labels": saved["video_labels"].tolist()}
+            log(f"test [{name}]: top1 {stats['top1_acc']} top5 "
+                f"{stats['top5_acc']}, {clips} clips at batch "
+                f"{cfg.TEST.BATCH_SIZE} in {loop['batches']} batches: test "
+                f"loop {loop['s']:.2f} s ({run['clips_per_s']:.2f} clips/s), "
+                f"test() {wall:.2f} s")
+            if name == "kernels":
+                want = {k: v * loop["batches"]
+                        for k, v in expected_launches(arch).items()}
+                log(f"test launches: {launches} over {loop['batches']} "
+                    f"batch-64 forwards (expected {want})")
+                if launches != want:
+                    raise SystemExit("test path launch counts differ")
+                run["launches"] = launches
+                run["launches_per_forward"] = dict(expected_launches(arch))
+            result[name] = run
+    finally:
+        test_mod.perform_test = perform
+    if not all(result[n]["labels"] == result["kernels"]["labels"]
+               for n in RUNS):
+        raise SystemExit("test: the runs' video labels differ")
+    gate("video_preds", preds, result)
+    return result
+
+
+def topk_flips(pk, p16, p32, labels, weight):
+    """Rows (weight > 0) where the kernel run's top-1 or top-5 verdict
+    differs from plain f32's, with the f32 margin of the label over the
+    k-th other class, and the resolution it is held to: one bf16 ulp of
+    the label's score plus 3 x the plain bf16 run's largest error on the
+    row (the gate's ratio)."""
+    flips = []
+    for i in np.flatnonzero(weight > 0):
+        lab = int(labels[i])
+        err16 = float(np.abs(p16[i] - p32[i]).max())
+        for k in (1, 5):
+            def inside(p):
+                return p[lab] > np.sort(np.delete(p, lab))[-k]
+            if inside(pk[i]) == inside(p32[i]):
+                continue
+            kth = float(np.sort(np.delete(p32[i], lab))[-k])
+            margin = float(p32[i, lab]) - kth
+            res = 2.0 ** (np.floor(np.log2(abs(p32[i, lab]) + 1e-30)) - 7) \
+                + 3 * err16
+            flips.append({"row": int(i), "k": k, "margin": margin,
+                          "resolution": float(res),
+                          "ok": abs(margin) <= res})
+    return flips
+
+
+def run_eval_steps(root, torch):
+    """``make_eval_step`` with the loss (consistency l1: a 128-frame
+    frames forward) on one val batch of 8 clips from the tree, and
+    ``make_image_eval_step`` on phase 7's image batch of 8, for the three
+    runs: losses gated as phase 7 gates the step loss, top-k verdicts
+    compared, the kernel run's launches counted."""
+    from svit_tpu_torch.data.loader import construct_loader
+    from svit_tpu_torch.engine import steps
+    from svit_tpu_torch.models import build_model
+    from svit_tpu_torch.models.losses import get_loss_func
+    from svit_tpu_torch.ops import _lib
+
+    cfg = test_cfg(root, "kernels")
+    cfg.TRAIN.BATCH_SIZE = EVAL_BATCH
+    batch = next(iter(construct_loader(cfg, "val")))
+    video = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    image = train_batch(cfg, torch)[1]
+    losses, probs, result = {}, {}, {}
+    for name in RUNS:
+        c = test_cfg(root, name)
+        model, arch = build_model(c)
+        loss_obj = get_loss_func(c)
+        ev = steps.make_eval_step(model, arch.num_classes, loss_obj,
+                                  with_consistency=True)
+        iev = steps.make_image_eval_step(model, loss_obj)
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        out = ev(video)
+        torch.cuda.synchronize()
+        video_launches = dict(_lib.LAUNCHES)
+        _lib.reset_launch_counts()
+        iout = iev(image)
+        torch.cuda.synchronize()
+        image_launches = dict(_lib.LAUNCHES)
+        steps.check_nan(out)
+        steps.check_nan(iout)
+        if name == "kernels":
+            per = expected_launches(arch)
+            want_v = {k: 2 * v for k, v in per.items()}
+            log(f"eval step launches: video {video_launches} (expected "
+                f"{want_v}), image {image_launches} (expected {dict(per)})")
+            if video_launches != want_v or image_launches != dict(per):
+                raise SystemExit("eval step launch counts differ")
+            result["launches"] = {"video": video_launches,
+                                  "image": image_launches}
+        losses[name] = {**{k: float(v) for k, v in out.items()
+                           if k != "logits"},
+                        **{f"image_{k}": float(v) for k, v in iout.items()}}
+        probs[name] = out["logits"].float().cpu().numpy()
+        log(f"eval [{name}]: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in losses[name].items()))
+        del model
+        torch.cuda.empty_cache()
+    result["losses"] = losses
+    keys = [k for k in losses["plain_f32"]
+            if "loss" in k and not k.startswith("image_count")]
+    for k in keys:
+        gate(k, {n: losses[n][k] for n in RUNS}, result)
+    for k in ("top1_correct", "top5_correct", "count"):
+        log(f"eval {k}: " + ", ".join(f"{n} {losses[n][k]:g}" for n in RUNS))
+    flips = topk_flips(probs["kernels"], probs["plain_bf16"],
+                       probs["plain_f32"], batch["labels"], batch["weight"])
+    for f in flips:
+        log(f"eval top-{f['k']} verdict differs on row {f['row']}: f32 "
+            f"margin {f['margin']:.3e}, resolution {f['resolution']:.3e} "
+            f"{'ok' if f['ok'] else 'FAIL'}")
+    result["topk_flips"] = flips
+    if not all(f["ok"] for f in flips):
+        raise SystemExit("eval: a top-k verdict differs beyond bf16's "
+                         "resolution")
+    return result
+
+
+def run_wide_bias(torch):
+    """A.2 at full size: a block without k|v pooling at 16 x 224 (its key
+    grid 8 x 56 x 56, kT + kH + kW = 120) in a two-block SViT-B/16 at batch
+    1, forward and backward through K4 and K5's wide instance, the logits
+    and the global gradient vector gated against the plain twins."""
+    from svit_tpu_torch.config import get_cfg
+    from svit_tpu_torch.models import build_model
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.ops import attention as ta
+
+    cfg = get_cfg()
+    cfg.merge_from_file(CFG)
+    cfg.MVIT.DEPTH = 2
+    cfg.MVIT.POOL_Q_STRIDE = [[0, 1, 1, 1], [1, 1, 2, 2]]
+    cfg.MVIT.DIM_MUL = [[1, 2.0]]
+    cfg.MVIT.HEAD_MUL = [[1, 2.0]]
+    cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = None
+    cfg.MVIT.POOL_KV_STRIDE = [[1, 1, 2, 2]]
+    gen = torch.Generator().manual_seed(SEED)
+    models = [build_model(cfg, dtype=dt, use_kernels=k, train=True)[0]
+              for dt, k in ((torch.bfloat16, True), (torch.bfloat16, False),
+                            (torch.float32, False))]
+    for m in models[1:]:
+        m.load_state_dict(models[0].state_dict())
+    arch = models[0].arch
+    grid = tuple(arch.patch_dims)
+    R = sum(grid)
+    extras = 1 + arch.num_frames * arch.num_obj_per_frame
+    plan = ta.attention_plan(1, math.prod(grid), math.prod(grid) + extras,
+                             arch.blocks[0].dim_out, arch.blocks[0].num_heads,
+                             R)
+    x = torch.randn((1, arch.num_frames, arch.crop_size, arch.crop_size, 3),
+                    generator=gen).cuda()
+    cot = torch.randn((1, cfg.MODEL.NUM_CLASSES), generator=gen).cuda()
+    values, grads, launches = {}, {}, {}
+    for name, m in zip(RUNS, models):
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        logits, _ = m(x, train=False)
+        (logits.float() * cot).sum().backward()
+        torch.cuda.synchronize()
+        launches[name] = dict(_lib.LAUNCHES)
+        values[name] = logits.detach().float().flatten().cpu()
+        grads[name] = torch.cat([p.grad.float().flatten() for p in
+                                 m.parameters() if p.grad is not None]).cpu()
+    del models
+    torch.cuda.empty_cache()
+    log(f"wide bias: first block's key grid {grid} (R = {R}, the plan's rk "
+        f"{plan.rk}); kernel launches {launches['kernels']}")
+    if plan.rk != ta.RK_WIDE or R <= 48:
+        raise SystemExit(f"wide bias: R = {R} takes rk {plan.rk}, not the "
+                         "wide instance")
+    if not (launches["kernels"].get("pooled_attention", 0) >= 4 and
+            launches["kernels"].get("pooled_attention_bwd", 0) >= 2):
+        raise SystemExit("wide bias: K4 or K5 did not launch")
+    result = {"R": R, "rk": plan.rk, "launches": launches["kernels"]}
+    gate("wide_bias_logits", values, result)
+    gate("wide_bias_grads", grads, result)
+    return result
+
+
+def run_test_phase(torch):
+    """Phase 8.  Returns its results and the launches of one batch-64
+    forward."""
+    import tempfile
+
+    from svit_tpu_torch.models import build_model
+
+    result = {}
+    with tempfile.TemporaryDirectory() as root:
+        cfg = test_cfg(root, "kernels")
+        vids, labels = make_ssv2_tree(root, cfg.MODEL.NUM_CLASSES)
+        from svit_tpu_torch.native import jpeg
+
+        result["decoder"] = "libjpeg shim" if jpeg.available() else "PIL"
+        log(f"test tree: {len(vids)} videos x {TEST_FRAMES} JPEG frames at "
+            f"{SSV2_FRAME[0]} x {SSV2_FRAME[1]}, labels {labels.tolist()}; "
+            f"decoded by the {result['decoder']}")
+        model, arch = build_model(cfg)
+        fwd = time_forward(model, arch, torch, cfg.TEST.BATCH_SIZE)
+        result["forward"] = fwd
+        result["profile"] = profile_forward(model, arch, torch,
+                                            cfg.TEST.BATCH_SIZE, fwd["ms"])
+        del model
+        torch.cuda.empty_cache()
+        result["multiview"] = run_multiview_test(root, arch, torch)
+        result["eval"] = run_eval_steps(root, torch)
+    result["wide_bias"] = run_wide_bias(torch)
+    return result, result["multiview"]["kernels"]["launches_per_forward"]
+
+
 def main():
     import torch
 
@@ -1229,6 +1674,8 @@ def main():
     cfg.SVIT.CONSISTENCY_LOSS = "l1"
     train, train_table, train_uses, train_details = run_train_phase(cfg, torch)
     k1 = k1_uses(uses, train_uses, ffn)
+    torch.cuda.empty_cache()
+    test, test_launches = run_test_phase(torch)
 
     kernels = []
     for names, rows, launches in (
@@ -1246,6 +1693,7 @@ def main():
                 else "operations",
                 "library_ms": row["library_ms"],
                 "train_launches": train["launches"].get(counter, 0),
+                "test_launches": test_launches.get(counter, 0),
             })
             if name == "ln_linear":
                 kernels[-1]["uses"] = k1
@@ -1261,7 +1709,8 @@ def main():
                        model=model_result, forward=fwd, profile=prof,
                        serving=serving, uses=uses, calls=details, ffn=ffn,
                        train=train, train_uses=train_uses,
-                       train_calls=train_details, kernels=kernels), f,
+                       train_calls=train_details, test=test,
+                       kernels=kernels), f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -76,6 +76,11 @@ namespace {
 
 constexpr int SMEM_BLOCK_MAX = 232448;  // dynamic shared memory of a block
 constexpr int BK = 64;  // keys (or queries) per tile, rows per warpgroup
+// the bias product's k-steps for a key grid with 48 < kT + kH + kW <= 128
+// (a block without k|v pooling: 8 + 56 + 56 at 224 px); its one-hot and
+// bias tiles are 16 KB each and K5's query side keeps 64 more f32 dbias
+// accumulators a thread
+constexpr int RK_WIDE = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -794,8 +799,9 @@ int fwd_rk(const FwdParams& p, int rk, const CUtensorMap& tq,
   switch (rk) {
     case 0: return launch_fwd<HD, 0>(p, tq, tkv, stream);
     case 3: return launch_fwd<HD, 3>(p, tq, tkv, stream);
+    case RK_WIDE: return launch_fwd<HD, RK_WIDE>(p, tq, tkv, stream);
   }
-  if constexpr (HD == 96) {  // other head widths pad R to 48
+  if constexpr (HD == 96) {  // other head widths pad R to 48 (or 128)
     switch (rk) {
       case 1: return launch_fwd<HD, 1>(p, tq, tkv, stream);
       case 2: return launch_fwd<HD, 2>(p, tq, tkv, stream);
@@ -836,6 +842,7 @@ int bwd_rk(const BwdParams& p, int rk, const CUtensorMap (&maps)[4],
   switch (rk) {
     case 0: return launch_bwd<HD, 0>(p, maps, stream);
     case 3: return launch_bwd<HD, 3>(p, maps, stream);
+    case RK_WIDE: return launch_bwd<HD, RK_WIDE>(p, maps, stream);
   }
   if constexpr (HD == 96) {
     switch (rk) {

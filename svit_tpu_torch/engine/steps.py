@@ -1,4 +1,4 @@
-"""The fused train step (counterpart of ``svit_tpu/engine/steps.py``).
+"""The train and eval steps (counterpart of ``svit_tpu/engine/steps.py``).
 
 One call of the step does what the JAX package's jitted step does:
 
@@ -16,15 +16,24 @@ One call of the step does what the JAX package's jitted step does:
 Random numbers (stochastic depth, dropout, head dropout) come from the
 ``torch.Generator`` passed in, drawn in the order consistency, video, image.
 They cannot match JAX's streams; the tests feed both sides rates of 0.
+
+The eval steps (``make_eval_step``, ``make_image_eval_step``,
+``make_test_step``) run the model in eval mode under
+``torch.inference_mode()`` and return detached tensors on the model's
+device; the batch lies there too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
+from svit_tpu_torch.models.losses import consistency_loss
 from svit_tpu_torch.models.optimizer import Transform
 
 
@@ -94,3 +103,155 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+@contextlib.contextmanager
+def _evaluating(model):
+    """Eval mode and ``torch.inference_mode()`` for one step; the model's
+    mode is restored after."""
+    was = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            yield
+    finally:
+        model.train(was)
+
+
+def _nll(raw, labels, n, w):
+    """Weighted mean NLL of ``labels`` under ``log_softmax(raw)`` in f32 (the
+    stable form: ``log(softmax(x))`` gives inf for a confident wrong bf16
+    prediction)."""
+    safe = labels.clamp(0, max(n - 1, 0)).long()
+    logp = F.log_softmax(raw.float(), dim=-1)
+    nll = -logp.gather(-1, safe[:, None])[:, 0]
+    return (nll * w).sum() / w.sum().clamp(min=1.0)
+
+
+def _weights(batch, rows, device):
+    w = batch.get("weight")
+    if w is None:
+        return torch.ones(rows, dtype=torch.float32, device=device)
+    return w.float()
+
+
+def make_eval_step(model, num_classes, loss_obj=None,
+                   with_consistency: bool = False):
+    """Eval: logits (softmax'd, the eval head's activation) and the weighted
+    top-1 and top-5 counts.
+
+    ``num_classes`` is an int, or the arch's multitask tuple ``(("verb",
+    nv), ("noun", nn), ...)``: then ``batch["labels"]`` is a dict of
+    per-task labels, and the step reports each task's weighted counts
+    (``{task}_top{1,5}_correct``) and the JOINT counts in the primary
+    slots (a sample is jointly correct at k iff every task is correct
+    within its own top-k: the reference's EPIC-Kitchens "action" protocol).
+
+    ``loss_ce`` is the weighted NLL of the raw logits.  With ``loss_obj``
+    the step also reports the val loss dict the reference logs: with
+    ``with_consistency`` the consistency loss against a frames forward of
+    the clip reshaped to ``B * T`` single frames, and the lambda-weighted
+    ``loss``.
+
+    ``eval_step(batch)``: ``batch`` holds ``clips [B, T, H, W, 3]``,
+    ``labels`` and optionally ``weight [B]``, on the model's device.
+    """
+    multitask = not isinstance(num_classes, int)
+
+    def eval_step(batch) -> Dict[str, torch.Tensor]:
+        with _evaluating(model):
+            clips = batch["clips"]
+            logits, extra = model(clips, train=False)
+            labels = batch["labels"]
+            first = logits[num_classes[0][0]] if multitask else logits
+            w = _weights(batch, first.shape[0], first.device)
+            raw = extra.get("raw_logits", logits)
+            if multitask:
+                joint1 = joint5 = None
+                per_task = {}
+                val_loss = 0.0
+                for name, n in num_classes:
+                    top = torch.topk(logits[name], min(5, n), dim=-1).indices
+                    corr = top == labels[name][:, None]
+                    cum = torch.cumsum(corr, dim=1) > 0   # within top-k
+                    c1b, c5b = cum[:, 0], cum[:, -1]
+                    per_task[name] = ((c1b * w).sum(), (c5b * w).sum())
+                    joint1 = c1b if joint1 is None else joint1 & c1b
+                    joint5 = c5b if joint5 is None else joint5 & c5b
+                    val_loss = val_loss + _nll(raw[name], labels[name], n, w)
+                out = {"logits": logits,
+                       "top1_correct": (joint1 * w).sum(),
+                       "top5_correct": (joint5 * w).sum(),
+                       "count": w.sum(), "loss_ce": val_loss}
+                for name, (c1, c5) in per_task.items():
+                    out[f"{name}_top1_correct"] = c1
+                    out[f"{name}_top5_correct"] = c5
+                if loss_obj is not None:
+                    out["loss"] = loss_obj.weighted_sum({"loss_ce": val_loss})
+                return out
+
+            top = torch.topk(logits, min(5, num_classes), dim=-1).indices
+            correct = top == labels[:, None]
+            out = {"logits": logits,
+                   "top1_correct": (correct[:, :min(1, num_classes)]
+                                    .any(dim=1) * w).sum(),
+                   "top5_correct": (correct.any(dim=1) * w).sum(),
+                   "count": w.sum(),
+                   "loss_ce": _nll(raw, labels, num_classes, w)}
+            if loss_obj is not None:
+                vdict = {"loss_ce": out["loss_ce"]}
+                if with_consistency:
+                    B, T = clips.shape[:2]
+                    frames = clips.reshape(B * T, 1, *clips.shape[2:])
+                    _, fe = model(frames, train=False)
+                    desc = fe["obj_desc"]
+                    key = f"video_image_desc_{loss_obj.consistency_kind}_loss"
+                    vdict[key] = consistency_loss(
+                        extra["obj_desc"],
+                        desc.reshape(B, T, -1, desc.shape[-1]),
+                        loss_obj.consistency_kind)
+                vdict["loss"] = loss_obj.weighted_sum(vdict)
+                out.update(vdict)
+            return out
+
+    return eval_step
+
+
+def make_image_eval_step(model, loss_obj):
+    """Image-branch val: the HAOG losses on an image batch (``frames [B, 1,
+    H, W, 3]``, ``haog_bboxes``, ``contact_state``, optionally
+    ``weight``).  The reference runs no image val loop; the HAOG heads are
+    trained parameters, and this catches regressions of the image branch
+    that the video CE cannot see."""
+
+    def image_eval_step(batch) -> Dict[str, torch.Tensor]:
+        with _evaluating(model):
+            _, iextra = model(batch["frames"], train=False)
+            w = batch.get("weight")
+            idict = loss_obj.image_losses(
+                iextra, {"haog_bboxes": batch["haog_bboxes"],
+                         "contact_state": batch["contact_state"]}, w)
+            idict["loss"] = loss_obj.weighted_sum(idict)
+            idict["count"] = _weights(batch, batch["frames"].shape[0],
+                                      batch["frames"].device).sum()
+            return idict
+
+    return image_eval_step
+
+
+def make_test_step(model):
+    """Multi-view test: per-clip softmax scores for host-side ensembling."""
+
+    def test_step(batch) -> torch.Tensor:
+        with _evaluating(model):
+            logits, _ = model(batch["clips"], train=False)
+            return logits
+
+    return test_step
+
+
+def check_nan(metrics: Dict[str, Any], extra_msg: str = ""):
+    """Host-side NaN guard (reference ``misc.check_nan_losses``)."""
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise RuntimeError(f"ERROR: Got NaN losses: {metrics} {extra_msg}")

@@ -33,3 +33,4 @@ class Registry:
 
 
 MODEL_REGISTRY = Registry("MODEL")
+DATASET_REGISTRY = Registry("DATASET")

@@ -41,12 +41,67 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from svit_tpu_torch.ops import _lib, ln_linear
 from svit_tpu_torch.ops import rel_pos as rp
 from svit_tpu_torch.ops.vjp import needs_grad
 
 Triple = Tuple[int, int, int]
+
+
+# the builder's profiler ranges (forward, and its products' backward)
+BIAS_TAG = "svit::rel_pos_bias"
+BIAS_BWD_TAG = "svit::rel_pos_bias_bwd"
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` batched, with the operands in their (IO) dtype and the sum
+    in f32, returned in f32: on the card cuBLAS's batched GEMM with an f32
+    output (bf16 on the tensor cores), on the CPU the f32 product of the
+    same values (``ln_linear._mm``'s rule)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _BiasTermFn(torch.autograd.Function):
+    """One term of the bias: queries ``a [P, M, hd]`` grouped by the grid
+    position ``P`` that picks the table row, times ``table [P, k, hd]``:
+    ``round(a @ table^T)`` to the IO dtype from an f32 sum.  The gradient
+    takes the same operand types, as JAX transposes a dot with
+    ``preferred_element_type=f32``: each operand's cotangent is an f32 sum
+    of IO-dtype products, rounded to that operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, table):
+        ctx.save_for_backward(a, table)
+        return _bmm(a, table.transpose(1, 2)).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, table = ctx.saved_tensors
+        with record_function(BIAS_BWD_TAG):
+            g = g.to(a.dtype)
+            da = dt = None
+            if ctx.needs_input_grad[0]:
+                da = _bmm(g, table).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                dt = _bmm(g.transpose(1, 2), a).to(table.dtype)
+        return da, dt
+
+
+def _bias_term(rq: torch.Tensor, table: torch.Tensor, axis: int):
+    """The term of grid axis ``axis`` (0 t, 1 h, 2 w): ``rq [B, Tq, Hq, Wq,
+    heads, hd]`` against ``table [q_n, k, hd]`` of that axis; returns
+    ``[B, heads, Tq * Hq * Wq, k]``."""
+    B, Tq, Hq, Wq, heads, hd = rq.shape
+    lead = [1 + axis] + [d for d in range(5) if d != 1 + axis]
+    a = rq.permute(*lead, 5).reshape(rq.shape[1 + axis], -1, hd)
+    out = _BiasTermFn.apply(a, table)
+    out = out.view(*[rq.shape[d] for d in lead], table.shape[1])
+    order = [lead.index(d) for d in (0, 4, 1, 2, 3)]
+    return out.permute(*order, 5).reshape(B, heads, Tq * Hq * Wq, -1)
 
 
 def build_bias_inputs_grid(
@@ -61,36 +116,29 @@ def build_bias_inputs_grid(
 ) -> torch.Tensor:
     """bias_src ``[B, heads, q_l, kT + kH + kW]`` in ``q_grid``'s dtype.
 
-    Each term is an einsum of the queries against a rel-pos table with f32
-    accumulation, rounded to the IO dtype (missing tables give zeros)."""
+    Each term is a product of the queries and a rel-pos table in the IO
+    dtype with f32 accumulation, rounded to the IO dtype once (JAX
+    ``build_bias_inputs_grid``'s einsums with ``preferred_element_type``);
+    a missing table gives zeros."""
     B, Tq, Hq, Wq, C = q_grid.shape
-    hd = C // num_heads
     k_t, k_h, k_w = k_shape
     dt = q_grid.dtype
-    rq = q_grid.reshape(B, Tq, Hq, Wq, num_heads, hd).float()
-    zeros = q_grid.new_zeros
-
-    def term(eq, table):
-        return torch.einsum(eq, rq, table.to(dt).float()).to(dt)
-
-    terms = []
-    if rel_pos_t is not None:
-        terms.append(term("btpwhc,tuc->bhtpwu",
-                          rp.rel_table(rel_pos_t, q_shape[0], k_t)))
-    else:
-        terms.append(zeros((B, num_heads, Tq, Hq, Wq, k_t)))
-    if rel_pos_h is not None:
-        terms.append(term("btpwhc,pkc->bhtpwk",
-                          rp.rel_table(rel_pos_h, q_shape[1], k_h)))
-        terms.append(term("btpwhc,wkc->bhtpwk",
-                          rp.rel_table(rel_pos_w, q_shape[2], k_w)))
-    else:
-        terms.append(zeros((B, num_heads, Tq, Hq, Wq, k_h)))
-        terms.append(zeros((B, num_heads, Tq, Hq, Wq, k_w)))
     q_l = Tq * Hq * Wq
-    return torch.cat(
-        [t.reshape(B, num_heads, q_l, t.shape[-1]) for t in terms], dim=-1
-    ).contiguous()
+    with record_function(BIAS_TAG):
+        rq = q_grid.reshape(B, Tq, Hq, Wq, num_heads, C // num_heads)
+        zeros = q_grid.new_zeros
+
+        def term(rel_pos, axis, k):
+            if rel_pos is None:
+                return zeros((B, num_heads, q_l, k))
+            table = rp.rel_table(rel_pos, q_shape[axis], k).to(dt)
+            return _bias_term(rq, table, axis)
+
+        with_hw = rel_pos_h is not None
+        terms = [term(rel_pos_t, 0, k_t),
+                 term(rel_pos_h if with_hw else None, 1, k_h),
+                 term(rel_pos_w if with_hw else None, 2, k_w)]
+        return torch.cat(terms, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +183,7 @@ SMEM_BLOCK = 232448        # dynamic shared memory one block may use
 SMEM_SM = 233472           # shared memory of one SM
 SMEM_RESERVED = 1024       # what the system keeps per block
 STAGES_MAX = 4
+RK_WIDE = 8        # the bias product's k-steps for 48 < R <= 128
 PARTIAL_BYTES_MAX = 1 << 28   # f32 dK | dV partials of K5's query splits
 # blocks an SM the plan keeps (160 threads a block; ptxas at head_dim 96:
 # the forward takes about 130 registers a thread, which would hold three
@@ -206,7 +255,9 @@ def attention_plan(B: int, Nq: int, Nk: int, C: int, heads: int, R: int, *,
     A block is one consumer warpgroup of 64 rows (queries; or keys on K5's
     key side) and the producer warp; keys come in tiles of 64.  The bias
     product takes ``rk = ceil(R / 16)`` k-steps at head_dim 96 (the
-    compiled instances); other head widths pad R to 48 (``rk`` 3).  The
+    compiled instances); other head widths pad R to 48 (``rk`` 3).  A key
+    grid past 48 (a block without k|v pooling) pads R to 128 (``RK_WIDE``)
+    at every head width.  The
     ring takes the most stages (up to ``STAGES_MAX``, and no more than it
     carries) that keep the blocks an SM that the registers allow.  K5's key
     side splits the query tiles until its blocks fill the card twice,
@@ -215,9 +266,13 @@ def attention_plan(B: int, Nq: int, Nk: int, C: int, heads: int, R: int, *,
         raise ValueError(f"pooled attention takes head_dim 64, 96 or 128 "
                          f"(C={C}, heads={heads})")
     hd = C // heads
+    if R > 16 * RK_WIDE:
+        raise ValueError(f"the rel-pos bias takes kT + kH + kW <= "
+                         f"{16 * RK_WIDE} (R={R})")
     if R > 48:
-        raise ValueError(f"the rel-pos bias takes kT + kH + kW <= 48 (R={R})")
-    rk = 0 if R == 0 else (_cdiv(R, 16) if hd == 96 else 3)
+        rk = RK_WIDE
+    else:
+        rk = 0 if R == 0 else (_cdiv(R, 16) if hd == 96 else 3)
     n_kt, q_tiles = _cdiv(Nk, BQ), _cdiv(Nq, BQ)
     kind = "bwd_q" if backward else "fwd"
     stages = _stages(kind, hd, rk, 2 * n_kt if backward else n_kt)

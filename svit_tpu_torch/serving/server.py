@@ -16,49 +16,26 @@ from __future__ import annotations
 import base64
 import io
 import json
-import os
 import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 import torch
 
 from svit_tpu_torch.data import transform
 from svit_tpu_torch.models import build_model
-from svit_tpu_torch.utils import converter, logging
+from svit_tpu_torch.utils import checkpoint as cu
+from svit_tpu_torch.utils import logging
 
 logger = logging.get_logger(__name__)
 
-_TORCH_SUFFIXES = (".pyth", ".pt", ".pth")
-
-
-def serving_checkpoint_path(cfg) -> Optional[str]:
-    """Priority: TEST path > last checkpoint in OUTPUT_DIR > TRAIN path."""
-    if cfg.TEST.CHECKPOINT_FILE_PATH:
-        return cfg.TEST.CHECKPOINT_FILE_PATH
-    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
-    if os.path.isdir(ckpt_dir):
-        names = sorted(n for n in os.listdir(ckpt_dir)
-                       if n.startswith("checkpoint_epoch_"))
-        if names:
-            return os.path.join(ckpt_dir, names[-1])
-    return cfg.TRAIN.CHECKPOINT_FILE_PATH or None
-
-
 def load_checkpoint(model: torch.nn.Module, path: str, cfg) -> None:
-    """Load a PyTorch checkpoint file into ``model`` (strict names)."""
-    if not (os.path.isfile(path) and path.endswith(_TORCH_SUFFIXES)):
-        raise ValueError(
-            f"{path}: the port loads PyTorch checkpoint files "
-            f"({', '.join(_TORCH_SUFFIXES)}); Orbax checkpoint directories "
-            "are not supported yet")
-    state = converter.load_torch_state(
-        path, tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN),
-        tuple(tuple(p) for p in cfg.TRAIN.CHECKPOINT_REPLACE_NAME_PATTERN))
-    model.load_state_dict(state, strict=True)
+    """Load a PyTorch checkpoint file into ``model`` (strict names); an
+    Orbax directory raises (``utils/checkpoint.py:load_params_any``)."""
+    cu.load_params_any(model, path, cfg)
 
 
 class BatchedPredictor:
@@ -71,7 +48,7 @@ class BatchedPredictor:
         self.window_s = window_ms / 1000.0
         self.model, self.arch = build_model(cfg, device=device)
         self.device = next(self.model.parameters()).device
-        ckpt = serving_checkpoint_path(cfg)
+        ckpt = cu.load_test_checkpoint_path(cfg)
         if ckpt:
             load_checkpoint(self.model, ckpt, cfg)
         else:

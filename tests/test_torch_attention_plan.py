@@ -39,11 +39,15 @@ def attention_calls(arch, B, frames):
     size = (t_lat, *arch.patch_dims[1:])
     extras = int(arch.cls_embed_on) + frames * arch.num_obj_per_frame
     calls = []
+    def pooled(kernel, stride):   # a block without a pool keeps the grid
+        if not kernel:
+            return size
+        return tuple(out_size(d, k, st)
+                     for d, k, st in zip(size, kernel, stride))
+
     for s in arch.blocks:
-        q_shape = tuple(out_size(d, k, st) for d, k, st in
-                        zip(size, s.kernel_q, s.stride_q))
-        k_shape = tuple(out_size(d, k, st) for d, k, st in
-                        zip(size, s.kernel_kv, s.stride_kv))
+        q_shape = pooled(s.kernel_q, s.stride_q)
+        k_shape = pooled(s.kernel_kv, s.stride_kv)
         Nk = math.prod(k_shape) + extras
         C = s.dim_out
         calls += [("grid", B, math.prod(q_shape), Nk, C, s.num_heads,
@@ -112,9 +116,48 @@ def test_plan_refuses_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="head_dim"):
         ta.attention_plan(8, 64, 64, 80 * 2, 2, 15)
     with pytest.raises(ValueError, match="kT"):
-        ta.attention_plan(8, 64, 64, 96, 1, 49)
+        ta.attention_plan(8, 64, 64, 96, 1, 16 * ta.RK_WIDE + 1)
     # other head widths pad R to 48: one bias instance each
     assert ta.attention_plan(8, 64, 64, 128, 1, 15).rk == 3
+    # past 48 every head width pads R to 128
+    for C in (64, 96, 128):
+        assert ta.attention_plan(8, 64, 64, C, 1, 49).rk == ta.RK_WIDE
+
+
+def _no_kv_pool_arch(frames):
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "ssv2.yaml"))
+    cfg.DATA.NUM_FRAMES = frames
+    cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = None
+    cfg.MVIT.POOL_KV_STRIDE = [[1, 1, 2, 2]]
+    return SViTArch.from_cfg(cfg)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("frames,R", [(4, 114), (16, 120)])
+def test_plan_takes_a_key_grid_past_48(frames, R, backward):
+    """A block without k|v pooling at 224 px: the first block's key grid
+    is (frames / 2) x 56 x 56, so R = 114 at 4 frames and 120 at 16.  The
+    plan takes the wide instance (R padded to 128) within the shared memory
+    of a block and of an SM, at batch 1 and 8; the main path's grids keep
+    their own instances (``test_plan_fits_and_covers``)."""
+    arch = _no_kv_pool_arch(frames)
+    for B in (1, 8):
+        calls = attention_calls(arch, B, frames)
+        assert max(c[6] for c in calls) == R
+        for use, B_, Nq, Nk, C, heads, R_ in calls:
+            p = ta.attention_plan(B_, Nq, Nk, C, heads, R_,
+                                  backward=backward, sms=SMS)
+            what = f"B={B} {use} Nq={Nq} Nk={Nk} C={C} R={R_}: {p}"
+            hd = C // heads
+            assert (p.rk == ta.RK_WIDE) == (R_ > 48), what
+            assert 16 * p.rk >= R_, what
+            kind = "bwd_q" if backward else "fwd"
+            assert p.smem == ta.attention_smem(kind, hd, p.rk, p.stages), what
+            assert p.blocks_per_sm * (p.smem + ta.SMEM_RESERVED) \
+                <= ta.SMEM_SM, what
+            if backward:
+                assert p.kv_smem + ta.SMEM_RESERVED <= ta.SMEM_SM, what
 
 
 @pytest.mark.parametrize("k_shape", [(8, 7, 7), (8, 14, 14), (1, 7, 7),
@@ -138,9 +181,9 @@ def test_onehot_matches_jax_scatter_matrix(k_shape, extras):
 
 
 @pytest.mark.parametrize("k_shape", [(1, 7, 7), (8, 7, 7), (1, 14, 14),
-                                     (8, 14, 14)])
+                                     (8, 14, 14), (2, 56, 56)])
 def test_bias_product_and_hi_lo_gradient(k_shape):
-    """R = 15, 22, 29 and 36.  Logits: the kernels add bias_src @ M^T (the
+    """R = 15, 22, 29, 36 and 114 (the wide instance, R padded to 128).  Logits: the kernels add bias_src @ M^T (the
     one-hot factor exact, f32 accumulation) where the twin gathers three
     terms; only the order of three f32 additions differs, so 1e-6
     relative.  dbias: the kernels take round(dS) @ M and round(dS -
@@ -149,7 +192,7 @@ def test_bias_product_and_hi_lo_gradient(k_shape):
     within 1e-4 of the twin's f32 scatter."""
     R = sum(k_shape)
     n_k = math.prod(k_shape) + 65
-    rk = -(-R // 16)
+    rk = ta.attention_plan(1, 40, n_k, 96, 1, R).rk
     rs = np.random.RandomState(R)
     bias = torch.tensor(rs.randn(2, 3, 40, R), dtype=torch.float32).to(
         torch.bfloat16)

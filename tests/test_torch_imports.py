@@ -44,6 +44,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import attention_probe
+import bias_probe
 import chip_smoke
 import k1_probe
 import pool_probe
@@ -57,9 +58,9 @@ def test_port_imports_with_jax_and_svit_tpu_blocked():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    # every subpackage and module of the port: config (4), data (2),
-    # engine (2), models (9), ops (9), serving (3), utils (4)
-    assert int(r.stdout.strip().splitlines()[-1]) >= 33
+    # every subpackage and module of the port: config (4), data (6),
+    # engine (6), models (9), native (2), ops (9), serving (3), utils (5)
+    assert int(r.stdout.strip().splitlines()[-1]) >= 44
 
 
 _IMPORT_ONE = _BLOCKER + r'''
@@ -73,7 +74,12 @@ assert not leaked, leaked
 @pytest.mark.parametrize("module", [
     "svit_tpu_torch.engine.steps", "svit_tpu_torch.models.losses",
     "svit_tpu_torch.models.optimizer", "svit_tpu_torch.ops.box_ops",
-    "svit_tpu_torch.utils.lr_policy"])
+    "svit_tpu_torch.utils.lr_policy", "svit_tpu_torch.engine.metrics",
+    "svit_tpu_torch.engine.meters", "svit_tpu_torch.engine.ava_eval",
+    "svit_tpu_torch.engine.test", "svit_tpu_torch.data.utils",
+    "svit_tpu_torch.data.transform", "svit_tpu_torch.data.build",
+    "svit_tpu_torch.data.ssv2", "svit_tpu_torch.data.loader",
+    "svit_tpu_torch.native.jpeg", "svit_tpu_torch.utils.checkpoint"])
 def test_train_modules_import_with_jax_and_svit_tpu_blocked(module):
     r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
@@ -103,6 +109,14 @@ def test_chip_smoke_exits_nonzero_without_cuda():
 @pytest.mark.parametrize("mode", ["--sweep", "--trace"])
 def test_k1_probe_exits_nonzero_without_cuda(mode):
     r = subprocess.run([sys.executable, "k1_probe.py", mode], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode == 2, r.stdout + r.stderr
+    assert "no CUDA device" in r.stderr
+
+
+def test_bias_probe_exits_nonzero_without_cuda():
+    r = subprocess.run([sys.executable, "bias_probe.py"], cwd=REPO,
                        capture_output=True, text=True, timeout=300,
                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode == 2, r.stdout + r.stderr

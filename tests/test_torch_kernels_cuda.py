@@ -619,8 +619,8 @@ def test_model_options_through_the_kernels(gen, option):
     """Each model option at 56 px, 4 frames, 2 blocks of head_dim 96: the
     kernel model in bf16 against the plain model in f32 under the gate,
     through the kernels.  Without k|v pooling at 224 px the first block's
-    key grid (2 x 56 x 56) takes K4 past its rel-pos limit (kT + kH + kW
-    <= 48): that raises."""
+    key grid is 2 x 56 x 56 (kT + kH + kW = 114): K4 and K5 take it through
+    their wide bias instance, forward and backward under the gate."""
     from svit_tpu_torch.models import build_model
 
     cfg = _option_cfg(option)
@@ -646,10 +646,62 @@ def test_model_options_through_the_kernels(gen, option):
         assert torch.isfinite(a).all()
         assert _rel(a.float(), c.float()) <= 3 * _rel(b.float(), c.float()) + 2e-3
     if option == "no_kv_pool":
-        big, _ = build_model(_option_cfg(option, 224), device="cuda")
-        x = torch.randn((1, 4, 224, 224, 3), device="cuda", generator=gen)
-        with torch.inference_mode(), pytest.raises(ValueError, match="R="):
-            big(x)
+        _wide_bias_model_gate(gen, _option_cfg(option, 224))
+
+
+def _wide_bias_model_gate(gen, cfg):
+    """One forward and backward of the kernel model in bf16, the plain one
+    in bf16 and in f32 (same weights, same input and output cotangent):
+    the logits and the global gradient vector under the gate, with K4 and
+    K5 launched at R = 114."""
+    from svit_tpu_torch.models import build_model
+
+    models = [build_model(cfg, dtype=dt, use_kernels=k, device="cuda",
+                          train=True)[0]
+              for dt, k in ((BF, True), (BF, False), (torch.float32, False))]
+    for m in models[1:]:
+        m.load_state_dict(models[0].state_dict())
+    x = torch.randn((1, 4, 224, 224, 3), device="cuda", generator=gen)
+    cot = torch.randn((1, cfg.MODEL.NUM_CLASSES), device="cuda",
+                      generator=gen)
+    # the first block: 6272 grid queries against 6272 + 17 keys (cls and
+    # four object tokens a frame)
+    assert ta.attention_plan(1, 6272, 6289, 96, 1, 114).rk == ta.RK_WIDE
+    outs = []
+    for i, m in enumerate(models):
+        before = _lib.LAUNCHES.copy()
+        logits, _ = m(x, train=False)
+        (logits.float() * cot).sum().backward()
+        torch.cuda.synchronize()
+        launched = _lib.LAUNCHES - before
+        if i == 0:
+            assert launched["pooled_attention"] >= 4, launched
+            assert launched["pooled_attention_bwd"] >= 2, launched
+        grads = torch.cat([p.grad.float().flatten() for p in m.parameters()
+                           if p.grad is not None])
+        outs.append((logits.detach().float().flatten(), grads))
+    (lk, gk), (l16, g16), (l32, g32) = outs
+    for a, b, c in ((lk, l16, l32), (gk, g16, g32)):
+        assert torch.isfinite(a).all()
+        assert _rel(a, c) <= 3 * _rel(b, c) + 2e-3
+
+
+@pytest.mark.parametrize("k_shape,heads,hd", [((2, 56, 56), 1, 96),
+                                              ((8, 56, 56), 1, 96),
+                                              ((2, 56, 56), 2, 64),
+                                              ((2, 56, 56), 1, 128)])
+def test_pooled_attention_wide_bias(gen, k_shape, heads, hd):
+    """K4 and K5 at a key grid past 48 (R = 114 and 120, the first block
+    without k|v pooling at 4 and 16 frames), 700 of its queries, with 9
+    extras keys."""
+    q, kv, b = _attention_inputs(gen, 1, 700, k_shape, 9, heads, hd, True)
+    assert ta.attention_plan(1, 700, kv.shape[1], heads * hd, heads,
+                             sum(k_shape)).rk == ta.RK_WIDE
+    _gate(ta.pooled_attention, ta.pooled_attention_reference, q, kv, b,
+          k_shape, hd ** -0.5, heads, True)
+    do = _randn(gen, *q.shape)
+    _gate(ta.pooled_attention_bwd, ta.pooled_attention_bwd_reference, q, kv,
+          b, do, k_shape, hd ** -0.5, heads, True)
 
 
 def test_wrapper_rejects_f32_on_the_card(gen):
