@@ -61,13 +61,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (a row may differ only within bf16's resolution), the launches
    counted; and a two-block model whose first block has no k|v pool at 16
    x 224 (key grid 8 x 56 x 56, kT + kH + kW = 120) forward and backward
-   through K4 and K5's wide instance, gated.
+   through K4 and K5's wide instance, gated, and the same at 16 x 256
+   (kT + kH + kW = 136, their chunked instance), gated and timed;
+9. trainer: ``engine.train.train(cfg)`` on a synthetic tree of 56 videos
+   of 24 frames with hand and object boxes, ``configs/ssv2.yaml`` at full
+   size with its augmentation, the image rank on ``ssv2_frames``, video
+   batch 7 and image batch 8, two epochs of 8 steps with a checkpoint and
+   an eval epoch after each.  Every step's metrics finite and its launches
+   equal to the step's own; the first step gated against
+   ``make_train_step`` as phase 7 gates (and run twice, to show how far the
+   step differs from itself); no f32 GEMM row of a product of f32
+   operands in a profiled step; the per-step wall (median and quartiles of
+   the steady steps), data wait, device time, idle share and peak memory.
+   Then a rerun to 3 epochs resumes at epoch 2 with the state equal bit for
+   bit, and a SIGTERM after step 2 saves a mid-epoch checkpoint from which
+   the rerun starts at iter 2.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
 and modes, and of K2's and K4's train-step rows, the train step;
 ``train_launches`` counts the train step for all, ``test_launches`` one
-batch-64 test forward; K1, K4 and K5 carry their uses), the card's name
+batch-64 test forward, ``trainer_launches`` phase 9's first run; K1, K4
+and K5 carry their uses), the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
 ``chiprun_out/chip_smoke_detail.json``.  Without a card it exits 2.
@@ -79,6 +94,7 @@ import io
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -861,8 +877,11 @@ def bias_rows(prof, torch):
 def gemm_owners(prof, torch):
     """The ops that launched the profile's f32 GEMM kernels: (the launching
     op, its nearest autograd node or outermost op, its input shapes) ->
-    [launches, device ms], busiest first."""
-    acc = collections.defaultdict(lambda: [0, 0.0])
+    [launches, device ms, whether the op is a product of f32 operands],
+    busiest first.  ``_mm``'s products take bf16 operands and an f32 output
+    (``out_dtype``, a third input); cuBLAS may still run a tiny one (N = 5,
+    the contact head) on a kernel named as f32."""
+    acc = collections.defaultdict(lambda: [0, 0.0, False])
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
@@ -879,7 +898,11 @@ def gemm_owners(prof, torch):
             key = f"{e.name} < {top.name} {e.input_shapes}"
             acc[key][0] += 1
             acc[key][1] += g["ms"]
-    return sorted(([k, c, ms] for k, (c, ms) in acc.items()),
+            dtypes = getattr(e, "input_dtypes", None)
+            acc[key][2] = e.name in MATMUL_OPS and (
+                all(d == "float" for d in dtypes[:2]) if dtypes
+                else len(e.input_shapes) == 2)
+    return sorted(([k, c, ms, f32] for k, (c, ms, f32) in acc.items()),
                   key=lambda r: -r[2])
 
 
@@ -939,8 +962,12 @@ def profile_step(step, state, video, image, torch, step_ms):
         f"{ {k: round(v, 3) for k, v in bias['gemm_ms_by_type'].items()} }")
     owners = gemm_owners(prof, torch)
     log("f32 GEMM rows of the step by launching op:")
-    for key, count, ms in owners[:8]:
-        log(f"  {ms:9.3f} ms x{count:<5d} {key[:150]}")
+    for key, count, ms, f32 in owners[:8]:
+        log(f"  {ms:9.3f} ms x{count:<5d} {'f32 operands ' if f32 else ''}"
+            f"{key[:150]}")
+    if extras_gemm_rows(owners):   # the extras take bf16 products now
+        raise SystemExit(f"train: f32 GEMM rows from plain products: "
+                         f"{extras_gemm_rows(owners)[:4]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels_ms": ours_ms,
             "idle_share": idle, "bias_builder": bias, "f32_gemm_owners": owners,
             "ln_linear_bwd_products": dict(products),
@@ -1269,24 +1296,28 @@ PLAIN_TEST_BATCH = 16
 EVAL_BATCH = 8
 
 
-def make_ssv2_tree(root, num_classes):
+def make_ssv2_tree(root, num_classes, videos=TEST_VIDEOS, frames=TEST_FRAMES,
+                   haog=False):
     """A standard-split SSv2 tree in the layout ``data/ssv2.py`` reads:
-    ``TEST_VIDEOS`` videos of ``TEST_FRAMES`` JPEG frames at 427 x 240
-    (random pixels through PIL, from seed 0), labels under
-    ``num_classes``, the label and split JSONs and a box-tracking JSON per
-    video.  Video ids are kept out of the repo's ``empty_bbox_*.json`` skip
-    lists.  Returns (ids, labels)."""
+    ``videos`` videos of ``frames`` JPEG frames at 427 x 240 (random
+    pixels through PIL, from seed 0), labels under ``num_classes``, the
+    label and split JSONs and a box-tracking JSON per video: one hand box a
+    frame, or with ``haog`` two hands and an object (drawn from seed 1, as
+    ``tests/fixtures.py`` draws them), the boxes ``ssv2_frames`` reads.
+    Video ids are kept out of the repo's ``empty_bbox_*.json`` skip lists.
+    Returns (ids, labels)."""
     from PIL import Image
 
     rng = np.random.RandomState(SEED)
+    box_rng = np.random.RandomState(SEED + 1)
     skip = set()
     for split in ("train", "val"):
         with open(os.path.join(REPO, "data", "ssv2",
                                f"empty_bbox_{split}.json")) as f:
             skip |= set(json.load(f))
-    vids = [str(9000000 + i) for i in range(TEST_VIDEOS)]
+    vids = [str(9000000 + i) for i in range(videos)]
     assert not skip & set(vids)
-    labels = rng.randint(0, num_classes, TEST_VIDEOS)
+    labels = rng.randint(0, num_classes, videos)
     for d in ("sm/annotations", "json_files", "bbox_jsons"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     templates = [f"Doing thing {i}" for i in range(num_classes)]
@@ -1303,19 +1334,28 @@ def make_ssv2_tree(root, num_classes):
     W, H = SSV2_FRAME
     for v in vids:
         os.makedirs(os.path.join(root, "frames", v))
-        frames = []
-        for t in range(TEST_FRAMES):
+        tracked = []
+        for t in range(frames):
             name = "%04d.jpg" % (t + 1)
             Image.fromarray(rng.randint(0, 255, (H, W, 3), np.uint8)).save(
                 os.path.join(root, "frames", v, name))
             x1, y1 = float(rng.uniform(0, W / 2)), float(rng.uniform(0, H / 2))
-            frames.append({"name": f"frames/{v}/{name}", "labels": [{
-                "standard_category": "hand",
-                "box2d": {"x1": x1, "y1": y1, "x2": x1 + 40.0,
-                          "y2": y1 + 40.0}}]})
+            boxes = [{"standard_category": "hand",
+                      "box2d": {"x1": x1, "y1": y1, "x2": x1 + 40.0,
+                                "y2": y1 + 40.0}}]
+            if haog:
+                boxes = []
+                for cat in ("hand", "hand", "object"):
+                    x1 = float(box_rng.uniform(0, W * 0.5))
+                    y1 = float(box_rng.uniform(0, H * 0.5))
+                    boxes.append({"standard_category": cat, "box2d": {
+                        "x1": x1, "y1": y1,
+                        "x2": x1 + float(box_rng.uniform(8, W * 0.4)),
+                        "y2": y1 + float(box_rng.uniform(8, H * 0.4))}})
+            tracked.append({"name": f"frames/{v}/{name}", "labels": boxes})
         with open(os.path.join(root, "bbox_jsons", f"{int(v)}.json"),
                   "w") as f:
-            json.dump(frames, f)
+            json.dump(tracked, f)
     return vids, labels
 
 
@@ -1523,11 +1563,14 @@ def run_eval_steps(root, torch):
     return result
 
 
-def run_wide_bias(torch):
-    """A.2 at full size: a block without k|v pooling at 16 x 224 (its key
-    grid 8 x 56 x 56, kT + kH + kW = 120) in a two-block SViT-B/16 at batch
-    1, forward and backward through K4 and K5's wide instance, the logits
-    and the global gradient vector gated against the plain twins."""
+def run_wide_bias(torch, size=224):
+    """K4 and K5 past R = 48 at full width: a block without k|v pooling at
+    16 x ``size`` (its key grid 8 x (size / 4)^2: R = 120 at 224, the wide
+    instance; R = 136 at 256, the chunked one) in a two-block SViT-B/16 at
+    batch 1, forward and backward through K4 and K5, the logits and the
+    global gradient vector gated against the plain twins.  The kernel run's
+    grid-query calls of K4 and K5 are replayed: gated, timed beside the
+    plain versions, SDPA (forward and backward) and the bound."""
     from svit_tpu_torch.config import get_cfg
     from svit_tpu_torch.models import build_model
     from svit_tpu_torch.ops import _lib
@@ -1535,6 +1578,7 @@ def run_wide_bias(torch):
 
     cfg = get_cfg()
     cfg.merge_from_file(CFG)
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = size
     cfg.MVIT.DEPTH = 2
     cfg.MVIT.POOL_Q_STRIDE = [[0, 1, 1, 1], [1, 1, 2, 2]]
     cfg.MVIT.DIM_MUL = [[1, 2.0]]
@@ -1558,30 +1602,65 @@ def run_wide_bias(torch):
                     generator=gen).cuda()
     cot = torch.randn((1, cfg.MODEL.NUM_CLASSES), generator=gen).cuda()
     values, grads, launches = {}, {}, {}
+    rec = Recorder()
     for name, m in zip(RUNS, models):
-        torch.cuda.synchronize()
-        _lib.reset_launch_counts()
-        logits, _ = m(x, train=False)
-        (logits.float() * cot).sum().backward()
-        torch.cuda.synchronize()
-        launches[name] = dict(_lib.LAUNCHES)
+        originals = []
+        if name == "kernels":
+            originals = rec.patch(
+                (ta, attr, lambda a, k, n=n: n if a[2] is not None else None)
+                for attr, n in (("pooled_attention_fwd", "pooled_attention"),
+                                ("pooled_attention_bwd",
+                                 "pooled_attention_bwd")))
+        try:
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+            logits, _ = m(x, train=False)
+            (logits.float() * cot).sum().backward()
+            torch.cuda.synchronize()
+            launches[name] = dict(_lib.LAUNCHES)
+        finally:
+            Recorder.restore(originals)
         values[name] = logits.detach().float().flatten().cpu()
         grads[name] = torch.cat([p.grad.float().flatten() for p in
                                  m.parameters() if p.grad is not None]).cpu()
     del models
     torch.cuda.empty_cache()
-    log(f"wide bias: first block's key grid {grid} (R = {R}, the plan's rk "
-        f"{plan.rk}); kernel launches {launches['kernels']}")
-    if plan.rk != ta.RK_WIDE or R <= 48:
-        raise SystemExit(f"wide bias: R = {R} takes rk {plan.rk}, not the "
-                         "wide instance")
+    want_rk = ta.RK_CHUNKED if R > 16 * ta.RK_WIDE else ta.RK_WIDE
+    what = "chunked" if want_rk == ta.RK_CHUNKED else "wide"
+    log(f"{what} bias: first block's key grid {grid} (R = {R}, the plan's "
+        f"rk {plan.rk}); kernel launches {launches['kernels']}")
+    if plan.rk != want_rk or R <= 48:
+        raise SystemExit(f"{what} bias: R = {R} takes rk {plan.rk}, not "
+                         f"the {what} instance")
     if not (launches["kernels"].get("pooled_attention", 0) >= 4 and
             launches["kernels"].get("pooled_attention_bwd", 0) >= 2):
-        raise SystemExit("wide bias: K4 or K5 did not launch")
-    result = {"R": R, "rk": plan.rk, "launches": launches["kernels"]}
-    gate("wide_bias_logits", values, result)
-    gate("wide_bias_grads", grads, result)
+        raise SystemExit(f"{what} bias: K4 or K5 did not launch")
+    result = {"R": R, "rk": plan.rk, "size": size,
+              "launches": launches["kernels"]}
+    gate(f"{what}_bias_logits", values, result)
+    gate(f"{what}_bias_grads", grads, result)
+    result["replay"] = replay_bias_calls(rec, torch, R, what)
+    del rec
+    torch.cuda.empty_cache()
     return result
+
+
+def replay_bias_calls(rec, torch, R, what):
+    """Phase 4's replay of the recorded K4 and K5 calls whose bias has R
+    columns: gated, timed beside the plain versions, SDPA and the
+    bound."""
+    from svit_tpu_torch.ops import attention as ta
+
+    fns = {n: (getattr(ta, attr), plain) for n, attr, plain in (
+        ("pooled_attention", "pooled_attention_fwd",
+         ta.pooled_attention_reference),
+        ("pooled_attention_bwd", "pooled_attention_bwd",
+         ta.pooled_attention_bwd_reference))}
+    rec.calls = collections.OrderedDict(
+        (k, c) for k, c in rec.calls.items() if c["args"][2].shape[-1] == R)
+    table, uses, details = run_kernel_phase(rec, torch, fns,
+                                            unit=f"{what} bias call")
+    return {"table": table, "uses": uses, "calls": details}
 
 
 def run_test_phase(torch):
@@ -1610,8 +1689,446 @@ def run_test_phase(torch):
         torch.cuda.empty_cache()
         result["multiview"] = run_multiview_test(root, arch, torch)
         result["eval"] = run_eval_steps(root, torch)
-    result["wide_bias"] = run_wide_bias(torch)
+    result["wide_bias"] = run_wide_bias(torch, 224)
+    result["chunked_bias"] = run_wide_bias(torch, 256)
     return result, result["multiview"]["kernels"]["launches_per_forward"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the training entry point, engine.train.train(cfg)
+# ---------------------------------------------------------------------------
+
+# 8 steps an epoch at video batch 7: 6 within each epoch that are neither
+# its first (warm-up, loader start) nor its last (checkpoint, eval epoch)
+TRAIN_TREE_VIDEOS = 56
+# configs/ssv2.yaml's 7 video ranks + 1 image rank give the loss weights 7/8
+# and 1/8; assert_and_infer_cfg wants the video batch divisible by the 7
+TRAINER_VIDEO, TRAINER_IMAGE = 7, 8
+# the main path's kernel counters, every one of which a train run launches
+PATH_COUNTERS = ("ln_linear", "ln_linear_masked", "pool_ln", "pool_max",
+                 "pooled_attention", "pooled_attention_bwd", "pool_conv",
+                 "pool_conv_dx", "pool_conv_dk")
+# ops whose f32 GEMM rows would be a plain product on upcast operands (the
+# extras' old plain twins); cuDNN's f32 convolution of the object-token
+# multiplier is f32 in JAX too
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul",
+              "aten::linear")
+
+
+def trainer_cfg(root, out, max_epoch):
+    """configs/ssv2.yaml at full size on the tree at ``root`` (its
+    augmentation, bf16, the kernels), with the consistency term, two
+    checkpoints' worth of epochs and a log, eval and checkpoint every
+    epoch."""
+    from svit_tpu_torch.config import assert_and_infer_cfg, get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(CFG)
+    cfg.SSV2.DATA_ROOT = root
+    cfg.OUTPUT_DIR = out
+    cfg.TRAIN.MIXED_PRECISION = True
+    cfg.TPU.USE_PALLAS_ATTENTION = True
+    cfg.SVIT.CONSISTENCY_LOSS = "l1"
+    cfg.TRAIN.BATCH_SIZE = TRAINER_VIDEO
+    cfg.IMAGE_TRAIN.BATCH_SIZE = TRAINER_IMAGE
+    cfg.SOLVER.MAX_EPOCH = max_epoch
+    cfg.TRAIN.EVAL_PERIOD = 1
+    cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    cfg.LOG_PERIOD = 1
+    return assert_and_infer_cfg(cfg)
+
+
+class TrainerSpy:
+    """Patches ``engine.train`` for one run of ``train(cfg)``: every Trainer
+    made, and around every step its start time, its launches (the counter's
+    difference over the step), its metric vector, and at ``profile_at`` a
+    profile of the step; the first step's inputs with ``capture``; a
+    SIGTERM to this process after step ``sigterm_after``; the epochs'
+    (cur_epoch, start_iter), the eval stats and the resumed state."""
+
+    def __init__(self, torch, profile_at=None, capture=False,
+                 sigterm_after=None, on_resume=None):
+        self.torch = torch
+        self.profile_at, self.capture = profile_at, capture
+        self.sigterm_after, self.on_resume = sigterm_after, on_resume
+        self.trainers, self.steps, self.epochs, self.evals = [], [], [], []
+        self.first, self.profile = None, None
+
+    def __enter__(self):
+        from svit_tpu_torch.engine import steps
+        from svit_tpu_torch.engine import train as ttrain
+        from svit_tpu_torch.ops import _lib
+
+        spy, torch = self, self.torch
+        self._saved = [(ttrain, "Trainer", ttrain.Trainer),
+                       (steps, "make_packed_train_step",
+                        steps.make_packed_train_step),
+                       (ttrain, "train_epoch", ttrain.train_epoch),
+                       (ttrain, "eval_epoch", ttrain.eval_epoch),
+                       (ttrain.cu, "load_train_state",
+                        ttrain.cu.load_train_state)]
+        base_trainer, make_step, epoch_fn, eval_fn, load_fn = (
+            o for _, _, o in self._saved)
+
+        class Trainer(base_trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                spy.trainers.append(self)
+
+        def make(*a, **k):
+            fn, names = make_step(*a, **k)
+
+            def step(state, video, image, gen):
+                i = len(spy.steps)
+                if spy.capture and i == 0:
+                    spy.first = dict(
+                        params={n: t.detach().cpu().clone() for n, t in
+                                state.model.state_dict().items()},
+                        video={n: t.clone() for n, t in video.items()},
+                        image={n: t.clone() for n, t in image.items()},
+                        seed=gen.initial_seed())
+                before = _lib.LAUNCHES.copy()
+                t0 = time.perf_counter()
+                if i == spy.profile_at:
+                    spy.profile = profile_trainer_step(
+                        torch, lambda: fn(state, video, image, gen))
+                    out = spy.profile.pop("out")
+                else:
+                    out = fn(state, video, image, gen)
+                spy.steps.append(dict(t0=t0, metrics=out[1],
+                                      profiled=i == spy.profile_at,
+                                      launches=dict(_lib.LAUNCHES - before)))
+                if spy.sigterm_after is not None and \
+                        len(spy.steps) == spy.sigterm_after:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return out
+            return step, names
+
+        def epoch(cfg, trainer, state, meter, cur_epoch, start_iter=0,
+                  guard=None):
+            spy.epochs.append((cur_epoch, start_iter))
+            return epoch_fn(cfg, trainer, state, meter, cur_epoch,
+                            start_iter=start_iter, guard=guard)
+
+        def evaluate(*a, **k):
+            stats = eval_fn(*a, **k)
+            spy.evals.append(stats)
+            return stats
+
+        def load(path, state):
+            out = load_fn(path, state)
+            if spy.on_resume is not None:
+                spy.on_resume(path, state)
+            return out
+
+        for (mod, attr, _), new in zip(self._saved, (Trainer, make, epoch,
+                                                     evaluate, load)):
+            setattr(mod, attr, new)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self._saved):
+            setattr(mod, attr, fn)
+        return False
+
+
+def profile_trainer_step(torch, call):
+    """One Trainer step under torch.profiler: its wall and device time by
+    kernel, and the ops that launched its f32 GEMM rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof, torch)
+    return {"out": out, "wall_ms": wall_ms,
+            "device_ms": sum(r[2] for r in rows),
+            "kernels_ms": sum(r[2] for r in rows
+                              if any(k in r[0] for k in OUR_KERNELS)),
+            "f32_gemm_owners": gemm_owners(prof, torch),
+            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:16]]}
+
+
+def extras_gemm_rows(owners):
+    """The f32 GEMM rows of a matrix product of f32 operands (the plain
+    twins' upcast, which the extras took before)."""
+    return [o for o in owners if o[3]]
+
+
+def state_equal(torch, a, b):
+    """(params equal, optimizer state equal, what differs first) of two
+    train states, bit for bit."""
+    for (n, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        if not torch.equal(x, y):
+            return False, f"param {n}"
+    sa, sb = (s.tx.optimizer.state_dict()["state"] for s in (a, b))
+    if sa.keys() != sb.keys() or not sa:
+        return False, "optimizer state keys"
+    for i in sa:
+        for k, v in sa[i].items():
+            if not torch.equal(torch.as_tensor(v), torch.as_tensor(sb[i][k])):
+                return False, f"optimizer state {i}.{k}"
+    return True, None
+
+
+def nondeterministic_op(message):
+    """The op a warning of ``use_deterministic_algorithms(warn_only=True)``
+    names."""
+    if "does not have a deterministic implementation" in message:
+        return message.split(" does not have")[0]
+    if "CuBLAS" in message or "CUBLAS" in message:
+        return "cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)"
+    return message[:120]
+
+
+def first_step_gate(torch, cfg, first, trainer_metrics, names):
+    """The Trainer's first step against ``make_train_step`` from the same
+    initial parameters, batch and generator seed: kernels in bf16 (twice,
+    to show how far the step differs from itself, then once under
+    ``torch.use_deterministic_algorithms(warn_only=True)``, which names the
+    ops that have no deterministic implementation), plain in bf16 and plain
+    in f32; the loss and the gradient norm under phase 7's gate, and the
+    Trainer's values beside the kernel steps'."""
+    import warnings
+
+    from svit_tpu_torch.engine import steps
+    from svit_tpu_torch.models import build_model
+    from svit_tpu_torch.models.losses import get_loss_func
+    from svit_tpu_torch.models.optimizer import construct_optimizer
+
+    got = dict(zip(names, trainer_metrics.float().cpu().tolist()))
+    values, nondeterministic = {}, set()
+    for name, dtype, kernels in (("kernels", torch.bfloat16, True),
+                                 ("kernels_again", torch.bfloat16, True),
+                                 ("kernels_deterministic", torch.bfloat16,
+                                  True),
+                                 ("plain_bf16", torch.bfloat16, False),
+                                 ("plain_f32", torch.float32, False)):
+        model, _ = build_model(cfg, dtype=dtype, use_kernels=kernels,
+                               train=True)
+        model.load_state_dict(first["params"])
+        state = steps.create_train_state(
+            model, construct_optimizer(cfg, model, 1000)[0])
+        step = steps.make_train_step(
+            model, get_loss_func(cfg), state.tx, video_weight=7 / 8,
+            image_weight=1 / 8, with_image=True, with_consistency=True)
+        gen = torch.Generator(device="cuda").manual_seed(first["seed"])
+        strict = name == "kernels_deterministic"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(strict, warn_only=True)
+            try:
+                _, m = step(state, first["video"], first["image"], gen)
+                values[name] = {k: float(v) for k, v in m.items()}
+            finally:
+                torch.use_deterministic_algorithms(False)
+        if strict:
+            nondeterministic = sorted({nondeterministic_op(str(w.message))
+                                       for w in caught
+                                       if "eterministic" in str(w.message)})
+        del model, state, step
+        torch.cuda.empty_cache()
+    log(f"phase 9 first step: ops without a deterministic implementation: "
+        f"{nondeterministic or 'none'}")
+    result = {"trainer": got, "runs": values,
+              "nondeterministic_ops": nondeterministic}
+    for key in ("loss", "grad_norm"):
+        v32 = values["plain_f32"][key]
+        err_t = abs(got[key] - v32) / abs(v32)
+        err_k = abs(values["kernels"][key] - v32) / abs(v32)
+        err_p = abs(values["plain_bf16"][key] - v32) / abs(v32)
+        ok = max(err_t, err_k) <= TOL_RATIO * err_p + TOL_ABS
+        log(f"phase 9 first step {key}: trainer {got[key]:.6f} "
+            f"make_train_step kernels {values['kernels'][key]:.6f} plain "
+            f"bf16 {values['plain_bf16'][key]:.6f} plain f32 {v32:.6f}; "
+            f"err(trainer)={err_t:.3e} err(kernels)={err_k:.3e} "
+            f"err(plain bf16)={err_p:.3e} {'ok' if ok else 'FAIL'}")
+        k1, k2 = values["kernels"][key], values["kernels_again"][key]
+        self_diff = abs(k2 - k1) / abs(k1)
+        trainer_diff = abs(got[key] - k1) / abs(k1)
+        kd = values["kernels_deterministic"][key]
+        log(f"phase 9 first step {key}: make_train_step again "
+            f"{k2:.6f}, deterministic {kd:.6f}; relative difference kernels "
+            f"to kernels again {self_diff:.3e}, trainer to kernels "
+            f"{trainer_diff:.3e}")
+        result[f"gate_{key}"] = {"err_trainer": err_t, "err_kernels": err_k,
+                                 "err_plain_bf16": err_p,
+                                 "kernels_self_diff": self_diff,
+                                 "trainer_to_kernels_diff": trainer_diff}
+        if not ok:
+            raise SystemExit(f"phase 9: the Trainer's first step fails the "
+                             f"gate on {key}")
+    return result
+
+
+def run_trainer_phase(torch):
+    """Phase 9: ``engine.train.train(cfg)`` on a synthetic SSv2 tree with
+    HAOG boxes, at configs/ssv2.yaml's full size.  Returns its results and
+    the launches of the first run."""
+    import tempfile
+
+    from svit_tpu_torch.engine import train as ttrain
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.utils import checkpoint as cu
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ssv2")
+        cfg = trainer_cfg(root, os.path.join(tmp, "run"), 2)
+        t0 = time.perf_counter()
+        vids, _ = make_ssv2_tree(root, cfg.MODEL.NUM_CLASSES,
+                                 TRAIN_TREE_VIDEOS, TEST_FRAMES, haog=True)
+        log(f"phase 9 tree: {len(vids)} videos x {TEST_FRAMES} JPEG frames at "
+            f"{SSV2_FRAME[0]} x {SSV2_FRAME[1]} with hand and object boxes, "
+            f"written in {time.perf_counter() - t0:.1f} s; video batch "
+            f"{TRAINER_VIDEO}, image batch {TRAINER_IMAGE} "
+            f"({cfg.IMAGE_TRAIN.DATASETS}), AUG {cfg.AUG.AA_TYPE} "
+            f"re_prob {cfg.AUG.RE_PROB}, {cfg.DATA_LOADER.NUM_WORKERS} "
+            f"loader processes")
+
+        # run A: two epochs from scratch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with TrainerSpy(torch, profile_at=2, capture=True) as a:
+            state_a = ttrain.train(cfg)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        trainer = a.trainers[0]
+        names = list(trainer.metric_names)
+        arch = trainer.arch
+        spe = trainer.steps_per_epoch
+        log(f"phase 9 run A: train() {wall_a:.1f} s, {len(a.steps)} steps "
+            f"({spe} an epoch), epochs {a.epochs}, step {state_a.step}, "
+            f"loss weights {trainer.video_weight:.4f} / "
+            f"{trainer.image_weight:.4f}, launches {launches}")
+        if len(a.steps) != 2 * spe or state_a.step != 2 * spe:
+            raise SystemExit("phase 9: run A took the wrong number of steps")
+        if (trainer.video_weight, trainer.image_weight) != (7 / 8, 1 / 8):
+            raise SystemExit("phase 9: loss weights are not 7/8 and 1/8")
+        missing = [c for c in PATH_COUNTERS if not launches.get(c)]
+        if missing:
+            raise SystemExit(f"phase 9: kernels not launched: {missing}")
+        metrics = torch.stack([s["metrics"] for s in a.steps]).cpu()
+        losses = metrics[:, names.index("loss")].tolist()
+        log(f"phase 9 step losses {[round(v, 4) for v in losses]}")
+        if not bool(torch.isfinite(metrics).all()):
+            raise SystemExit("phase 9: a non-finite step metric")
+        want = dict(expected_train_launches(arch))
+        for i, st in enumerate(a.steps):
+            if st["launches"] != want:
+                raise SystemExit(f"phase 9: step {i} launched "
+                                 f"{st['launches']}, not {want}")
+        log(f"phase 9 launches per step: all {len(a.steps)} equal {want}")
+        ckpts = sorted(os.listdir(cu.checkpoint_dir(cfg.OUTPUT_DIR)))
+        log(f"phase 9 checkpoints: {ckpts}")
+        if ckpts != ["checkpoint_epoch_00001", "checkpoint_epoch_00002"]:
+            raise SystemExit("phase 9: a checkpoint per epoch is missing")
+        if len(a.evals) != 2 or not all(
+                np.isfinite(v) for st in a.evals for k, v in st.items()
+                if "loss" in k):
+            raise SystemExit(f"phase 9: eval epochs {a.evals}")
+        log(f"phase 9 eval stats (epoch 2): "
+            + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in a.evals[-1].items()))
+        prof = a.profile
+        owners = extras_gemm_rows(prof["f32_gemm_owners"])
+        log(f"phase 9 profiled step: wall {prof['wall_ms']:.1f} ms, device "
+            f"{prof['device_ms']:.1f} ms, hand-written kernels "
+            f"{prof['kernels_ms']:.1f} ms; f32 GEMM rows by launching op:")
+        for key, count, ms, f32 in prof["f32_gemm_owners"][:8]:
+            log(f"  {ms:9.3f} ms x{count:<5d} "
+                f"{'f32 operands ' if f32 else ''}{key[:150]}")
+        if owners:
+            raise SystemExit(f"phase 9: f32 GEMM rows from plain products: "
+                             f"{owners[:4]}")
+        # per-step wall (start to start: the step, the metric flush, the
+        # next batch's data wait); the steady steps are neither an epoch's
+        # first (warm-up; its data wait holds the loader start) nor its last
+        # (the checkpoint, the eval epoch and the next epoch's loader start)
+        # nor the profiled one
+        starts = [st["t0"] for st in a.steps]
+        walls = [(starts[i + 1] - starts[i]) * 1e3
+                 for i in range(len(starts) - 1)]
+        steady = [w for i, w in enumerate(walls) if i % spe not in
+                  (0, spe - 1) and not a.steps[i]["profiled"]]
+        # the data wait before each step but an epoch's first
+        data_ms = [d * 1e3 for d in trainer.data_seconds]
+        steady_data = [d for i, d in enumerate(data_ms) if i % spe]
+        wall_q = statistics.quantiles(steady, n=4)
+        data_q = statistics.quantiles(steady_data, n=4)
+        wall_ms = wall_q[1]
+        idle = max(0.0, 1 - prof["device_ms"] / wall_ms)
+        log(f"phase 9 per step: wall {wall_ms:.1f} ms (median of "
+            f"{len(steady)} steady steps, quartiles {wall_q[0]:.1f} / "
+            f"{wall_q[2]:.1f}; all {[round(w, 1) for w in walls]}), data "
+            f"{data_q[1]:.1f} ms (median of {len(steady_data)}, quartiles "
+            f"{data_q[0]:.1f} / {data_q[2]:.1f}; all "
+            f"{[round(d, 1) for d in data_ms]}), device "
+            f"{prof['device_ms']:.1f} ms (profiled step), idle share "
+            f"{idle:.3f} against the steady wall, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; {card_line()}")
+        result["run_a"] = {"wall_s": wall_a, "steps": len(a.steps),
+                           "epochs": a.epochs, "losses": losses,
+                           "launches": launches, "per_step_launches": want,
+                           "checkpoints": ckpts, "evals": a.evals,
+                           "step_wall_ms": walls, "steady_wall_ms": steady,
+                           "wall_ms": wall_ms, "wall_quartiles_ms": wall_q,
+                           "data_ms": data_ms, "data_quartiles_ms": data_q,
+                           "idle_share": idle, "peak_bytes": peak,
+                           "profile": prof}
+        result["first_step"] = first_step_gate(torch, cfg, a.first,
+                                               a.steps[0]["metrics"], names)
+        del a, trainer
+
+        # run B: MAX_EPOCH 3 resumes at epoch 2 from the state run A saved
+        seen = {}
+
+        def on_resume(path, state):
+            seen["path"] = path
+            seen["equal"] = state_equal(torch, state, state_a)
+
+        cfg3 = trainer_cfg(root, cfg.OUTPUT_DIR, 3)
+        with TrainerSpy(torch, on_resume=on_resume) as b:
+            state_b = ttrain.train(cfg3)
+        log(f"phase 9 run B: resumed from {os.path.basename(seen['path'])}, "
+            f"state equal bit for bit: {seen['equal']}, epochs {b.epochs}, "
+            f"step {state_b.step}")
+        if not seen["equal"][0] or b.epochs != [(2, 0)] or \
+                state_b.step != 3 * spe:
+            raise SystemExit("phase 9: the auto-resume at epoch 2 failed")
+        result["resume"] = {"from": os.path.basename(seen["path"]),
+                            "epochs": b.epochs, "step": state_b.step}
+        del b, state_b, state_a
+        torch.cuda.empty_cache()
+
+        # runs C and D: SIGTERM after step 2, then the resume at iter 2
+        cfg1 = trainer_cfg(root, os.path.join(tmp, "preempt"), 1)
+        with TrainerSpy(torch, sigterm_after=2) as c:
+            state_c = ttrain.train(cfg1)
+        last = cu.get_last_checkpoint(cfg1.OUTPUT_DIR)
+        with TrainerSpy(torch) as d:
+            state_d = ttrain.train(cfg1)
+        log(f"phase 9 SIGTERM after step 2: stopped at step {state_c.step}, "
+            f"saved {os.path.basename(last)}; the rerun's epochs {d.epochs}, "
+            f"step {state_d.step}")
+        if not last.endswith("checkpoint_epoch_00000_step_00000002") or \
+                state_c.step != 2 or d.epochs != [(0, 2)] or \
+                state_d.step != spe:
+            raise SystemExit("phase 9: the mid-epoch resume failed")
+        result["preemption"] = {"saved": os.path.basename(last),
+                                "resumed": d.epochs, "step": state_d.step}
+        del c, d, state_c, state_d
+    torch.cuda.empty_cache()
+    return result, launches
 
 
 def main():
@@ -1629,6 +2146,7 @@ def main():
     from svit_tpu_torch.models import build_model
     from svit_tpu_torch.ops import _lib
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1676,6 +2194,8 @@ def main():
     k1 = k1_uses(uses, train_uses, ffn)
     torch.cuda.empty_cache()
     test, test_launches = run_test_phase(torch)
+    torch.cuda.empty_cache()
+    trainer, trainer_launches = run_trainer_phase(torch)
 
     kernels = []
     for names, rows, launches in (
@@ -1694,6 +2214,7 @@ def main():
                 "library_ms": row["library_ms"],
                 "train_launches": train["launches"].get(counter, 0),
                 "test_launches": test_launches.get(counter, 0),
+                "trainer_launches": trainer_launches.get(counter, 0),
             })
             if name == "ln_linear":
                 kernels[-1]["uses"] = k1
@@ -1710,8 +2231,9 @@ def main():
                        serving=serving, uses=uses, calls=details, ffn=ffn,
                        train=train, train_uses=train_uses,
                        train_calls=train_details, test=test,
-                       kernels=kernels), f,
+                       trainer=trainer, kernels=kernels), f,
                   indent=1)
+    log(f"all nine phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -81,6 +81,11 @@ constexpr int BK = 64;  // keys (or queries) per tile, rows per warpgroup
 // bias tiles are 16 KB each and K5's query side keeps 64 more f32 dbias
 // accumulators a thread
 constexpr int RK_WIDE = 8;
+// ... and for 128 < kT + kH + kW <= 256 (a block without k|v pooling at 256
+// px or more: 8 + 64 + 64): two 128-column chunks.  The scores take all 16
+// k-steps; K5's query side takes dbias one chunk at a time, over one more
+// pass of the key tiles per chunk, so it keeps RK_WIDE's 64 accumulators
+constexpr int RK_CHUNKED = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -387,8 +392,13 @@ __global__ void __launch_bounds__(160, 1)
   uint64_t* q_bar = empty + p.q_stages;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // 128-column chunks of dbias (ops/attention.py:chunks), k-steps of one
+  constexpr int NCH = RK > RK_WIDE ? RK / RK_WIDE : 1;
+  constexpr int RKC = RK / NCH, NB = RKC > 0 ? 8 * RKC : 8;
+  static_assert(RK % NCH == 0, "whole chunks");
   const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int stages = p.q_stages, loads = 2 * p.n_kt;
+  // pass 1, then one pass per dbias chunk (the first also takes dq)
+  const int stages = p.q_stages, loads = (1 + NCH) * p.n_kt;
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
@@ -515,16 +525,10 @@ __global__ void __launch_bounds__(160, 1)
           p.stats + (((size_t)b * p.heads + h) * p.nq_pad + q) * 4) = st;
   }
 
-  // pass 2: dS; dq += round(dS) K; dbias += dS M (hi + lo)
-  float dqa[HD / 2], dba[RK > 0 ? 8 * RK : 8];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (RK > 0 ? 8 * RK : 8); ++i) dba[i] = 0.f;
-  for (int i = p.n_kt; i < loads; ++i) {
-    float sc[BK / 2], dp[BK / 2];
+  // dS of ring load i into dp (f32, the high part's source) and sc (its
+  // low part); returns the slot
+  auto ds_of = [&](int i, float (&sc)[BK / 2], float (&dp)[BK / 2]) {
     const int s = products(i, sc, dp);
-    const uint32_t ka = smem_u32(ring + s * SLOT);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -534,6 +538,36 @@ __global__ void __launch_bounds__(160, 1)
         dp[x] = pe * (dp[x] - delta[h2]);      // dS, f32
         sc[x] = dp[x] - round_bf16(dp[x]);     // its low part
       }
+    return s;
+  };
+  // columns 16 RKC c .. of this thread's dbias rows, from dba
+  float dba[NB];
+  auto store_dbias = [&](int c) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int q = r0 + 8 * h2;
+      if (q >= p.Nq) continue;
+      bf16* db = p.dbias + (((size_t)b * p.heads + h) * p.Nq + q) * p.R;
+#pragma unroll
+      for (int j = 0; j < 2 * RKC; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 16 * RKC * c + 8 * j + 2 * t + e;
+          if (col < p.R) db[col] = __float2bfloat16(dba[4 * j + 2 * h2 + e]);
+        }
+    }
+  };
+
+  // pass 2: dS; dq += round(dS) K; dbias (its first chunk) += dS M (hi + lo)
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) dba[i] = 0.f;
+  for (int i = p.n_kt; i < 2 * p.n_kt; ++i) {
+    float sc[BK / 2], dp[BK / 2];
+    const int s = ds_of(i, sc, dp);
+    const uint32_t ka = smem_u32(ring + s * SLOT);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -571,16 +605,33 @@ __global__ void __launch_bounds__(160, 1)
       }
       *reinterpret_cast<uint32_t*>(p.dq + base + d) = pack_bf16(v0, v1);
     }
-    if (RK) {
-      bf16* db = p.dbias + (((size_t)b * p.heads + h) * p.Nq + q) * p.R;
+  }
+  if (RK) store_dbias(0);
+  // the other chunks: dS again for each, the one-hot tile's columns of the
+  // chunk as the B operand (no-swizzle groups of 8 columns, 64 keys each)
+  for (int c = 1; c < NCH; ++c) {
 #pragma unroll
-      for (int j = 0; j < 2 * RK; ++j)
+    for (int i = 0; i < NB; ++i) dba[i] = 0.f;
+    for (int i = (1 + c) * p.n_kt; i < (2 + c) * p.n_kt; ++i) {
+      float sc[BK / 2], dp[BK / 2];
+      const int s = ds_of(i, sc, dp);
+      const uint32_t mc = smem_u32(ring + s * SLOT) + 2 * KT +
+                          c * 2 * RKC * BK * 16;
+      wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * j + 2 * t + e;
-          if (c < p.R) db[c] = __float2bfloat16(dba[4 * j + 2 * h2 + e]);
-        }
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        frag_of(dp, kk, hi);
+        frag_of(sc, kk, lo);
+        wgmma_rs(dba, hi, onehot_mn(mc, BK, kk), 1);
+        wgmma_rs(dba, lo, onehot_mn(mc, BK, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dba);
+      mbar_arrive_if(lane == 0, &empty[s]);
     }
+    store_dbias(c);
   }
   if (tid == 0) bulk_wait();  // the q * scale store has left shared memory
 }
@@ -800,6 +851,7 @@ int fwd_rk(const FwdParams& p, int rk, const CUtensorMap& tq,
     case 0: return launch_fwd<HD, 0>(p, tq, tkv, stream);
     case 3: return launch_fwd<HD, 3>(p, tq, tkv, stream);
     case RK_WIDE: return launch_fwd<HD, RK_WIDE>(p, tq, tkv, stream);
+    case RK_CHUNKED: return launch_fwd<HD, RK_CHUNKED>(p, tq, tkv, stream);
   }
   if constexpr (HD == 96) {  // other head widths pad R to 48 (or 128)
     switch (rk) {
@@ -843,6 +895,7 @@ int bwd_rk(const BwdParams& p, int rk, const CUtensorMap (&maps)[4],
     case 0: return launch_bwd<HD, 0>(p, maps, stream);
     case 3: return launch_bwd<HD, 3>(p, maps, stream);
     case RK_WIDE: return launch_bwd<HD, RK_WIDE>(p, maps, stream);
+    case RK_CHUNKED: return launch_bwd<HD, RK_CHUNKED>(p, maps, stream);
   }
   if constexpr (HD == 96) {
     switch (rk) {

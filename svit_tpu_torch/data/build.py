@@ -1,13 +1,16 @@
 """Dataset registry dispatch (counterpart of ``svit_tpu/data/build.py``,
 reference ``slowfast/datasets/build.py``).
 
-The port registers ``Ssv2``; the other datasets of the JAX package come
-with the training data layer (ROADMAP Queue 1 item 3).
+Importing it registers the port's datasets: ``Ssv2``, ``Ssv2_frames``,
+``Doh_frames`` and ``Multi_images``.  ``Kinetics`` (and its video decoder)
+is not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
-from svit_tpu_torch.data import ssv2  # noqa: F401  (registers Ssv2)
+# importing registers the datasets
+from svit_tpu_torch.data import (  # noqa: F401
+    doh_frames, multi_images, ssv2, ssv2_frames)
 from svit_tpu_torch.models.registry import DATASET_REGISTRY
 
 

@@ -9,10 +9,11 @@ Replaces the reference's torch DataLoader + DistributedSampler stack
 - worker parallelism through a process pool (spawned interpreters) or
   threads, with a bounded prefetch queue.
 
-On one card no mesh divides the batch.  ``construct_loader`` builds the
-``val`` and ``test`` loaders; the training splits (the video and image
-train loaders, ``image_val``) come with the training data layer (ROADMAP
-Queue 1 item 3).
+On one card no mesh divides the batch.  The reference's rank-heterogeneous
+``construct_loader_train`` (``loader.py:175-256``) is, as in the JAX
+package, two loaders (video and image) that feed the fused train step.
+The datasets are numpy and PIL only, and process workers are spawned, so a
+worker never touches the card.
 """
 
 from __future__ import annotations
@@ -237,21 +238,59 @@ class Loader:
 
 
 def construct_loader(cfg, split: str):
-    """The loader of ``split`` (reference ``loader.py:84-256``): ``val``
-    (``TRAIN.DATASET``'s val split at ``TRAIN.BATCH_SIZE``) or ``test``
-    (``TEST.DATASET`` at ``TEST.BATCH_SIZE``, every video replicated
-    ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` times), in order, the last
-    batch padded with zero-weight samples."""
-    if split in ("train", "image_val"):
-        raise NotImplementedError(
-            f"the {split} loader comes with the training data layer "
-            "(ROADMAP Queue 1 item 3)")
+    """The loader(s) of ``split`` (reference ``loader.py:84-256``).
+
+    - ``train``: ``(video_loader, image_loader or None)``, shuffled by
+      ``RNG_SEED`` and ``RNG_SEED + 1`` and the epoch, the last partial
+      batch dropped; the video batch is ``TRAIN.BATCH_SIZE`` times the
+      dataset's repeated-augmentation multiplicity (``samples_per_item``);
+      the image loader (``multi_images`` over ``IMAGE_TRAIN.DATASETS``)
+      exists when the config has image ranks;
+    - ``val``: ``TRAIN.DATASET``'s val split at ``TRAIN.BATCH_SIZE``;
+    - ``image_val``: ``multi_images``' val split at
+      ``IMAGE_TRAIN.BATCH_SIZE``, None when it is empty;
+    - ``test``: ``TEST.DATASET`` at ``TEST.BATCH_SIZE``, every video
+      replicated ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` times.
+    The evaluation splits run in order, the last batch padded with
+    zero-weight samples."""
+    from svit_tpu_torch.config.defaults import num_image_ranks
+
+    if split == "train":
+        video_ds = build_dataset(cfg.TRAIN.DATASET, cfg, "train")
+        num_sample = int(getattr(video_ds, "samples_per_item", 1))
+        video_loader = Loader(
+            video_ds, cfg.TRAIN.BATCH_SIZE, shuffle=True, drop_last=True,
+            num_workers=cfg.DATA_LOADER.NUM_WORKERS, seed=cfg.RNG_SEED,
+            collate_fn=collate_video,
+            pad_to=cfg.TRAIN.BATCH_SIZE * num_sample,
+            prefetch=cfg.TPU.PREFETCH_DEPTH,
+            use_processes=bool(cfg.DATA_LOADER.USE_PROCESSES))
+        image_loader = None
+        if num_image_ranks(cfg) > 0:
+            image_ds = build_dataset("multi_images", cfg, "train")
+            image_loader = Loader(
+                image_ds, cfg.IMAGE_TRAIN.BATCH_SIZE, shuffle=True,
+                drop_last=True, num_workers=cfg.DATA_LOADER.NUM_WORKERS,
+                seed=cfg.RNG_SEED + 1, collate_fn=collate_image,
+                pad_to=cfg.IMAGE_TRAIN.BATCH_SIZE,
+                prefetch=cfg.TPU.PREFETCH_DEPTH,
+                use_processes=bool(cfg.DATA_LOADER.USE_PROCESSES))
+        return video_loader, image_loader
+    collate = collate_video
     if split == "val":
         ds = build_dataset(cfg.TRAIN.DATASET, cfg, "val")
         workers = cfg.DATA_LOADER.NUM_WORKERS_VAL
         if workers < 0:
             workers = cfg.DATA_LOADER.NUM_WORKERS
         batch = cfg.TRAIN.BATCH_SIZE
+    elif split == "image_val":
+        ds = build_dataset("multi_images", cfg, "val")
+        if len(ds) == 0:
+            return None
+        workers = cfg.DATA_LOADER.NUM_WORKERS_VAL
+        if workers < 0:
+            workers = cfg.DATA_LOADER.NUM_WORKERS
+        batch, collate = cfg.IMAGE_TRAIN.BATCH_SIZE, collate_image
     elif split == "test":
         ds = build_dataset(cfg.TEST.DATASET, cfg, "test")
         workers = cfg.DATA_LOADER.NUM_WORKERS
@@ -260,7 +299,7 @@ def construct_loader(cfg, split: str):
         raise NotImplementedError(split)
     return Loader(ds, batch, shuffle=False, drop_last=False,
                   num_workers=workers, seed=cfg.RNG_SEED,
-                  collate_fn=collate_video, pad_to=batch,
+                  collate_fn=collate, pad_to=batch,
                   prefetch=cfg.TPU.PREFETCH_DEPTH)
 
 

@@ -16,21 +16,24 @@ Frame-dir layout (identical to the reference's expectations):
 Test mode pre-replicates each video x(views*crops) with a spatial/temporal
 index (``ssv2.py:182-204``); val takes the train-mode random crop at
 spatial index -1, as the reference does; output is channels-last
-``[T, H, W, C]`` float32.  Train mode runs through ``spatial_sampling``
-without ``AUG.ENABLE``; RandAugment, random erasing and the on-device
-augmentation (``TPU.DEVICE_AUG``) come with the training data layer
-(ROADMAP Queue 1 item 3) and raise here.
+``[T, H, W, C]`` float32.  Train mode with ``AUG.ENABLE`` applies per-clip
+RandAugment, the random-resized crop and random erasing, drawn from the
+item's generator in the JAX package's order; the on-device augmentation
+(``TPU.DEVICE_AUG``) is not ported and raises (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+from typing import List
 
 import numpy as np
+from PIL import Image
 
 from svit_tpu_torch.data import transform, utils as dutils
+from svit_tpu_torch.data.rand_augment import rand_augment_transform
+from svit_tpu_torch.data.random_erasing import RandomErasing
 from svit_tpu_torch.models.registry import DATASET_REGISTRY
 from svit_tpu_torch.utils import logging
 
@@ -41,11 +44,11 @@ logger = logging.get_logger(__name__)
 class Ssv2:
     def __init__(self, cfg, mode: str, num_retries: int = 10):
         assert mode in ("train", "val", "test"), mode
-        if mode == "train" and (cfg.AUG.ENABLE or cfg.TPU.DEVICE_AUG):
+        if mode == "train" and cfg.TPU.DEVICE_AUG:
             raise NotImplementedError(
-                "Ssv2 train mode with AUG.ENABLE or TPU.DEVICE_AUG: "
-                "RandAugment, random erasing and the on-device augmentation "
-                "come with the training data layer (ROADMAP Queue 1 item 3)")
+                "TPU.DEVICE_AUG: the on-device augmentation "
+                "(svit_tpu/data/device_aug.py) is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
         self.cfg = cfg
         self.mode = mode
         self.data_root = cfg.SSV2.DATA_ROOT
@@ -57,6 +60,8 @@ class Ssv2:
             else cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
         )
         self._construct()
+        self.aug = mode == "train" and cfg.AUG.ENABLE
+        self.rand_erase = self.aug and cfg.AUG.RE_PROB > 0
         self._epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -175,12 +180,50 @@ class Ssv2:
         fpaths = self._frames_list(index, rng)
         frames = dutils.retry_load_images(fpaths, self._num_retries)  # [T,H,W,C] u8
 
+        if self.aug:
+            frames = self._aug_frames(
+                frames, spatial_idx, min_scale, max_scale, crop_size, rng
+            )
+        else:
+            frames = transform.tensor_normalize(frames, cfg.DATA.MEAN, cfg.DATA.STD)
+            frames, _ = transform.spatial_sampling(
+                frames, rng,
+                spatial_idx=spatial_idx,
+                min_scale=min_scale, max_scale=max_scale, crop_size=crop_size,
+                random_horizontal_flip=cfg.DATA.RANDOM_FLIP,
+                inverse_uniform_sampling=cfg.DATA.INV_UNIFORM_SAMPLE,
+            )
+        return frames.astype(np.float32), label, index, {}
+
+    def _aug_frames(self, frames, spatial_idx, min_scale, max_scale, crop_size, rng):
+        cfg = self.cfg
+        aug = rand_augment_transform(
+            cfg.AUG.AA_TYPE,
+            interpolation=cfg.AUG.INTERPOLATION,
+            with_boxes=False,
+            rng=rng,
+        )
+        pil_frames = [Image.fromarray(f) for f in frames]
+        pil_frames = aug(pil_frames)
+        frames = np.stack([np.asarray(f) for f in pil_frames], axis=0)
+
         frames = transform.tensor_normalize(frames, cfg.DATA.MEAN, cfg.DATA.STD)
+        scl = cfg.DATA.TRAIN_JITTER_SCALES_RELATIVE
+        asp = cfg.DATA.TRAIN_JITTER_ASPECT_RELATIVE
         frames, _ = transform.spatial_sampling(
             frames, rng,
             spatial_idx=spatial_idx,
             min_scale=min_scale, max_scale=max_scale, crop_size=crop_size,
             random_horizontal_flip=cfg.DATA.RANDOM_FLIP,
             inverse_uniform_sampling=cfg.DATA.INV_UNIFORM_SAMPLE,
+            scale=scl if (self.mode == "train" and len(scl)) else None,
+            aspect_ratio=asp if (self.mode == "train" and len(asp)) else None,
         )
-        return frames.astype(np.float32), label, index, {}
+        if self.rand_erase:
+            erase = RandomErasing(
+                cfg.AUG.RE_PROB, mode=cfg.AUG.RE_MODE,
+                min_count=cfg.AUG.RE_COUNT, max_count=cfg.AUG.RE_COUNT,
+                rng=rng,
+            )
+            frames = erase(frames)
+        return frames

@@ -105,6 +105,24 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
     return train_step
 
 
+def make_packed_train_step(*args, **kwargs):
+    """``make_train_step`` with the metrics packed into ONE f32 vector on
+    the device, in ``metric_names``' order (sorted), so that the engine
+    fetches a window of steps in one stack and one device-to-host copy.
+    Returns ``(step_fn, metric_names)``; the names fill at the first call."""
+    base = make_train_step(*args, **kwargs)
+    names: list = []
+
+    def packed(state, video_batch, image_batch, generator):
+        s, m = base(state, video_batch, image_batch, generator)
+        ks = sorted(m)
+        if not names:
+            names.extend(ks)
+        return s, torch.stack([m[k].float() for k in ks])
+
+    return packed, names
+
+
 @contextlib.contextmanager
 def _evaluating(model):
     """Eval mode and ``torch.inference_mode()`` for one step; the model's

@@ -32,13 +32,18 @@ from svit_tpu_torch.utils import logging
 logger = logging.get_logger(__name__)
 
 
-def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host-to-device copy of a batch array, from pinned memory on the
-    card."""
+def to_device(array: np.ndarray, device: torch.device,
+              dtype: torch.dtype = None) -> torch.Tensor:
+    """One host-to-device copy of a batch array (cast to ``dtype`` on the
+    host first), from pinned memory on the card."""
     t = torch.from_numpy(np.ascontiguousarray(array))
     if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device=device, dtype=dtype)
+    if dtype is not None and dtype != t.dtype:
+        t = torch.empty(t.shape, dtype=dtype, pin_memory=True).copy_(t)
+    else:
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def perform_test(test_step, test_loader, test_meter, device):

@@ -19,7 +19,8 @@ their plain twins (``use_kernels=False``):
   mode under stochastic depth ``fused_ffn_residual_masked`` (K1 masked).
 
 The extras' projections, pools and FFN are tiny and stay plain PyTorch, as
-the JAX package leaves them to XLA.  So do the paths the JAX package runs
+the JAX package leaves them to XLA, with every product on IO-dtype operands
+and an f32 sum, forward and backward (``ll.dense``, ``ll.ffn``).  So do the paths the JAX package runs
 as plain XLA ops whatever its kernels: the ``max`` and ``avg`` pool modes
 (the grid pooled with padding k // 2, the extras passing through), the
 separate q, k and v projections of ``MVIT.SEPARATE_QKV`` on the normed
@@ -35,8 +36,8 @@ extras' attention output by ``mask1 / keep`` and the extras' FFN by
 runs the unmasked tail.  With ``MVIT.DROPOUT_RATE > 0`` the attention
 outputs and the MLP take dropout and the tail is unfused, as in JAX.
 Every op here is differentiable: the kernels' backward passes are K5 (the
-attention), K2 bare + K6 + K7 (the pools) and the plain twins' autograd
-(the LN-linear uses and the max pool).
+attention), K2 bare + K6 + K7 (the pools), the LN-linear uses' own
+backward and the plain twin's autograd (the max pool).
 """
 
 from __future__ import annotations
@@ -82,14 +83,6 @@ def _needs_pool(kernel, stride) -> bool:
     return int(np.prod(kernel)) != 1 or int(np.prod(stride)) != 1
 
 
-def _dense_extras(x, w, b, ln=None):
-    """Plain dense layer on the extras: product rounded, bias added in the IO
-    dtype (XLA's bf16 dot + bias)."""
-    B, E, _ = x.shape
-    return ll.ln_linear_reference(x.reshape(B * E, -1), w, b, ln=ln,
-                                  round_then_bias=True).view(B, E, -1)
-
-
 class _PoolConv(nn.Module):
     """A depthwise pool filter ``[head_dim, 1, kT, kH, kW]`` (``pool_*.weight``)."""
 
@@ -101,10 +94,7 @@ class _PoolConv(nn.Module):
 def _dense(x, layer: nn.Linear, dtype):
     """flax ``nn.Dense(dtype=...)`` on a stream of any rank: the product
     rounded to ``dtype``, the bias added in ``dtype``."""
-    return ll.ln_linear_reference(
-        x.reshape(-1, x.shape[-1]).to(dtype), layer.weight.to(dtype),
-        layer.bias, round_then_bias=True).view(*x.shape[:-1],
-                                                layer.out_features)
+    return ll.dense(x.to(dtype), layer.weight, layer.bias)
 
 
 class MultiScaleAttention(nn.Module):
@@ -180,8 +170,8 @@ class MultiScaleAttention(nn.Module):
             b = self.qkv.bias if self.use_qkv_bias else None
             qg, kvg = ops.ln_qkv(grid, ln1[0], ln1[1], w, b, C)
             en = ll.layer_norm(extras, ln1[0], ln1[1])
-            qe = _dense_extras(en, w[:C], None if b is None else b[:C])
-            kve = _dense_extras(en, w[C:], None if b is None else b[C:])
+            qe = ll.dense(en, w[:C], None if b is None else b[:C])
+            kve = ll.dense(en, w[C:], None if b is None else b[C:])
 
         if self.pool_q_on:
             qg, qe = self._pool(ops, qg, qe, ("q",), self.kernel_q,
@@ -209,7 +199,7 @@ class MultiScaleAttention(nn.Module):
         if self.residual_pooling and self.has_cls:
             # the reference adds the q residual to all rows but cls; the
             # kernel adds it to every row, so remove the cls row's projected q
-            cls_q = ll.ln_linear_reference(qe[:, 0], wp)
+            cls_q = ll.dense(qe[:, 0], wp)
             oe = torch.cat([(oe[:, 0] - cls_q)[:, None], oe[:, 1:]], dim=1)
         if drop is not None:
             og, oe = drop(og), drop(oe)
@@ -292,7 +282,7 @@ class MultiScaleBlock(nn.Module):
                 # attention's copy stays fused in its qkv launch)
                 wpj = self.proj.weight.to(dtype)
                 grid = ops.ln_dense(grid, ln1[0], ln1[1], wpj, self.proj.bias)
-                extras = _dense_extras(extras, wpj, self.proj.bias, ln=ln1)
+                extras = ll.dense(extras, wpj, self.proj.bias, ln=ln1)
         if self.stride_q and int(np.prod(self.stride_q)) > 1:
             # residual skip: max pool with kernel s+1 where the q stride is s
             kernel_skip = tuple(s + 1 if s > 1 else s for s in self.stride_q)
@@ -318,7 +308,7 @@ class MultiScaleBlock(nn.Module):
             out_g = ops.ffn_residual_masked(keep, grid, ag, *ln2, w1,
                                             fc1.bias, w2, fc2.bias, *masks)
         ex = extras + ae
-        ye = ll.ffn_reference(ex, *ln2, w1, fc1.bias, w2, fc2.bias)
+        ye = ll.ffn(ex, *ln2, w1, fc1.bias, w2, fc2.bias)
         if masks is not None:
             ye = ll.drop_path_scale(ye, masks[1], keep)
         return out_g, ex + ye

@@ -3,7 +3,7 @@
 ``LayerNorm`` normalises in f32 with eps **1e-6** (the reference's value; the
 PyTorch default is 1e-5).  ``Mlp`` holds the block's two dense layers; its
 forward is exact-erf GELU between them and runs through the K1 epilogue
-(``ops/ln_linear.py``) or, for the extras stream, ``ffn_reference``.
+(``ops/ln_linear.py``) or, for the extras stream, ``ln_linear.ffn``.
 
 ``keep_mask`` and ``dropout`` draw the train mode's random numbers from an
 explicit ``torch.Generator``.  Their streams cannot match JAX's, so the

@@ -241,10 +241,7 @@ def _head_act(x, act: str):
 def _dense(x, layer: nn.Linear):
     """A Linear in the activation dtype: rounded product, bias added in the
     IO dtype (flax ``nn.Dense(dtype=...)``)."""
-    lead = x.shape[:-1]
-    return ll.ln_linear_reference(
-        x.reshape(-1, x.shape[-1]), layer.weight.to(x.dtype), layer.bias,
-        round_then_bias=True).view(*lead, layer.out_features)
+    return ll.dense(x, layer.weight, layer.bias)
 
 
 class SViTHead(nn.Module):

@@ -184,6 +184,7 @@ SMEM_SM = 233472           # shared memory of one SM
 SMEM_RESERVED = 1024       # what the system keeps per block
 STAGES_MAX = 4
 RK_WIDE = 8        # the bias product's k-steps for 48 < R <= 128
+RK_CHUNKED = 16    # ... for 128 < R <= 256: two 128-column chunks
 PARTIAL_BYTES_MAX = 1 << 28   # f32 dK | dV partials of K5's query splits
 # blocks an SM the plan keeps (160 threads a block; ptxas at head_dim 96:
 # the forward takes about 130 registers a thread, which would hold three
@@ -210,6 +211,13 @@ def attention_smem(kind: str, hd: int, rk: int, stages: int) -> int:
         return (2 * tile + onehot + stages * (2 * tile + BQ * 16 + onehot)
                 + bars)
     raise ValueError(kind)
+
+
+def chunks(rk: int) -> int:
+    """128-column chunks of K5's dbias accumulator (``NCH`` in
+    ``csrc/attention.cu:attn_bwd_q_kernel``): the query side passes over the
+    key tiles once for the statistics and once per chunk."""
+    return rk // RK_WIDE if rk > RK_WIDE else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,7 +265,10 @@ def attention_plan(B: int, Nq: int, Nk: int, C: int, heads: int, R: int, *,
     product takes ``rk = ceil(R / 16)`` k-steps at head_dim 96 (the
     compiled instances); other head widths pad R to 48 (``rk`` 3).  A key
     grid past 48 (a block without k|v pooling) pads R to 128 (``RK_WIDE``)
-    at every head width.  The
+    at every head width, and a grid past 128 (256 px or more) pads it to
+    256 (``RK_CHUNKED``): the scores take all 16 k-steps, and K5's query
+    side takes dbias in two 128-column chunks, one more pass over the key
+    tiles for the second (``chunks``).  Past 256 the plan raises.  The
     ring takes the most stages (up to ``STAGES_MAX``, and no more than it
     carries) that keep the blocks an SM that the registers allow.  K5's key
     side splits the query tiles until its blocks fill the card twice,
@@ -266,16 +277,20 @@ def attention_plan(B: int, Nq: int, Nk: int, C: int, heads: int, R: int, *,
         raise ValueError(f"pooled attention takes head_dim 64, 96 or 128 "
                          f"(C={C}, heads={heads})")
     hd = C // heads
-    if R > 16 * RK_WIDE:
+    if R > 16 * RK_CHUNKED:
         raise ValueError(f"the rel-pos bias takes kT + kH + kW <= "
-                         f"{16 * RK_WIDE} (R={R})")
-    if R > 48:
+                         f"{16 * RK_CHUNKED}, two 128-column chunks of the "
+                         f"compiled instances (R={R})")
+    if R > 16 * RK_WIDE:
+        rk = RK_CHUNKED
+    elif R > 48:
         rk = RK_WIDE
     else:
         rk = 0 if R == 0 else (_cdiv(R, 16) if hd == 96 else 3)
     n_kt, q_tiles = _cdiv(Nk, BQ), _cdiv(Nq, BQ)
     kind = "bwd_q" if backward else "fwd"
-    stages = _stages(kind, hd, rk, 2 * n_kt if backward else n_kt)
+    stages = _stages(kind, hd, rk,
+                     (1 + chunks(rk)) * n_kt if backward else n_kt)
     smem = attention_smem(kind, hd, rk, stages)
     blocks = q_tiles * heads * B
     if not backward:

@@ -1,12 +1,13 @@
 """Box utilities (counterpart of ``svit_tpu/ops/box_ops.py``).
 
 Degenerate boxes are handled by clamped denominators, not asserts, so the
-losses stay finite on all-zero (absent) targets.  ``zero_empty_boxes`` and
-the HAOG matching belong to the data layer and are not ported yet.
+losses stay finite on all-zero (absent) targets.  ``zero_empty_boxes`` works
+on tensors; ``match_haog`` is numpy, for the data layer.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -42,3 +43,60 @@ def paired_giou(boxes1: torch.Tensor, boxes2: torch.Tensor,
     wh_enc = (rb_enc - lt_enc).clamp(min=0)
     area_enc = wh_enc[..., 0] * wh_enc[..., 1]
     return iou - (area_enc - union) / area_enc.clamp(min=eps)
+
+
+def zero_empty_boxes(boxes: torch.Tensor, mode: str = "cxcywh",
+                     eps: float = 0.05) -> torch.Tensor:
+    """Zero out boxes whose width or height <= eps (reference :116-130)."""
+    if mode == "xyxy":
+        wh = boxes[..., 2:4] - boxes[..., 0:2]
+    elif mode == "cxcywh":
+        wh = boxes[..., 2:4]
+    else:
+        raise NotImplementedError(mode)
+    empty = (wh <= eps).any(dim=-1, keepdim=True)
+    return torch.where(empty, torch.zeros_like(boxes), boxes)
+
+
+# ---------------------------------------------------------------------------
+# HAOG matching: numpy on the host, inside the data pipeline
+# ---------------------------------------------------------------------------
+
+HIGH_COST = 1e8
+CONTACT_THRESHOLD = 0.1
+
+
+def match_haog(haog: np.ndarray):
+    """Order (hand1, hand2, obj1, obj2) by center distance; derive the
+    contact state (reference ``box_ops.py:140-194``).
+
+    ``haog``: [4, 4] boxes (two hands, then two objects).  As in the
+    reference, the centers are the first two coordinates of the boxes as
+    passed.  f32 throughout: ``1e8 + small`` rounds back to 1e8, so an
+    ordering that involves a missing box ties and never swaps.  Returns
+    (reordered haog [4, 4], contact_state [2] in {-1, 0, 3})."""
+    haog = np.asarray(haog, dtype=np.float32)
+    centers = haog[:, :2]
+    diff = centers[:2, None, :] - centers[None, 2:, :]
+    cost = np.sqrt(np.sum(diff * diff, axis=-1, dtype=np.float32))
+    obj_is_zero = np.all(haog[2:] == 0, axis=-1)
+    hand_is_zero = np.all(haog[:2] == 0, axis=-1)
+    cost[:, obj_is_zero] = HIGH_COST
+    cost[:, hand_is_zero] = HIGH_COST
+
+    ord1 = np.float32(cost[0, 0] + cost[1, 1])
+    ord2 = np.float32(cost[0, 1] + cost[1, 0])
+    if ord2 < ord1:
+        h1, h2, o1, o2 = haog[0], haog[2], haog[1], haog[3]
+        haog = np.stack([h1, h2, o2, o1], axis=0)
+        dists = (cost[0, 1], cost[1, 0])
+    else:
+        dists = (cost[0, 0], cost[1, 1])
+
+    def _state(d):
+        if d == HIGH_COST:
+            return -1
+        return 3 if d < CONTACT_THRESHOLD else 0
+
+    contact = np.array([_state(d) for d in dists], dtype=np.int64)
+    return haog.astype(np.float32), contact

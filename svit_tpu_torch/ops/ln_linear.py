@@ -231,6 +231,24 @@ def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
     return y if x_add is None else (y, s)
 
 
+def ln_linear_mm(x, w, bias=None, *, ln=None, gelu=False,
+                 round_then_bias=False):
+    """``ln_linear_reference``'s arithmetic with the product on IO-dtype
+    operands and an f32 sum (``_mm``), rounded once: the plain ops of the
+    extras stream and of the options that the JAX package leaves to XLA
+    (flax ``Dense(dtype=...)``: a bf16 dot with f32 accumulation).  No
+    autograd of its own; ``dense`` and ``ffn`` differentiate it."""
+    dt = x.dtype
+    xn = x if ln is None else layer_norm(x, ln[0], ln[1])
+    acc = _mm(xn, w.to(dt).t())
+    if round_then_bias:
+        y = acc.to(dt)
+        return y if bias is None else y + bias.to(dt)
+    if bias is not None:
+        acc = acc + bias.float()
+    return (F.gelu(acc) if gelu else acc).to(dt)
+
+
 def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
               round_then_bias=False, residual=None, split=None,
               mask_add=None, mask_out=None, keep=1.0, rows=1):
@@ -417,6 +435,43 @@ def _ffn_vjp(residual):
     return backward
 
 
+def _dense_vjp(tensors, static, grads, wanted):
+    """Backward of ``dense``: the LN (if any) recomputed, then the product's
+    gradients on IO-dtype operands (``_dense_bwd``); the bias gradient summed
+    in the IO dtype, in which the bias was added."""
+    x, ln_w, ln_b, w, b = tensors
+    ln = None if ln_w is None else (ln_w, ln_b)
+    leaves, _, xn = _prologue(_flat(x), ln=ln)
+    gy = _flat(grads[0])
+    dxn, dw = _dense_bwd(xn.detach(), w, gy.float(), wanted[3])
+    gx, _, glw, glb = _prologue_grads(leaves, [xn], [dxn],
+                                      [wanted[0], False, *wanted[1:3]])
+    db = gy.sum(0).to(b.dtype) if b is not None and wanted[4] else None
+    return [None if gx is None else gx.view(x.shape), glw, glb, dw, db]
+
+
+def dense(x, w, b=None, ln=None):
+    """A dense layer on a stream of any rank in plain PyTorch with the
+    products on IO-dtype operands (``ln_linear_mm``): ``x`` [..., K] (LN'd
+    first with ``ln``), ``w`` [N, K] cast to ``x``'s dtype.  The product is
+    rounded and the bias added in the IO dtype (flax ``Dense(dtype=...)``).
+    Differentiable with the same operand types."""
+    ln_w, ln_b = ln if ln is not None else (None, None)
+    return kernel_vjp(
+        lambda x, lw, lb, w, b: ln_linear_mm(
+            _flat(x), w, b, ln=None if lw is None else (lw, lb),
+            round_then_bias=True).view(*x.shape[:-1], w.shape[0]),
+        _dense_vjp, (x, ln_w, ln_b, w.to(x.dtype), b))
+
+
+def ffn(x, ln_w, ln_b, w1, b1, w2, b2):
+    """LN + MLP without residual in plain PyTorch (the extras' FFN, JAX
+    ``ffn_reference``): ``ffn_reference``'s rounding with the products on
+    IO-dtype operands; its backward is ``fused_ffn``'s."""
+    return kernel_vjp(lambda *t: _ffn(ln_linear_mm, *t), _ffn_vjp(False),
+                      (x, ln_w, ln_b, w1, b1, w2, b2))
+
+
 def _proj_vjp(tensors, static, grads, wanted):
     """Backward of ``linear_proj``: ``xn @ w.T`` rounded, ``+ b`` in the IO
     dtype."""
@@ -519,7 +574,7 @@ def fused_ffn(x, ln_w, ln_b, w1, b1, w2, b2):
     """LN + MLP without residual (JAX ``fused_ffn``, ``_ffn_kernel``'s op
     order) as two K1 launches: LN -> fc1 + b1 in f32 -> exact GELU -> one
     rounding; then fc2 + b2 in f32 and one rounding.  No model path calls
-    it, as in the JAX package: the extras keep ``ffn_reference``."""
+    it, as in the JAX package: the extras take ``ffn``."""
     return kernel_vjp(lambda *t: _ffn(ln_linear, *t), _ffn_vjp(False),
                       (x, ln_w, ln_b, w1, b1, w2, b2))
 

@@ -100,3 +100,55 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     put_linear(h["contact_mlp"], "head.contact_mlp")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in state.items()}
+
+
+def inflate_patch_kernel(w2d: torch.Tensor, t: int) -> torch.Tensor:
+    """Inflate a 2D patch kernel [out, in, kH, kW] over time (divide by t),
+    reference ``checkpoint.py:159-195`` / ``models/utils.py:100-118``."""
+    return w2d[:, :, None].repeat(1, 1, t, 1, 1) / float(t)
+
+
+def _resize_nearest(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
+    """``F.interpolate(mode='nearest')`` along one axis."""
+    src = x.shape[axis]
+    if src == size:
+        return x
+    idx = torch.from_numpy(
+        np.floor(np.arange(size) * src / size).astype(np.int64))
+    return x.index_select(axis, idx)
+
+
+def load_timm_pretrained(path: str, num_patches: int, patch_kernel_t: int,
+                         patch_kernel_hw, num_classes: int
+                         ) -> Dict[str, torch.Tensor]:
+    """timm-style image pretrain -> SViT state dict (reference
+    ``models/utils.py:87-193``, ``MODEL.LOAD_IN_PRETRAIN``).
+
+    Rules: drop the classifier on a class-count mismatch, nearest-resize the
+    positional embedding to the new patch count, split ``pos_embed`` into
+    ``pos_embed_class`` + ``pos_embed_spatial``, inflate the 2D patch kernel
+    over time by repetition (the reference expands without dividing here,
+    unlike the checkpoint-inflation path)."""
+    state = load_torch_state(path)
+
+    cls_name = "head" if "head.weight" in state else "head.projection"
+    w = state.get(f"{cls_name}.weight")
+    if w is not None and w.shape[0] != num_classes:
+        state.pop(f"{cls_name}.weight", None)
+        state.pop(f"{cls_name}.bias", None)
+
+    if "pos_embed" in state:
+        pos = state.pop("pos_embed")   # [1, 1 + P, C]
+        if num_patches + 1 != pos.shape[1]:
+            pos = torch.cat([pos[:, :1], _resize_nearest(
+                pos[:, 1:], num_patches, axis=1)], dim=1)
+        state["pos_embed_class"] = pos[:, :1]
+        state["pos_embed_spatial"] = pos[:, 1:]
+
+    w = state.get("patch_embed.proj.weight")
+    if w is not None and w.dim() == 4:   # [out, in, kH, kW]
+        w = _resize_nearest(w, patch_kernel_hw[0], axis=2)
+        w = _resize_nearest(w, patch_kernel_hw[1], axis=3)
+        state["patch_embed.proj.weight"] = w[:, :, None].repeat(
+            1, 1, patch_kernel_t, 1, 1)
+    return state

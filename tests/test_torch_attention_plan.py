@@ -116,12 +116,14 @@ def test_plan_refuses_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="head_dim"):
         ta.attention_plan(8, 64, 64, 80 * 2, 2, 15)
     with pytest.raises(ValueError, match="kT"):
-        ta.attention_plan(8, 64, 64, 96, 1, 16 * ta.RK_WIDE + 1)
+        ta.attention_plan(8, 64, 64, 96, 1, 16 * ta.RK_CHUNKED + 1)
     # other head widths pad R to 48: one bias instance each
     assert ta.attention_plan(8, 64, 64, 128, 1, 15).rk == 3
-    # past 48 every head width pads R to 128
+    # past 48 every head width pads R to 128, past 128 to 256
     for C in (64, 96, 128):
         assert ta.attention_plan(8, 64, 64, C, 1, 49).rk == ta.RK_WIDE
+        assert ta.attention_plan(8, 64, 64, C, 1,
+                                 16 * ta.RK_WIDE + 1).rk == ta.RK_CHUNKED
 
 
 def _no_kv_pool_arch(frames):

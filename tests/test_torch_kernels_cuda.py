@@ -704,6 +704,32 @@ def test_pooled_attention_wide_bias(gen, k_shape, heads, hd):
           b, do, k_shape, hd ** -0.5, heads, True)
 
 
+@pytest.mark.parametrize("k_shape,heads,hd", [((8, 64, 64), 1, 96),
+                                              ((8, 64, 64), 2, 64),
+                                              ((8, 64, 64), 1, 128),
+                                              ((8, 80, 80), 1, 96)])
+def test_pooled_attention_chunked_bias(gen, k_shape, heads, hd):
+    """K4 and K5 at a key grid past 128 (R = 136, the first block without
+    k|v pooling at 16 x 256; R = 168 at 16 x 320): the chunked instance,
+    700 of the queries, with 9 extras keys."""
+    q, kv, b = _attention_inputs(gen, 1, 700, k_shape, 9, heads, hd, True)
+    assert ta.attention_plan(1, 700, kv.shape[1], heads * hd, heads,
+                             sum(k_shape), backward=True).rk == ta.RK_CHUNKED
+    _gate(ta.pooled_attention, ta.pooled_attention_reference, q, kv, b,
+          k_shape, hd ** -0.5, heads, True)
+    do = _randn(gen, *q.shape)
+    args = (q, kv, b, do, k_shape, hd ** -0.5, heads, True)
+    _gate(ta.pooled_attention_bwd, ta.pooled_attention_bwd_reference, *args)
+    # dbias alone, and the second chunk's columns alone, under the gate
+    db = ta.pooled_attention_bwd(*args)[2].float()
+    d16 = ta.pooled_attention_bwd_reference(*args)[2].float()
+    d32 = ta.pooled_attention_bwd_reference(*_f32(args))[2].float()
+    for cols in (slice(None), slice(128, None)):
+        a, p16, p32 = (t[..., cols].flatten() for t in (db, d16, d32))
+        assert torch.isfinite(a).all()
+        assert _rel(a, p32) <= 3 * _rel(p16, p32) + 2e-3, cols
+
+
 def test_wrapper_rejects_f32_on_the_card(gen):
     x = _randn(gen, 64, 96, dtype=torch.float32)
     w = _randn(gen, 96, 96, dtype=torch.float32)
