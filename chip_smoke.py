@@ -53,8 +53,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forward; ``engine.test.test(cfg)`` (10 views x 3 crops, 120 clips) for
    kernels in bf16 at the config's batch of 64, and the plain versions in
    bf16 and f32 at batch 16, the video-level scores gated as above, each
-   run's top-1 and top-5, the kernel run's launches against the forward's
-   per batch, its test loop's clips/s; ``make_eval_step`` with the loss
+   run's top-1 and top-5, the kernel run's test step (a CUDA graph): its
+   capture's launches against the forward's and one replay per batch, its
+   test loop's clips/s; ``make_eval_step`` with the loss
    (consistency l1: a 128-frame frames forward) on a val batch of 8 from
    the tree and ``make_image_eval_step`` on phase 7's image batch, the
    losses gated, the top-k verdicts of kernels and plain f32 compared
@@ -75,13 +76,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the steady steps), data wait, device time, idle share and peak memory.
    Then a rerun to 3 epochs resumes at epoch 2 with the state equal bit for
    bit, and a SIGTERM after step 2 saves a mid-epoch checkpoint from which
-   the rerun starts at iter 2.
+   the rerun starts at iter 2.  The Trainer's step is the captured one
+   (phase 10): its first call warms up and captures, every later call
+   replays (no host launches), and the graph holds the step's launch
+   counts; its profiled step is a replay.  Then one epoch with
+   ``TPU.DEVICE_AUG`` (uint8 frames at ``TPU.RAW_SIZE``, augmented inside
+   the captured step): finite metrics, wall and data time per step;
+10. compiled: the CUDA graphs of ``engine/graphs.py`` at the full size.
+   The serving forward (``BatchedPredictor``) at batch 8 and 1, bit-equal
+   to the eager forward; the train step on phase 7's batch and seed, its
+   loss bit-equal to phase 7's eager kernel step and its gradient under
+   the gate against phase 7's plain runs, the capture's launch counts;
+   the eval (with the consistency loss), image-eval and batch-64 test
+   steps against their eager outputs.  Each path's replays and eager
+   calls are timed in turns in the same call (median wall, a profiled
+   call's device time, idle share); each graph's hand-written kernel
+   nodes, read from its ``cudaGraph_t``, must be one for each launch its
+   capture counted, and a profiled replay must show each of those
+   kernels (the profiler loses a record now and then, so not its exact
+   count); the train step's peak memory and model FLOP/s against the
+   bf16 peak; the step's ``StepCache`` against the per-use form captured
+   beside it (the loss bit for bit, device time and events of a replay
+   of each).
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
 and modes, and of K2's and K4's train-step rows, the train step;
 ``train_launches`` counts the train step for all, ``test_launches`` one
-batch-64 test forward, ``trainer_launches`` phase 9's first run; K1, K4
+batch-64 test forward, ``trainer_launches`` phase 9's first run (its
+warm-ups and captures, and its eager eval steps' none: they replay too),
+``train_replay_launches`` and ``serving_replay_launches`` a replay of phase
+10's train-step and batch-8 serving graphs; K1, K4
 and K5 carry their uses), the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
@@ -169,7 +194,11 @@ KIND = {"ln_linear_masked": "ln_linear", TRAIN_K4: "pooled_attention",
 
 
 def log(*a):
+    """A line to standard output and to ``chiprun_out/chip_smoke.log`` (the
+    whole run's lines, where the output is cut to its end)."""
     print(*a, flush=True)
+    with open(os.path.join(REPO, "chiprun_out", "chip_smoke.log"), "a") as f:
+        print(*a, file=f)
 
 
 def card_line():
@@ -768,6 +797,9 @@ def run_train_phase(cfg, torch):
         ("excess", "name", "err_kernels", "err_plain_bf16", "f32_norm"), worst))
     if not ok:
         raise SystemExit("train gate failed on the global gradient")
+    # phase 10 holds the captured step to the same references
+    reference = {"losses": losses, "names": names,
+                 "flat": {k: flat[k] for k in ("plain_bf16", "plain_f32")}}
     del grads, flat
 
     want = dict(expected_train_launches(arch))
@@ -814,7 +846,7 @@ def run_train_phase(cfg, torch):
                        "params_moved": moved, "params": len(params)}
     result["profile"] = profile_step(kernel_step, kernel_state, video, image,
                                      torch, ms)
-    return result, table, uses, details
+    return result, table, uses, details, reference
 
 
 def gemm_rows(rows):
@@ -1405,6 +1437,7 @@ def run_multiview_test(root, arch, torch):
     batch, its wall time and clips/s."""
     import pickle
 
+    from svit_tpu_torch.engine import graphs
     from svit_tpu_torch.engine import test as test_mod
     from svit_tpu_torch.ops import _lib
 
@@ -1418,6 +1451,7 @@ def run_multiview_test(root, arch, torch):
         torch.cuda.synchronize()
         loop["s"] = time.perf_counter() - t0
         loop["batches"] = len(args[1])
+        loop["step"] = args[0]
         return out
 
     test_mod.perform_test = timed
@@ -1447,11 +1481,17 @@ def run_multiview_test(root, arch, torch):
                 f"loop {loop['s']:.2f} s ({run['clips_per_s']:.2f} clips/s), "
                 f"test() {wall:.2f} s")
             if name == "kernels":
-                want = {k: v * loop["batches"]
-                        for k, v in expected_launches(arch).items()}
-                log(f"test launches: {launches} over {loop['batches']} "
-                    f"batch-64 forwards (expected {want})")
-                if launches != want:
+                # the test step is a graph (engine/graphs.py): its warm-up
+                # and capture launch from the host, its replays do not
+                per = dict(expected_launches(arch))
+                want = {k: v * (graphs.WARMUP + 1) for k, v in per.items()}
+                (entry,) = loop["step"].entries.values()
+                log(f"test launches: {launches} from the host (expected "
+                    f"{want}: warm-up and capture); the graph captured "
+                    f"{entry.launches} and replayed {entry.replays} times "
+                    f"for {loop['batches']} batch-64 forwards")
+                if launches != want or entry.launches != per or \
+                        entry.replays != loop["batches"]:
                     raise SystemExit("test path launch counts differ")
                 run["launches"] = launches
                 run["launches_per_forward"] = dict(expected_launches(arch))
@@ -1740,11 +1780,15 @@ def trainer_cfg(root, out, max_epoch):
 
 class TrainerSpy:
     """Patches ``engine.train`` for one run of ``train(cfg)``: every Trainer
-    made, and around every step its start time, its launches (the counter's
-    difference over the step), its metric vector, and at ``profile_at`` a
-    profile of the step; the first step's inputs with ``capture``; a
-    SIGTERM to this process after step ``sigterm_after``; the epochs'
-    (cur_epoch, start_iter), the eval stats and the resumed state."""
+    made, and around every call of its captured step
+    (``engine/graphs.py:CapturedTrainStep``) its start time, its host
+    launches (the counter's difference over the call: the warm-up and the
+    capture at a graph's first call, none at a replay), a copy of its
+    metric vector (the graph's output is overwritten by the next replay),
+    and at ``profile_at`` a profile of the step; the first step's inputs
+    with ``capture``; a SIGTERM to this process after step
+    ``sigterm_after``; the epochs' (cur_epoch, start_iter), the eval stats
+    and the resumed state."""
 
     def __init__(self, torch, profile_at=None, capture=False,
                  sigterm_after=None, on_resume=None):
@@ -1755,19 +1799,18 @@ class TrainerSpy:
         self.first, self.profile = None, None
 
     def __enter__(self):
-        from svit_tpu_torch.engine import steps
         from svit_tpu_torch.engine import train as ttrain
         from svit_tpu_torch.ops import _lib
 
         spy, torch = self, self.torch
         self._saved = [(ttrain, "Trainer", ttrain.Trainer),
-                       (steps, "make_packed_train_step",
-                        steps.make_packed_train_step),
+                       (ttrain.graphs, "CapturedTrainStep",
+                        ttrain.graphs.CapturedTrainStep),
                        (ttrain, "train_epoch", ttrain.train_epoch),
                        (ttrain, "eval_epoch", ttrain.eval_epoch),
                        (ttrain.cu, "load_train_state",
                         ttrain.cu.load_train_state)]
-        base_trainer, make_step, epoch_fn, eval_fn, load_fn = (
+        base_trainer, base_step, epoch_fn, eval_fn, load_fn = (
             o for _, _, o in self._saved)
 
         class Trainer(base_trainer):
@@ -1775,10 +1818,8 @@ class TrainerSpy:
                 super().__init__(*a, **k)
                 spy.trainers.append(self)
 
-        def make(*a, **k):
-            fn, names = make_step(*a, **k)
-
-            def step(state, video, image, gen):
+        class Captured(base_step):
+            def __call__(self, state, video, image, gen):
                 i = len(spy.steps)
                 if spy.capture and i == 0:
                     spy.first = dict(
@@ -1787,22 +1828,23 @@ class TrainerSpy:
                         video={n: t.clone() for n, t in video.items()},
                         image={n: t.clone() for n, t in image.items()},
                         seed=gen.initial_seed())
+                call = super().__call__
                 before = _lib.LAUNCHES.copy()
                 t0 = time.perf_counter()
                 if i == spy.profile_at:
                     spy.profile = profile_trainer_step(
-                        torch, lambda: fn(state, video, image, gen))
+                        torch, lambda: call(state, video, image, gen))
                     out = spy.profile.pop("out")
                 else:
-                    out = fn(state, video, image, gen)
-                spy.steps.append(dict(t0=t0, metrics=out[1],
+                    out = call(state, video, image, gen)
+                spy.steps.append(dict(t0=t0, metrics=out[1].clone(),
                                       profiled=i == spy.profile_at,
+                                      graphs=len(self.entries),
                                       launches=dict(_lib.LAUNCHES - before)))
                 if spy.sigterm_after is not None and \
                         len(spy.steps) == spy.sigterm_after:
                     os.kill(os.getpid(), signal.SIGTERM)
                 return out
-            return step, names
 
         def epoch(cfg, trainer, state, meter, cur_epoch, start_iter=0,
                   guard=None):
@@ -1821,7 +1863,7 @@ class TrainerSpy:
                 spy.on_resume(path, state)
             return out
 
-        for (mod, attr, _), new in zip(self._saved, (Trainer, make, epoch,
+        for (mod, attr, _), new in zip(self._saved, (Trainer, Captured, epoch,
                                                      evaluate, load)):
             setattr(mod, attr, new)
         return self
@@ -1849,8 +1891,22 @@ def profile_trainer_step(torch, call):
             "device_ms": sum(r[2] for r in rows),
             "kernels_ms": sum(r[2] for r in rows
                               if any(k in r[0] for k in OUR_KERNELS)),
+            "families": kernel_families(rows),
             "f32_gemm_owners": gemm_owners(prof, torch),
             "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:16]]}
+
+
+def kernel_families(rows):
+    """Launch events of the hand-written kernels in a profile's rows, by
+    the name pattern of ``OUR_KERNELS`` (a replayed graph's kernels show
+    no launching op, only their names)."""
+    out = collections.Counter()
+    for name, count, _ in rows:
+        for k in OUR_KERNELS:
+            if k in name:
+                out[k] += count
+                break
+    return dict(out)
 
 
 def extras_gemm_rows(owners):
@@ -1972,6 +2028,7 @@ def run_trainer_phase(torch):
     the launches of the first run."""
     import tempfile
 
+    from svit_tpu_torch.engine import graphs
     from svit_tpu_torch.engine import train as ttrain
     from svit_tpu_torch.ops import _lib
     from svit_tpu_torch.utils import checkpoint as cu
@@ -2022,12 +2079,24 @@ def run_trainer_phase(torch):
         log(f"phase 9 step losses {[round(v, 4) for v in losses]}")
         if not bool(torch.isfinite(metrics).all()):
             raise SystemExit("phase 9: a non-finite step metric")
+        # the step is a graph: its first call warms up and captures (host
+        # launches (WARMUP + 1) times the step's), every later call replays
+        # (none from the host); the graph keeps the capture's counts
         want = dict(expected_train_launches(arch))
+        (entry,) = trainer.step_fn.entries.values()
+        first_call = {k: v * (graphs.WARMUP + 1) for k, v in want.items()}
         for i, st in enumerate(a.steps):
-            if st["launches"] != want:
+            if st["launches"] != (first_call if i == 0 else {}):
                 raise SystemExit(f"phase 9: step {i} launched "
-                                 f"{st['launches']}, not {want}")
-        log(f"phase 9 launches per step: all {len(a.steps)} equal {want}")
+                                 f"{st['launches']} from the host")
+        if entry.launches != want or entry.replays != len(a.steps):
+            raise SystemExit(f"phase 9: the graph holds {entry.launches} "
+                             f"over {entry.replays} replays, not {want}")
+        log(f"phase 9 launches: the step's graph captured {want}; its first "
+            f"call launched {graphs.WARMUP + 1} times that from the host "
+            f"(warm-up and capture), its {entry.replays} replays none; the "
+            f"profiled replay's hand-written kernel events "
+            f"{a.profile['families']}")
         ckpts = sorted(os.listdir(cu.checkpoint_dir(cfg.OUTPUT_DIR)))
         log(f"phase 9 checkpoints: {ckpts}")
         if ckpts != ["checkpoint_epoch_00001", "checkpoint_epoch_00002"]:
@@ -2039,17 +2108,15 @@ def run_trainer_phase(torch):
         log(f"phase 9 eval stats (epoch 2): "
             + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                         for k, v in a.evals[-1].items()))
+        # a replay's kernels show no launching op: phases 7 and 10 hold the
+        # eager step's f32 GEMM rows to their owners
         prof = a.profile
-        owners = extras_gemm_rows(prof["f32_gemm_owners"])
-        log(f"phase 9 profiled step: wall {prof['wall_ms']:.1f} ms, device "
-            f"{prof['device_ms']:.1f} ms, hand-written kernels "
-            f"{prof['kernels_ms']:.1f} ms; f32 GEMM rows by launching op:")
-        for key, count, ms, f32 in prof["f32_gemm_owners"][:8]:
-            log(f"  {ms:9.3f} ms x{count:<5d} "
-                f"{'f32 operands ' if f32 else ''}{key[:150]}")
-        if owners:
-            raise SystemExit(f"phase 9: f32 GEMM rows from plain products: "
-                             f"{owners[:4]}")
+        log(f"phase 9 profiled step (a replay): wall {prof['wall_ms']:.1f} "
+            f"ms, device {prof['device_ms']:.1f} ms, hand-written kernels "
+            f"{prof['kernels_ms']:.1f} ms")
+        for row in prof["top"][:8]:
+            log(f"  {row['ms']:9.3f} ms x{row['count']:<5d} "
+                f"{row['name'][:90]}")
         # per-step wall (start to start: the step, the metric flush, the
         # next batch's data wait); the steady steps are neither an epoch's
         # first (warm-up; its data wait holds the loader start) nor its last
@@ -2127,8 +2194,459 @@ def run_trainer_phase(torch):
         result["preemption"] = {"saved": os.path.basename(last),
                                 "resumed": d.epochs, "step": state_d.step}
         del c, d, state_c, state_d
+        torch.cuda.empty_cache()
+
+        # run E: one epoch with the on-device augmentation (uint8 frames at
+        # TPU.RAW_SIZE, augmented inside the captured step)
+        cfge = trainer_cfg(root, os.path.join(tmp, "device_aug"), 1)
+        cfge.TPU.DEVICE_AUG = True
+        t0 = time.perf_counter()
+        with TrainerSpy(torch, profile_at=2) as e:
+            state_e = ttrain.train(cfge)
+        torch.cuda.synchronize()
+        wall_e = time.perf_counter() - t0
+        trainer_e = e.trainers[0]
+        metrics = torch.stack([st["metrics"] for st in e.steps]).cpu()
+        starts = [st["t0"] for st in e.steps]
+        walls = [(starts[i + 1] - starts[i]) * 1e3
+                 for i in range(len(starts) - 1)]
+        data_ms = [d * 1e3 for d in trainer_e.data_seconds]
+        log(f"phase 9 run E (TPU.DEVICE_AUG, raw {cfge.TPU.RAW_SIZE} px): "
+            f"train() {wall_e:.1f} s, {len(e.steps)} steps, losses "
+            f"{[round(v, 4) for v in metrics[:, names.index('loss')].tolist()]}"
+            f", step wall ms {[round(w, 1) for w in walls]} (median of the "
+            f"non-first {statistics.median(walls[1:]):.1f}), data ms "
+            f"{[round(d, 1) for d in data_ms]} (median of the non-first "
+            f"{statistics.median(data_ms[1:]):.1f}); the profiled replay's "
+            f"device time {e.profile['device_ms']:.1f} ms (run A's "
+            f"{prof['device_ms']:.1f}); {card_line()}")
+        if len(e.steps) != spe or state_e.step != spe or \
+                not bool(torch.isfinite(metrics).all()):
+            raise SystemExit("phase 9: the TPU.DEVICE_AUG epoch failed")
+        result["device_aug"] = {"wall_s": wall_e, "steps": len(e.steps),
+                                "step_wall_ms": walls, "data_ms": data_ms,
+                                "device_ms": e.profile["device_ms"],
+                                "losses": metrics[:, names.index(
+                                    "loss")].tolist()}
+        del e, trainer_e, state_e
     torch.cuda.empty_cache()
     return result, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the compiled steps (engine/graphs.py): CUDA graphs of the
+# serving forward, the train step and the eval and test steps
+# ---------------------------------------------------------------------------
+
+TIMED = 5
+TEST_BATCH = 64
+
+
+def time_calls(fn, torch, n):
+    """Wall ms of ``n`` calls, each ended by a synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def profile_call(fn, torch):
+    """One call under torch.profiler: its device time by kernel and the
+    hand-written kernels' launch events by name pattern."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof, torch)
+    return {"wall_ms": wall_ms, "device_ms": sum(r[2] for r in rows),
+            "kernels_ms": sum(r[2] for r in rows
+                              if any(k in r[0] for k in OUR_KERNELS)),
+            "events": sum(r[1] for r in rows),
+            "families": kernel_families(rows),
+            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:12]]}
+
+
+# each launch of these wrappers adds one node of one of these kernels to a
+# graph (K5 and K7 add a reduce kernel besides, on some launches only)
+NODE_KERNELS = (
+    (("ln_linear", "ln_linear_masked"), ("ln_linear_kernel",)),
+    (("pool_ln", "pool_conv", "pool_conv_dx"),
+     ("pool_ln_kernel", "halo_gen_kernel", "dx_kernel")),
+    (("pool_max",), ("pool_max_kernel",)),
+    (("pooled_attention",), ("attn_fwd_kernel",)),
+    (("pooled_attention_bwd",), ("attn_bwd_q_kernel",)),
+    (("pool_conv_dk",), ("conv_dk_kernel", "dk_gen_kernel")),
+)
+KERNEL_NAMES = ("ln_linear_kernel", "pool_ln_kernel", "halo_gen_kernel",
+                "dx_kernel", "pool_max_kernel", "attn_fwd_kernel",
+                "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
+                "attn_bwd_reduce_kernel", "conv_dk_kernel",
+                "conv_dk_reduce_kernel", "dk_gen_kernel")
+
+
+def node_graph():
+    """The port's ``graphs.CudaGraph``, keeping its ``cudaGraph_t`` after
+    the capture so that ``kernel_nodes`` can list it; the replay
+    instantiates it as usual."""
+    import torch
+    from svit_tpu_torch.engine import graphs
+
+    g = graphs.CudaGraph.__new__(graphs.CudaGraph)
+    g.graph = torch.cuda.CUDAGraph(keep_graph=True)
+    g.graph.enable_debug_mode()
+    return g
+
+
+def kernel_nodes(graph):
+    """The hand-written kernels among a ``node_graph``'s nodes, by kernel:
+    ``cudaGraphDebugDotPrint`` writes one line per node, a kernel node's
+    with its (mangled) name.  A replay runs every node."""
+    path = os.path.join(REPO, "chiprun_out", f"graph_{os.getpid()}.dot")
+    graph.graph.debug_dump(path)
+    nodes = collections.Counter()
+    try:
+        with open(path) as f:
+            for line in f:
+                if "topoId" in line:
+                    nodes.update(k for k in KERNEL_NAMES if k in line)
+    finally:
+        os.remove(path)
+    return dict(nodes)
+
+
+def check_nodes(what, nodes, launches):
+    """The graph holds one node for each launch the capture counted: both
+    counts are exact, where a profile of a replay loses a kernel's record
+    now and then (the same one in every profile of a call)."""
+    for counters, kernels in NODE_KERNELS:
+        want = sum(launches.get(c, 0) for c in counters)
+        have = sum(nodes.get(k, 0) for k in kernels)
+        if have != want:
+            raise SystemExit(f"phase 10 {what}: the graph holds {have} "
+                             f"{'/'.join(kernels)} nodes, the capture "
+                             f"launched {want} ({'+'.join(counters)})")
+
+
+def eager_and_graph(what, eager_fn, graph_fn, torch, graph, launches,
+                    n=TIMED):
+    """Timed and profiled eager calls and replays of one path in turns
+    (eager, graph, graph, eager); the medians, device times and idle
+    shares.  The graph's kernel nodes must match the capture's
+    ``launches`` (``check_nodes``), and a profiled replay must show every
+    hand-written kernel the graph holds, never more often."""
+    times = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        fn = eager_fn if kind == "eager" else graph_fn
+        times[kind] += time_calls(fn, torch, n)
+    out = {}
+    for kind, fn in (("eager", eager_fn), ("graph", graph_fn)):
+        prof = profile_call(fn, torch)
+        ms = statistics.median(times[kind])
+        out[kind] = dict(prof, ms=times[kind], median_ms=ms,
+                         idle_share=max(0.0, 1 - prof["device_ms"] / ms))
+    e, g = out["eager"], out["graph"]
+    if not (e["device_ms"] > 0 and g["device_ms"] > 0):
+        raise SystemExit(f"phase 10 {what}: a profiled call shows no device "
+                         f"time")
+    log(f"phase 10 {what}: wall median eager {e['median_ms']:.2f} ms, graph "
+        f"{g['median_ms']:.2f} ms ({2 * n} calls each, in turns); device "
+        f"eager {e['device_ms']:.2f} ms, graph {g['device_ms']:.2f} ms; idle "
+        f"share eager {e['idle_share']:.3f}, graph {g['idle_share']:.3f}; "
+        f"graph wall / its device time "
+        f"{g['median_ms'] / g['device_ms']:.3f}; device events eager "
+        f"{e['events']}, graph {g['events']}")
+    nodes = kernel_nodes(graph)
+    held = kernel_families([(k, c, 0.0) for k, c in nodes.items()])
+    log(f"phase 10 {what}: the graph's hand-written kernel nodes {nodes}; "
+        f"by family {held}, a profiled replay's events {g['families']}, "
+        f"the eager call's {e['families']}")
+    check_nodes(what, nodes, launches)
+    if set(g["families"]) != set(held) or any(
+            g["families"][k] > held[k] for k in held):
+        raise SystemExit(f"phase 10 {what}: a profiled replay's hand-written "
+                         f"kernel events {g['families']} do not match the "
+                         f"graph's nodes {held}")
+    return dict(out, kernel_nodes=nodes)
+
+
+def run_compiled_serving(cfg, arch, torch):
+    """The serving forward's graph at batch 8 and 1: outputs bit-equal to
+    the eager forward, the capture's launches, times."""
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.serving.server import BatchedPredictor
+
+    S, T = cfg.DATA.TEST_CROP_SIZE, cfg.DATA.NUM_FRAMES
+    out = {}
+    for batch in (BATCH, 1):
+        pred = BatchedPredictor(cfg, max_batch=batch)
+        pred.graph.graph_factory = node_graph
+        try:
+            clips = np.random.RandomState(SEED + batch).randn(
+                batch, T, S, S, 3).astype(np.float32)
+            x = torch.from_numpy(clips).cuda()
+
+            def eager():
+                with torch.inference_mode():
+                    return pred._run(x)
+
+            want = [t.cpu().numpy() for t in eager()]
+            _lib.reset_launch_counts()
+            got = pred.forward(clips)        # warm-up, capture, replay
+            host = dict(_lib.LAUNCHES)
+            (entry,) = pred.graph.entries.values()
+            equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+            log(f"phase 10 serving batch {batch}: outputs bit-equal to the "
+                f"eager forward: {equal}; the graph captured "
+                f"{entry.launches}")
+            if not equal:
+                raise SystemExit(f"phase 10: the serving graph differs from "
+                                 f"the eager forward at batch {batch}")
+            if entry.launches != dict(expected_launches(arch)):
+                raise SystemExit("phase 10: the serving graph's launches "
+                                 "differ from the forward's")
+            rows = eager_and_graph(f"serving forward batch {batch}", eager,
+                                   lambda: pred.graph(x), torch,
+                                   entry.graph, entry.launches)
+            full = statistics.median(time_calls(lambda: pred.forward(clips),
+                                                torch, 10))
+            log(f"phase 10 serving batch {batch}: forward() with the pinned "
+                f"copy in and the copy out {full:.2f} ms (median of 10)")
+            out[batch] = dict(rows, launches=entry.launches,
+                              first_call_host_launches=host,
+                              forward_ms=full)
+        finally:
+            pred.stop()
+            del pred
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_compiled_train(cfg, torch, reference):
+    """The captured train step against phase 7's eager step on the same
+    batch and seed: the loss bit for bit, the gradient under the gate;
+    the capture's launches; replays beside eager steps."""
+    from svit_tpu_torch.engine import graphs
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.utils import flops
+
+    video, image = train_batch(cfg, torch)
+    state, step, arch = train_setup(cfg, torch, torch.bfloat16, True)
+    want = dict(expected_train_launches(arch))
+    cstep = graphs.CapturedTrainStep(step, graph_factory=node_graph)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = cstep(state, video, image, gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    host = dict(_lib.LAUNCHES)
+    (entry,) = cstep.entries.values()
+    metrics = {k: float(v) for k, v in m.items()}
+    loss_equal = metrics["loss"] == reference["losses"]["kernels"]["loss"]
+    log(f"phase 10 train step: first call (warm-up, capture, replay) "
+        f"{first_s:.2f} s; loss {metrics['loss']!r}, phase 7's eager "
+        f"{reference['losses']['kernels']['loss']!r}: bit-equal {loss_equal}")
+    if not loss_equal:
+        raise SystemExit("phase 10: the captured step's loss differs from "
+                         "the eager step's")
+    grads = raw_grads(state, metrics)
+    flat = torch.cat([grads[k].flatten() for k in reference["names"]])
+    f32 = reference["flat"]["plain_f32"]
+    err_g = rel_err(flat, f32)
+    err_p = rel_err(reference["flat"]["plain_bf16"], f32)
+    ok = err_g <= TOL_RATIO * err_p + TOL_ABS
+    log(f"phase 10 train gate grads_global: err(graph)={err_g:.3e} "
+        f"err(plain bf16)={err_p:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 10: the captured step fails the gradient gate")
+    del grads, flat
+    first_call = {k: v * (graphs.WARMUP + 1) for k, v in want.items()}
+    log(f"phase 10 train launches: the graph captured {entry.launches}, the "
+        f"first call launched {host} from the host")
+    if entry.launches != want or host != first_call:
+        raise SystemExit(f"phase 10: capture launches {entry.launches}, "
+                         f"first call {host}, expected {want}")
+
+    # replays beside eager steps of a second model, in turns
+    state_e, step_e, _ = train_setup(cfg, torch, torch.bfloat16, True)
+    gen_e = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    gen.manual_seed(SEED + 1)
+    step_e(state_e, video, image, gen_e)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    replay_losses = []
+
+    def replay():
+        # the graph's output: the next replay overwrites it
+        replay_losses.append(
+            cstep(state, video, image, gen)[1]["loss"].clone())
+
+    rows = eager_and_graph("train step", lambda: step_e(state_e, video,
+                                                        image, gen_e),
+                           replay, torch, entry.graph, entry.launches)
+    peak = torch.cuda.max_memory_allocated()
+    eager_calls = 2 * TIMED + 1
+    per_call = {k: v / eager_calls for k, v in _lib.LAUNCHES.items()}
+    if per_call != {k: float(v) for k, v in want.items()}:
+        raise SystemExit(f"phase 10: host launches {dict(_lib.LAUNCHES)} over "
+                         f"{eager_calls} eager steps and the replays")
+    losses = torch.stack(replay_losses).cpu().tolist()
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"phase 10: non-finite replay loss {losses}")
+    step_flop = flops.train_step_flops(arch, TRAIN_VIDEO, TRAIN_IMAGE,
+                                       with_consistency=True)
+    g = rows["graph"]
+    rate = step_flop / (g["median_ms"] / 1e3)
+    log(f"phase 10 train step: {entry.replays} replays, losses "
+        f"{[round(v, 4) for v in losses]}; peak memory with the eager model "
+        f"beside it {peak / 2 ** 30:.2f} GiB; model FLOPs a step "
+        f"{step_flop / 1e12:.3f} T: {rate / 1e12:.1f} TFLOP/s over the "
+        f"replay's wall, {rate / TENSOR_FLOPS:.4f} of the 989 TFLOP/s bf16 "
+        f"peak; {card_line()}")
+    out = dict(rows, first_call_s=first_s, loss=metrics["loss"],
+               gate_grads_global={"err_graph": err_g,
+                                  "err_plain_bf16": err_p},
+               launches=entry.launches, first_call_host_launches=host,
+               replays=entry.replays, replay_losses=losses, peak_bytes=peak,
+               model_tflop=step_flop / 1e12, tflops=rate / 1e12,
+               peak_share=rate / TENSOR_FLOPS)
+    del state, step, cstep, state_e, step_e
+    torch.cuda.empty_cache()
+    return out
+
+
+class PerUse:
+    """A ``StepCache`` stand-in that casts and derives at every use: the
+    step's form before the cache, captured for the comparison below."""
+
+    def cast(self, w, dtype):
+        return w.to(dtype)
+
+    def derived(self, key, fn):
+        return fn()
+
+
+def run_step_cache_ab(cfg, torch):
+    """The captured train step with its ``StepCache`` against the same
+    step captured in the per-use form, in one call on phase 7's batch and
+    seed: the first step's loss bit for bit, then replays of both in turns
+    (cached, per-use, per-use, cached) and one profiled replay of each."""
+    from svit_tpu_torch.engine import graphs, steps
+
+    video, image = train_batch(cfg, torch)
+    runs = {}
+    for name in ("cached", "per_use"):
+        state, step, _ = train_setup(cfg, torch, torch.bfloat16, True)
+        cstep = graphs.CapturedTrainStep(step)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        saved = steps.StepCache
+        if name == "per_use":
+            steps.StepCache = PerUse
+        try:   # the capture bakes in whichever form ran
+            state, m = cstep(state, video, image, gen)
+        finally:
+            steps.StepCache = saved
+        runs[name] = (lambda s=state, c=cstep, g=gen:
+                      c(s, video, image, g), float(m["loss"]))
+    times = {n: [] for n in runs}
+    for name in ("cached", "per_use", "per_use", "cached"):
+        times[name] += time_calls(runs[name][0], torch, TIMED)
+    out = {}
+    for name, (fn, loss) in runs.items():
+        prof = profile_call(fn, torch)
+        out[name] = {"loss": loss, "median_ms": statistics.median(
+            times[name]), "device_ms": prof["device_ms"],
+            "events": prof["events"]}
+    c, p = out["cached"], out["per_use"]
+    equal = c["loss"] == p["loss"]
+    log(f"phase 10 step cache: loss bit-equal to the per-use form: {equal} "
+        f"({c['loss']!r}); a replay's device time {c['device_ms']:.2f} ms "
+        f"against {p['device_ms']:.2f}, device events {c['events']} against "
+        f"{p['events']}, wall median {c['median_ms']:.2f} against "
+        f"{p['median_ms']:.2f} ms ({2 * TIMED} replays each, in turns)")
+    if not equal:
+        raise SystemExit("phase 10: the step cache changed the loss")
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_compiled_eval(cfg, arch, torch):
+    """The eval, image-eval and test steps' graphs against their eager
+    outputs; the test step's batch-64 replays beside eager forwards."""
+    from svit_tpu_torch.engine import graphs, steps
+    from svit_tpu_torch.models import build_model
+    from svit_tpu_torch.models.losses import get_loss_func
+
+    model, _ = build_model(cfg)
+    loss_obj = get_loss_func(cfg)
+    S, T = cfg.DATA.TEST_CROP_SIZE, cfg.DATA.NUM_FRAMES
+    rs = np.random.RandomState(SEED + 10)
+
+    def video_batch(n):
+        return {"clips": torch.from_numpy(rs.randn(n, T, S, S, 3).astype(
+                    np.float32)).cuda(),
+                "labels": torch.from_numpy(rs.randint(
+                    0, cfg.MODEL.NUM_CLASSES, n)).cuda(),
+                "weight": torch.ones(n).cuda()}
+
+    _, image = train_batch(cfg, torch)
+    out = {}
+    for name, fn, batches in (
+            ("eval", steps.make_eval_step(model, arch.num_classes,
+                                          loss_obj=loss_obj,
+                                          with_consistency=True),
+             [video_batch(BATCH), video_batch(BATCH)]),
+            ("image_eval", steps.make_image_eval_step(model, loss_obj),
+             [image]),
+            ("test", steps.make_test_step(model),
+             [video_batch(TEST_BATCH), video_batch(TEST_BATCH)])):
+        captured = graphs.CapturedStep(fn, graph_factory=node_graph)
+        worst, equal = 0.0, True
+        for b in batches:
+            want = graphs.tensors(fn(b))
+            got = graphs.tensors(captured(b))
+            for w, g in zip(want, got):
+                equal &= torch.equal(w, g)
+                worst = max(worst, rel_err(g.float(), w.float())
+                            if w.numel() > 1 or float(w) != 0 else 0.0)
+        log(f"phase 10 {name} step: {len(batches)} batches, the graph's "
+            f"outputs bit-equal to the eager step's: {equal}, worst relative "
+            f"error {worst:.3e}")
+        if worst > 1e-6:
+            raise SystemExit(f"phase 10: the {name} step's graph differs "
+                             f"from the eager step")
+        out[name] = {"bit_equal": bool(equal), "worst_rel_err": worst}
+        if name == "test":
+            b = batches[-1]
+            (entry,) = captured.entries.values()
+            out[name].update(eager_and_graph(
+                f"test forward batch {TEST_BATCH}", lambda: fn(b),
+                lambda: captured(b), torch, entry.graph, entry.launches))
+        del captured
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_compiled_phase(cfg, arch, torch, reference):
+    """Phase 10: the serving forward, the train step and the eval and test
+    steps as CUDA graphs (``engine/graphs.py``), each against its eager
+    form in the same call."""
+    return {"serving": run_compiled_serving(cfg, arch, torch),
+            "train": run_compiled_train(cfg, torch, reference),
+            "step_cache": run_step_cache_ab(cfg, torch),
+            "eval": run_compiled_eval(cfg, arch, torch)}
 
 
 def main():
@@ -2147,6 +2665,8 @@ def main():
     from svit_tpu_torch.ops import _lib
 
     t_start = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    open(os.path.join(REPO, "chiprun_out", "chip_smoke.log"), "w").close()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2190,12 +2710,19 @@ def main():
     torch.cuda.empty_cache()
 
     cfg.SVIT.CONSISTENCY_LOSS = "l1"
-    train, train_table, train_uses, train_details = run_train_phase(cfg, torch)
+    (train, train_table, train_uses, train_details,
+     train_reference) = run_train_phase(cfg, torch)
     k1 = k1_uses(uses, train_uses, ffn)
     torch.cuda.empty_cache()
     test, test_launches = run_test_phase(torch)
     torch.cuda.empty_cache()
     trainer, trainer_launches = run_trainer_phase(torch)
+    torch.cuda.empty_cache()
+    compiled = run_compiled_phase(cfg, arch, torch, train_reference)
+    log(f"phase 9's profiled replay (video batch {TRAINER_VIDEO}): "
+        f"hand-written kernel events {trainer['run_a']['profile']['families']}"
+        f"; phase 10's eager step (video batch {TRAIN_VIDEO}): "
+        f"{compiled['train']['eager']['families']}")
 
     kernels = []
     for names, rows, launches in (
@@ -2215,6 +2742,11 @@ def main():
                 "train_launches": train["launches"].get(counter, 0),
                 "test_launches": test_launches.get(counter, 0),
                 "trainer_launches": trainer_launches.get(counter, 0),
+                # per replay of phase 10's graphs (their capture's counts)
+                "train_replay_launches":
+                    compiled["train"]["launches"].get(counter, 0),
+                "serving_replay_launches":
+                    compiled["serving"][BATCH]["launches"].get(counter, 0),
             })
             if name == "ln_linear":
                 kernels[-1]["uses"] = k1
@@ -2231,9 +2763,9 @@ def main():
                        serving=serving, uses=uses, calls=details, ffn=ffn,
                        train=train, train_uses=train_uses,
                        train_calls=train_details, test=test,
-                       trainer=trainer, kernels=kernels), f,
-                  indent=1)
-    log(f"all nine phases in {time.perf_counter() - t_start:.1f} s")
+                       trainer=trainer, compiled=compiled, kernels=kernels),
+                  f, indent=1)
+    log(f"all ten phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -18,8 +18,10 @@ index (``ssv2.py:182-204``); val takes the train-mode random crop at
 spatial index -1, as the reference does; output is channels-last
 ``[T, H, W, C]`` float32.  Train mode with ``AUG.ENABLE`` applies per-clip
 RandAugment, the random-resized crop and random erasing, drawn from the
-item's generator in the JAX package's order; the on-device augmentation
-(``TPU.DEVICE_AUG``) is not ported and raises (ROADMAP Queue 1 item 3).
+item's generator in the JAX package's order.  With ``TPU.DEVICE_AUG`` train
+mode is raw: uint8 frames short-side scaled and centre-cropped to
+``TPU.RAW_SIZE``, augmented on the card inside the train step
+(``data/device_aug.py``).
 """
 
 from __future__ import annotations
@@ -44,11 +46,6 @@ logger = logging.get_logger(__name__)
 class Ssv2:
     def __init__(self, cfg, mode: str, num_retries: int = 10):
         assert mode in ("train", "val", "test"), mode
-        if mode == "train" and cfg.TPU.DEVICE_AUG:
-            raise NotImplementedError(
-                "TPU.DEVICE_AUG: the on-device augmentation "
-                "(svit_tpu/data/device_aug.py) is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         self.cfg = cfg
         self.mode = mode
         self.data_root = cfg.SSV2.DATA_ROOT
@@ -62,6 +59,8 @@ class Ssv2:
         self._construct()
         self.aug = mode == "train" and cfg.AUG.ENABLE
         self.rand_erase = self.aug and cfg.AUG.RE_PROB > 0
+        # raw mode (TPU.DEVICE_AUG): the augmentation runs on the card
+        self.raw_mode = mode == "train" and cfg.TPU.DEVICE_AUG
         self._epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -179,6 +178,14 @@ class Ssv2:
         label = self._labels[index]
         fpaths = self._frames_list(index, rng)
         frames = dutils.retry_load_images(fpaths, self._num_retries)  # [T,H,W,C] u8
+
+        if self.raw_mode:
+            raw = cfg.TPU.RAW_SIZE
+            frames, _ = transform.short_side_scale(
+                frames.astype(np.float32), raw)
+            frames, _ = transform.uniform_crop(frames, raw, 1)
+            return (np.clip(np.round(frames), 0, 255).astype(np.uint8),
+                    label, index, {})
 
         if self.aug:
             frames = self._aug_frames(

@@ -8,7 +8,9 @@ cxcywh in [0,1], zeroes degenerate ones, and derives per-hand contact state
 via center-distance matching (``utils/box_ops.py:140-194``).
 
 Returns ``(frames [1,H,W,C] f32, label=-1, index,
-metadata{haog_bboxes [1,O,4], contact_state [2], vid, label_idx})``.
+metadata{haog_bboxes [1,O,4], contact_state [2], vid, label_idx})``.  With
+``TPU.DEVICE_AUG`` train mode is raw: a uint8 frame at ``TPU.RAW_SIZE`` and
+xyxy boxes in its pixels, for ``data/device_aug.py:device_augment_image``.
 """
 
 from __future__ import annotations
@@ -91,6 +93,25 @@ class Ssv2_frames(Ssv2):
 
         fpaths, boxes, contact_state = self._get_boxes(index, rng)
         frames = dutils.retry_load_images(fpaths, self._num_retries)  # [1,H,W,C]
+
+        if self.mode == "train" and cfg.TPU.DEVICE_AUG:
+            # raw mode: a uint8 frame at TPU.RAW_SIZE and its boxes in
+            # pixels; the box-aware augmentation runs on the card
+            # (data/device_aug.py:device_augment_image).  The contact states
+            # were matched from the boxes before it, as on the host path.
+            raw = cfg.TPU.RAW_SIZE
+            flat = boxes.reshape(-1, 4)
+            frames, flat = transform.short_side_scale(
+                frames.astype(np.float32), raw, boxes=flat)
+            frames, flat = transform.uniform_crop(frames, raw, 1, boxes=flat)
+            metadata = {
+                "haog_bboxes": flat.reshape(boxes.shape).astype(np.float32),
+                "contact_state": np.asarray(contact_state, np.int64),
+                "vid": self._video_names[index],
+                "label_idx": 0,
+            }
+            return (np.clip(np.round(frames), 0, 255).astype(np.uint8),
+                    -1, index, metadata)
 
         if self.aug:
             frames, boxes = self._aug_frames_boxes(

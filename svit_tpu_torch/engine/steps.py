@@ -13,9 +13,21 @@ One call of the step does what the JAX package's jitted step does:
 5. the global gradient norm (reported before the clip), the clip and the
    AdamW update at this step's learning rate.
 
-Random numbers (stochastic depth, dropout, head dropout) come from the
-``torch.Generator`` passed in, drawn in the order consistency, video, image.
-They cannot match JAX's streams; the tests feed both sides rates of 0.
+Random numbers (the on-device augmentation, stochastic depth, dropout,
+head dropout) come from the ``torch.Generator`` passed in, drawn in the
+order augmentation, consistency, video, image.  They cannot match JAX's
+streams; the tests feed both sides rates of 0.
+
+The three forwards share one ``StepCache``: each weight is cast to bf16
+once a step and the pool filters, their LN parameters and the object-token
+multipliers derived once, each use's gradient reaching the f32 master as
+the JAX package's per-use converts send it.
+
+The step's device work (``train_step.device_step``) has no host effect: it
+reads the learning rate at the transform's device step counter and leaves
+``state.step`` alone, so ``engine/graphs.py`` captures it in a CUDA graph
+(the JAX package's ``jax.jit``); ``train_step`` sets the counter from the
+host's step, runs it and counts the step.
 
 The eval steps (``make_eval_step``, ``make_image_eval_step``,
 ``make_test_step``) run the model in eval mode under
@@ -33,6 +45,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from svit_tpu_torch.data import device_aug
+from svit_tpu_torch.models.common import StepCache
 from svit_tpu_torch.models.losses import consistency_loss
 from svit_tpu_torch.models.optimizer import Transform
 
@@ -50,12 +64,16 @@ def create_train_state(model, tx: Transform) -> TrainState:
 
 def make_train_step(model, loss_obj, tx, video_weight: float,
                     image_weight: float, with_image: bool,
-                    with_consistency: bool):
+                    with_consistency: bool, device_aug_cfg=None):
     """Build the fused video + image train step.
 
     video_batch: {clips [B, T, H, W, 3], labels [B], weight [B]}
     image_batch: {frames [B, 1, H, W, 3], haog_bboxes [B, 1, O, 4],
                   contact_state [B, 2], weight [B]} (may be None)
+
+    With ``device_aug_cfg`` (a ``DeviceAugConfig``) the clips and frames
+    arrive as raw uint8 and the image boxes as xyxy input pixels; the
+    augmentation runs inside the step (``data/device_aug.py``).
 
     ``train_step(state, video_batch, image_batch, generator)`` updates the
     state's model in place and returns ``(state, metrics)``: the loss keys,
@@ -64,6 +82,7 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
     del model, tx  # carried by the state, as the JAX step takes them from it
 
     def loss_fn(m, video_batch, image_batch, generator):
+        cache = StepCache()   # the casts and derived parameters, once
         metrics: Dict[str, Any] = {}
         frames_extra = None
         clips = video_batch["clips"]
@@ -71,17 +90,19 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
             B, T = clips.shape[:2]
             frames = clips.reshape(B * T, 1, *clips.shape[2:])
             with torch.no_grad():
-                _, fe = m(frames, train=True, generator=generator)
+                _, fe = m(frames, train=True, generator=generator,
+                          cache=cache)
             desc = fe["obj_desc"]
             frames_extra = {"obj_desc": desc.reshape(B, T, -1, desc.shape[-1])}
-        logits, extra = m(clips, train=True, generator=generator)
+        logits, extra = m(clips, train=True, generator=generator,
+                          cache=cache)
         vdict = loss_obj.video_losses(logits, video_batch["labels"], extra,
                                       frames_extra, video_batch.get("weight"))
         total = video_weight * loss_obj.weighted_sum(vdict)
         metrics.update(vdict)
         if with_image and image_batch is not None:
             _, iextra = m(image_batch["frames"], train=True,
-                          generator=generator)
+                          generator=generator, cache=cache)
             idict = loss_obj.image_losses(
                 iextra, {"haog_bboxes": image_batch["haog_bboxes"],
                          "contact_state": image_batch["contact_state"]},
@@ -91,17 +112,41 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
         metrics["loss"] = total
         return total, metrics
 
-    def train_step(state: TrainState, video_batch, image_batch, generator):
+    def device_step(state: TrainState, video_batch, image_batch, generator):
+        if device_aug_cfg is not None:
+            video_batch = dict(video_batch, clips=device_aug.device_augment(
+                video_batch["clips"], generator, device_aug_cfg))
+            if image_batch is not None:
+                # the paired affine gives normalised cxcywh HAOG targets
+                frames, haog = device_aug.device_augment_image(
+                    image_batch["frames"], image_batch["haog_bboxes"],
+                    generator, device_aug_cfg)
+                image_batch = dict(image_batch, frames=frames,
+                                   haog_bboxes=haog)
         m = state.model
         params = [p for p in m.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
         total, metrics = loss_fn(m, video_batch, image_batch, generator)
         total.backward()
-        metrics["grad_norm"] = state.tx.apply(params, state.step)
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = state.tx.apply(params)
+        return {k: v.detach() for k, v in metrics.items()}
 
+    return _counted(device_step)
+
+
+def _counted(device_step):
+    """The step as callers run it: the transform's device step counter set
+    from the host's step, the device work, the step counted.  The device
+    work stays reachable as ``.device_step`` for ``engine/graphs.py``."""
+
+    def train_step(state: TrainState, video_batch, image_batch, generator):
+        state.tx.set_step(state.step)
+        out = device_step(state, video_batch, image_batch, generator)
+        state.step += 1
+        return state, out
+
+    train_step.device_step = device_step
     return train_step
 
 
@@ -113,14 +158,14 @@ def make_packed_train_step(*args, **kwargs):
     base = make_train_step(*args, **kwargs)
     names: list = []
 
-    def packed(state, video_batch, image_batch, generator):
-        s, m = base(state, video_batch, image_batch, generator)
+    def device_step(state, video_batch, image_batch, generator):
+        m = base.device_step(state, video_batch, image_batch, generator)
         ks = sorted(m)
         if not names:
             names.extend(ks)
-        return s, torch.stack([m[k].float() for k in ks])
+        return torch.stack([m[k].float() for k in ks])
 
-    return packed, names
+    return _counted(device_step), names
 
 
 @contextlib.contextmanager

@@ -6,7 +6,9 @@ NUM_SPATIAL_CROPS`` times; batched inference runs on the card, and the
 host-side ``TestMeter`` sums (or maxes) the per-clip softmax scores into
 video slots and finalizes top-1/top-5 (reference ``test_net.py:24-171``,
 ``meters.py:237-398``).  One card holds the whole batch: the JAX engine's
-mesh and sharding have no counterpart here (ROADMAP Queue 1 item 5).
+mesh and sharding have no counterpart here (ROADMAP Queue 1 item 5).  On
+the card the test step is a CUDA graph per batch shape
+(``engine/graphs.py``), as the JAX engine jit-compiles it.
 
     python -m svit_tpu_torch.engine.test --cfg configs/ssv2.yaml [KEY VALUE ...]
 
@@ -24,7 +26,7 @@ import torch
 from svit_tpu_torch.config import assert_and_infer_cfg, load_config, parse_args
 from svit_tpu_torch.data.loader import construct_loader
 from svit_tpu_torch.engine import meters as meters_lib
-from svit_tpu_torch.engine import steps
+from svit_tpu_torch.engine import graphs, steps
 from svit_tpu_torch.models import build_model
 from svit_tpu_torch.utils import checkpoint as cu
 from svit_tpu_torch.utils import logging
@@ -91,8 +93,8 @@ def test(cfg, device=None):
     test_meter = meters_lib.TestMeter(num_items // num_clips, num_clips, nc,
                                       len(test_loader),
                                       cfg.DATA.ENSEMBLE_METHOD)
-    stats = perform_test(steps.make_test_step(model), test_loader,
-                         test_meter, device)
+    stats = perform_test(graphs.CapturedStep(steps.make_test_step(model)),
+                         test_loader, test_meter, device)
 
     if cfg.TEST.SAVE_RESULTS_PATH:
         with open(cfg.TEST.SAVE_RESULTS_PATH, "wb") as f:

@@ -2,13 +2,19 @@
 ``tools/train_net.py``).
 
 One process drives one card: the fused video + image train step
-(``engine/steps.py:make_packed_train_step``) runs eagerly on the batches
-that the host loaders stream, and its metrics stay on the device as one f32
-vector a step.  They are fetched once per ``LOG_PERIOD`` window (one stack,
-one device-to-host copy), where the NaN guard runs, so no step waits on the
-host.  bf16 needs no loss scaling; the reference's per-GPU processes, DDP
-wrap and metric gathers have no counterpart on one card (ROADMAP Queue 1
-item 5).
+(``engine/steps.py:make_packed_train_step``) runs on the batches that the
+host loaders stream, captured in a CUDA graph per batch shape and replayed
+(``engine/graphs.py``, the JAX package's ``jax.jit``), as are the eval
+steps.  While a step replays, the host takes the next batch from the
+loaders and issues its host-to-device copies on a copy stream, ordered
+with the step by an event.  The step's metrics stay on the device as one
+f32 vector a step, cloned out of the graph's output; they are fetched once
+per ``LOG_PERIOD`` window (one stack, one device-to-host copy), where the
+NaN guard runs, so no step waits on the host.  With ``TPU.DEVICE_AUG`` the
+loaders ship raw uint8 frames and the step augments them on the card
+(``data/device_aug.py``).  bf16 needs no loss scaling; the reference's
+per-GPU processes, DDP wrap and metric gathers have no counterpart on one
+card (ROADMAP Queue 1 item 5).
 
 - Resume: ``TRAIN.AUTO_RESUME`` continues from the last checkpoint, at the
   next epoch or, after a mid-epoch save, at its iteration; else
@@ -40,7 +46,9 @@ import torch
 
 from svit_tpu_torch.config import assert_and_infer_cfg, load_config, parse_args
 from svit_tpu_torch.config.defaults import num_image_ranks
+from svit_tpu_torch.data import device_aug
 from svit_tpu_torch.data.loader import construct_loader, shuffle_dataset
+from svit_tpu_torch.engine import graphs
 from svit_tpu_torch.engine import meters as meters_lib
 from svit_tpu_torch.engine import steps
 from svit_tpu_torch.engine.multigrid import MultigridSchedule
@@ -90,24 +98,27 @@ class Trainer:
         self.video_weight, self.image_weight = 1.0 - w_i, w_i
         with_consistency = bool(cfg.TRAIN.FORWARD_VIDEO_FRAMES
                                 and cfg.SVIT.CONSISTENCY_LOSS)
-        self.step_fn, self.metric_names = steps.make_packed_train_step(
+        aug_cfg = (device_aug.config_from_cfg(cfg) if cfg.TPU.DEVICE_AUG
+                   else None)
+        packed, self.metric_names = steps.make_packed_train_step(
             self.model, self.loss_obj, self.tx,
             video_weight=self.video_weight, image_weight=self.image_weight,
             with_image=self.with_image,
-            with_consistency=with_consistency)
+            with_consistency=with_consistency, device_aug_cfg=aug_cfg)
+        self.step_fn = graphs.CapturedTrainStep(packed)
         # the val loss dict carries the train loss keys (reference
         # eval_extra_metrics) when the loss object makes dicts
         val_loss_obj = (self.loss_obj if hasattr(self.loss_obj, "weighted_sum")
                         else None)
-        self.eval_step = steps.make_eval_step(
+        self.eval_step = graphs.CapturedStep(steps.make_eval_step(
             self.model, self.arch.num_classes, loss_obj=val_loss_obj,
-            with_consistency=with_consistency)
+            with_consistency=with_consistency))
         self.image_val_loader = self.image_eval_step = None
         if self.with_image and val_loss_obj is not None:
             self.image_val_loader = construct_loader(cfg, "image_val")
             if self.image_val_loader is not None:
-                self.image_eval_step = steps.make_image_eval_step(
-                    self.model, val_loss_obj)
+                self.image_eval_step = graphs.CapturedStep(
+                    steps.make_image_eval_step(self.model, val_loss_obj))
         # bf16 pixels over the wire under mixed precision: the model casts
         # to bf16 anyway, and it halves the host-to-device bytes
         self.pixel_dtype = (torch.bfloat16 if cfg.TRAIN.MIXED_PRECISION
@@ -115,19 +126,47 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         # host seconds of each step's data wait (loader, then the copies)
         self.data_seconds: list = []
+        # the next batch's copies run here while the step replays
+        self.copy_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
 
     def put_batch(self, batch):
         """The batch on the model's device: clips and frames in the pixel
-        dtype, integer arrays as int64, each array one copy."""
+        dtype (uint8 frames of the device augmentation pass untouched),
+        other integer arrays as int64, each array one copy."""
         out = {}
         for k, v in batch.items():
             dtype = None
-            if k in ("clips", "frames") and v.dtype == np.float32:
-                dtype = self.pixel_dtype
+            if k in ("clips", "frames"):
+                dtype = self.pixel_dtype if v.dtype == np.float32 else None
             elif np.issubdtype(v.dtype, np.integer):
                 dtype = torch.int64
             out[k] = to_device(v, self.device, dtype)
         return out
+
+    def put_ahead(self, *batches):
+        """``put_batch`` of each batch (None stays None) with the copies
+        issued on the copy stream; returns the device batches and the event
+        that marks their arrival (None off the card)."""
+        if self.copy_stream is None:
+            return [b if b is None else self.put_batch(b)
+                    for b in batches], None
+        with torch.cuda.stream(self.copy_stream):
+            out = [b if b is None else self.put_batch(b) for b in batches]
+            ready = torch.cuda.Event()
+            ready.record(self.copy_stream)
+        return out, ready
+
+    def wait_for(self, batches, ready) -> None:
+        """Order the current stream after the copies of ``put_ahead``, and
+        keep their memory from reuse until the current stream is done with
+        it."""
+        if ready is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(ready)
+        for t in graphs.tensors(batches):
+            t.record_stream(cur)
 
     def fresh_state(self) -> steps.TrainState:
         return steps.create_train_state(self.model, self.tx)
@@ -339,10 +378,17 @@ def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
             train_meter.update_stats(lr_i, n_i, md)
         pending.clear()
 
-    train_meter.iter_tic()
-    t_data = time.perf_counter()
-    for cur_iter, video_batch in enumerate(
-            trainer.train_loader.iter_batches(start_iter), start=start_iter):
+    batches = enumerate(trainer.train_loader.iter_batches(start_iter),
+                        start=start_iter)
+
+    def fetch():
+        """The next batch from the loaders, its copies issued ahead."""
+        nonlocal image_iter
+        t_data = time.perf_counter()
+        try:
+            cur_iter, video_batch = next(batches)
+        except StopIteration:
+            return None
         if mixup_fn is not None:
             clips, soft = mixup_fn(video_batch["clips"], video_batch["labels"])
             video_batch = dict(video_batch, clips=clips, labels=soft)
@@ -353,19 +399,27 @@ def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
             except StopIteration:
                 image_iter = iter(trainer.image_loader)
                 image_batch = next(image_iter)
-            image_batch = trainer.put_batch(
-                {k: image_batch[k] for k in _IMAGE_KEYS})
-        vb = trainer.put_batch({k: video_batch[k] for k in _VIDEO_KEYS})
-        train_meter.data_toc()
+            image_batch = {k: image_batch[k] for k in _IMAGE_KEYS}
+        on_device, ready = trainer.put_ahead(
+            {k: video_batch[k] for k in _VIDEO_KEYS}, image_batch)
         trainer.data_seconds.append(time.perf_counter() - t_data)
+        return (cur_iter, int(video_batch["weight"].sum()), on_device,
+                ready)
 
+    train_meter.iter_tic()
+    nxt = fetch()
+    while nxt is not None:
+        cur_iter, n_videos, (vb, image_batch), ready = nxt
+        train_meter.data_toc()
+        trainer.wait_for((vb, image_batch), ready)
         trainer.generator.manual_seed(step_seed(cfg.RNG_SEED, state.step))
         state, metrics = trainer.step_fn(state, vb, image_batch,
                                          trainer.generator)
         lr = get_lr_at_epoch(cfg, cur_epoch
                              + cur_iter / trainer.steps_per_epoch)
-        pending.append((cur_iter, lr, int(video_batch["weight"].sum()),
-                        metrics))
+        # the graph's output is overwritten by the next replay
+        pending.append((cur_iter, lr, n_videos, metrics.clone()))
+        nxt = fetch()   # the next batch's wait and copies overlap the step
         train_meter.iter_toc()
         if (cur_iter + 1) % cfg.LOG_PERIOD == 0:
             flush_pending()
@@ -375,7 +429,6 @@ def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
             train_meter.reset()
             return state, cur_iter + 1
         train_meter.iter_tic()
-        t_data = time.perf_counter()
     flush_pending()
     train_meter.log_epoch_stats(cur_epoch)
     train_meter.reset()

@@ -49,7 +49,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from svit_tpu_torch.models.common import LayerNorm, Mlp, dropout, keep_mask
+from svit_tpu_torch.models.common import (LayerNorm, Mlp, cast, derived,
+                                          dropout, keep_mask)
 from svit_tpu_torch.ops import attention as attn_ops
 from svit_tpu_torch.ops import ln_linear as ll
 from svit_tpu_torch.ops import pool, pooling
@@ -148,13 +149,14 @@ class MultiScaleAttention(nn.Module):
         else:
             self.rel_pos_t = None
 
-    def forward(self, grid, extras, ln1, use_kernels, dtype, drop=None):
+    def forward(self, grid, extras, ln1, use_kernels, dtype, drop=None,
+                cache=None):
         """grid [B, T, H, W, C_in] and extras [B, E, C_in] are the RAW
         streams with ``ln1`` (norm1's weight and bias), fused into the
         projection, or the normed streams with ``ln1`` None (separate q, k
         and v).  ``drop`` (train mode with ``MVIT.DROPOUT_RATE``) is applied
-        to both outputs.  Returns (grid_out [B, To, Ho, Wo, C], extras_out
-        [B, E, C])."""
+        to both outputs; ``cache`` is a train step's ``StepCache``.  Returns
+        (grid_out [B, To, Ho, Wo, C], extras_out [B, E, C])."""
         ops = _ops(use_kernels)
         B, E = grid.shape[0], extras.shape[1]
         C, heads, hd = self.dim_out, self.num_heads, self.head_dim
@@ -166,7 +168,7 @@ class MultiScaleAttention(nn.Module):
                                    _dense(t, self.v, dtype)], dim=-1)
                         for t in (grid, extras))
         else:
-            w = self.qkv.weight.to(dtype)
+            w = cast(self.qkv.weight, dtype, cache)
             b = self.qkv.bias if self.use_qkv_bias else None
             qg, kvg = ops.ln_qkv(grid, ln1[0], ln1[1], w, b, C)
             en = ll.layer_norm(extras, ln1[0], ln1[1])
@@ -175,12 +177,12 @@ class MultiScaleAttention(nn.Module):
 
         if self.pool_q_on:
             qg, qe = self._pool(ops, qg, qe, ("q",), self.kernel_q,
-                                self.stride_q)
+                                self.stride_q, cache)
         if self.pool_kv_on:
             # ONE pool for the fused k|v grid: conv and per-head LN are
             # channel-local, so pool_k | pool_v tiled over heads is exact
             kvg, kve = self._pool(ops, kvg, kve, ("k", "v"), self.kernel_kv,
-                                  self.stride_kv)
+                                  self.stride_kv, cache)
 
         q_shape = tuple(qg.shape[1:4])
         k_shape = tuple(kvg.shape[1:4])
@@ -189,7 +191,7 @@ class MultiScaleAttention(nn.Module):
         bias_src = attn_ops.build_bias_inputs_grid(
             qg, heads, q_shape, k_shape, rel_pos_h=self.rel_pos_h,
             rel_pos_w=self.rel_pos_w, rel_pos_t=self.rel_pos_t)
-        wp = self.proj.weight.to(dtype)
+        wp = cast(self.proj.weight, dtype, cache)
         og = ops.attention_proj(qg.reshape(B, q_l, C), kv_all, bias_src,
                                 k_shape, wp, self.proj.bias, scale, heads,
                                 self.residual_pooling)
@@ -205,29 +207,47 @@ class MultiScaleAttention(nn.Module):
             og, oe = drop(og), drop(oe)
         return og.view(B, *q_shape, C), oe
 
-    def _pool(self, ops, grid, extras, names, kernel, stride):
+    def _pool(self, ops, grid, extras, names, kernel, stride, cache):
         """Pool one stream pair.  conv: the depthwise conv + per-head LN on
         the grid (the filters of ``names`` tiled over heads, concatenated),
         the exact multiplier and the same LN on the object tokens (cls
-        passes).  max / avg: the grid alone, extras unchanged."""
+        passes).  max / avg: the grid alone, extras unchanged.  The tiled
+        filters, LN parameters and multiplier are derived once a step
+        through ``cache``."""
         if self.mode != "conv":
             fn = pooling.max_pool3d if self.mode == "max" else \
                 pooling.avg_pool3d
             return fn(grid, kernel, stride), extras
-        heads = self.num_heads
-        w = torch.cat([getattr(self, f"pool_{n}").weight.repeat(
-            heads, 1, 1, 1, 1) for n in names])
-        norms = [getattr(self, f"norm_{n}") for n in names]
-        if len(norms) == 1:   # the q pool keeps head_dim-wide LN params
-            ls, lb = norms[0].weight, norms[0].bias
-        else:
-            ls = torch.cat([n.weight.repeat(heads) for n in norms])
-            lb = torch.cat([n.bias.repeat(heads) for n in norms])
+        w, ls, lb = self._pool_params(names, cache)
         grid = ops.pool_ln(grid, w, ls, lb, stride, self.head_dim)
-        return grid, self._pool_extras(extras, w, stride, ls, lb)
+        if cache is None:
+            mult = pooling.conv_obj_multiplier(w, stride)
+        else:   # from the cached filters' graph, whatever the grad mode
+            mult = cache.derived(
+                (id(self), names, "mult"),
+                lambda: pooling.conv_obj_multiplier(
+                    self._pool_params(names, cache)[0], stride))
+        return grid, self._pool_extras(extras, mult, ls, lb)
 
-    def _pool_extras(self, x, weight, stride, ln_w, ln_b):
-        mult = pooling.conv_obj_multiplier(weight, stride).to(x.dtype)
+    def _pool_params(self, names, cache):
+        """The filters of ``names`` tiled over heads and concatenated, and
+        their per-head LN parameters (the q pool keeps head_dim-wide
+        ones)."""
+        heads = self.num_heads
+        w = derived((id(self), names, "w"), lambda: torch.cat(
+            [getattr(self, f"pool_{n}").weight.repeat(heads, 1, 1, 1, 1)
+             for n in names]), cache)
+        norms = [getattr(self, f"norm_{n}") for n in names]
+        if len(norms) == 1:
+            return w, norms[0].weight, norms[0].bias
+        ls = derived((id(self), names, "ls"), lambda: torch.cat(
+            [n.weight.repeat(heads) for n in norms]), cache)
+        lb = derived((id(self), names, "lb"), lambda: torch.cat(
+            [n.bias.repeat(heads) for n in norms]), cache)
+        return w, ls, lb
+
+    def _pool_extras(self, x, mult, ln_w, ln_b):
+        mult = mult.to(x.dtype)
         if self.has_cls:
             x = torch.cat([x[:, :1], x[:, 1:] * mult], dim=1)
         else:
@@ -259,7 +279,7 @@ class MultiScaleBlock(nn.Module):
         self.proj = nn.Linear(dim, dim_out) if dim != dim_out else None
 
     def forward(self, grid, extras, use_kernels: bool, dtype, train=False,
-                generator=None):
+                generator=None, cache=None):
         ops = _ops(use_kernels)
         drop = None
         if train and self.drop_rate > 0:
@@ -270,9 +290,10 @@ class MultiScaleBlock(nn.Module):
             # norm1 is not fused into separate projections: the attention
             # and the dim-change projection take the normed streams
             gn, en = self.norm1(grid), self.norm1(extras)
-            ag, ae = self.attn(gn, en, None, use_kernels, dtype, drop)
+            ag, ae = self.attn(gn, en, None, use_kernels, dtype, drop, cache)
         else:
-            ag, ae = self.attn(grid, extras, ln1, use_kernels, dtype, drop)
+            ag, ae = self.attn(grid, extras, ln1, use_kernels, dtype, drop,
+                               cache)
         if self.proj is not None and self.dim_mul_in_att:
             if self.separate_qkv:
                 grid = _dense(gn, self.proj, dtype)
@@ -280,7 +301,7 @@ class MultiScaleBlock(nn.Module):
             else:
                 # norm1 again inside the dim-change projection (the
                 # attention's copy stays fused in its qkv launch)
-                wpj = self.proj.weight.to(dtype)
+                wpj = cast(self.proj.weight, dtype, cache)
                 grid = ops.ln_dense(grid, ln1[0], ln1[1], wpj, self.proj.bias)
                 extras = ll.dense(extras, wpj, self.proj.bias, ln=ln1)
         if self.stride_q and int(np.prod(self.stride_q)) > 1:
@@ -288,7 +309,7 @@ class MultiScaleBlock(nn.Module):
             kernel_skip = tuple(s + 1 if s > 1 else s for s in self.stride_q)
             grid = ops.pool_max(grid, kernel_skip, self.stride_q)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-        w1, w2 = fc1.weight.to(dtype), fc2.weight.to(dtype)
+        w1, w2 = cast(fc1.weight, dtype, cache), cast(fc2.weight, dtype, cache)
         ln2 = (self.norm2.weight, self.norm2.bias)
         keep = 1.0 - self.drop_path
         masks = None

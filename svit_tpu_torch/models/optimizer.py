@@ -12,8 +12,16 @@
   (``optax.add_decayed_weights``), then SGD with ``SOLVER.MOMENTUM`` and
   ``SOLVER.NESTEROV`` (``optax.sgd``'s trace: ``t = g + m t``, the update
   ``t`` or, Nesterov, ``g + m t``).
-The learning rate is a per-step table of the configured policy, set on the
-groups before each update by ``Transform.apply``.  Clipping comes first:
+The learning rate is a per-step table of the configured policy.  It lives
+on the device, as optax reads its schedule at the state's count inside the
+jitted step: every parameter group holds one 0-dim f32 tensor ``lr``, and
+``Transform.apply`` writes into it the table's entry at a device step
+counter, so that a CUDA graph of the step reads each replay's rate
+(``engine/graphs.py``).  AdamW and Adam run with ``capturable=True`` on the
+card (their step count on the device too); SGD runs torch's fused kernel,
+which takes a tensor rate (its foreach form reads the rate on the host).
+On the CPU, where torch refuses ``capturable=True``, the same tensor-rate
+path runs without it.  Clipping comes first:
 ``SOLVER.CLIP_GRAD_VAL`` clips each element to +-v (``optax.clip``),
 else ``SOLVER.CLIP_GRAD_L2NORM`` matches ``optax.clip_by_global_norm``:
 ``g / ||g|| * max`` when ``||g|| >= max`` (``clip_grad_norm_`` adds 1e-6
@@ -92,17 +100,41 @@ def global_norm(grads) -> torch.Tensor:
 @dataclasses.dataclass
 class Transform:
     """What ``optax.chain(clip, adamw)`` is in the JAX package: the torch
-    optimizer, its per-step learning-rate table and the clip norm."""
+    optimizer, its per-step learning-rate table and the clip norm.
+
+    ``lr`` is the tensor every parameter group holds; ``lr_table_t`` the
+    table on the device and ``step_t`` the device step counter that
+    ``apply`` reads it at.  ``set_step`` writes the host's step into the
+    counter: outside a CUDA graph, before each replay."""
 
     optimizer: torch.optim.Optimizer
     lr_table: np.ndarray
     clip_l2norm: Optional[float] = None
     clip_value: Optional[float] = None
 
-    def apply(self, params, step: int) -> torch.Tensor:
-        """Clip the gradients of ``params``, step the optimizer at step
-        ``step``'s learning rate; returns the global norm before the clip.
-        A parameter without a gradient takes zeros, as under JAX's grad."""
+    def __post_init__(self):
+        self.lr = self.optimizer.param_groups[0]["lr"]
+        if not all(g["lr"] is self.lr for g in self.optimizer.param_groups):
+            raise ValueError("every parameter group must hold the one lr "
+                             "tensor")
+        self.lr_table_t = torch.as_tensor(self.lr_table, dtype=torch.float32,
+                                          device=self.lr.device)
+        self.step_t = torch.zeros((), dtype=torch.int64,
+                                  device=self.lr.device)
+
+    def set_step(self, step: int) -> None:
+        """The counter at ``step``; steps past the table's end take its
+        last entry."""
+        self.step_t.fill_(min(int(step), len(self.lr_table) - 1))
+
+    def apply(self, params, step: Optional[int] = None) -> torch.Tensor:
+        """Clip the gradients of ``params``, step the optimizer at the
+        learning rate of the counter's step (``step``, when given, is set
+        first); returns the global norm before the clip.  A parameter
+        without a gradient takes zeros, as under JAX's grad.  No host sync:
+        the rate is gathered on the device."""
+        if step is not None:
+            self.set_step(step)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -115,11 +147,30 @@ class Transform:
             norm = clip_by_global_norm(grads, self.clip_l2norm)
         else:
             norm = global_norm(grads)
-        lr = float(self.lr_table[min(step, len(self.lr_table) - 1)])
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        self.lr.copy_(torch.index_select(self.lr_table_t, 0,
+                                         self.step_t.view(1))[0])
         self.optimizer.step()
         return norm
+
+    def load_state_dict(self, saved) -> None:
+        """The optimizer's state from ``saved``; the groups keep this
+        transform's ``lr`` tensor and their device flags (torch's loader
+        puts the saved group values in their place)."""
+        keep = [{k: g[k] for k in ("capturable", "fused", "foreach")
+                 if k in g} for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict(saved)
+        for g, flags in zip(self.optimizer.param_groups, keep):
+            g.update(flags)
+            g["lr"] = self.lr
+
+    def state_tensors(self) -> list:
+        """Every tensor of the optimizer's state (moments, step counts,
+        momentum buffers), in a fixed order."""
+        out = []
+        for p in (p for g in self.optimizer.param_groups for p in g["params"]):
+            st = self.optimizer.state.get(p, {})
+            out.extend(st[k] for k in sorted(st) if torch.is_tensor(st[k]))
+        return out
 
 
 def construct_optimizer(cfg, model: torch.nn.Module, steps_per_epoch: int):
@@ -135,18 +186,23 @@ def construct_optimizer(cfg, model: torch.nn.Module, steps_per_epoch: int):
         {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
     ) if g["params"]]
     table = lr_table(cfg, steps_per_epoch)
-    lr = float(table[0])
+    device = named[0][1].device
+    lr = torch.tensor(float(table[0]), dtype=torch.float32, device=device)
+    capturable = device.type == "cuda"
     if method == "adamw":
-        opt = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        opt = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=capturable)
     elif method == "adam":
         opt = torch.optim.Adam([p for _, p in named], lr=lr,
-                               betas=(0.9, 0.999), eps=1e-8)
+                               betas=(0.9, 0.999), eps=1e-8,
+                               capturable=capturable)
     elif method == "sgd":
         # torch's SGD adds the decay to the gradient before the momentum,
         # as add_decayed_weights does before optax.sgd; Nesterov without
         # momentum is plain SGD in optax and refused by torch
         opt = torch.optim.SGD(groups, lr=lr, momentum=sol.MOMENTUM,
-                              nesterov=bool(sol.NESTEROV and sol.MOMENTUM))
+                              nesterov=bool(sol.NESTEROV and sol.MOMENTUM),
+                              fused=True)
     else:
         raise NotImplementedError(f"Does not support {method} optimizer")
     return Transform(opt, table, sol.CLIP_GRAD_L2NORM,

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from svit_tpu_torch.models.common import cast
+
 
 class PatchEmbed(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, kernel: Tuple[int, ...],
@@ -22,9 +24,11 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv3d(dim_in, dim_out, tuple(kernel), tuple(stride),
                               tuple(padding))
 
-    def forward(self, x: torch.Tensor):
-        """x: [B, T, H, W, C_in] -> (grid [B, T', H', W', dim_out], (T', H', W'))."""
-        w, b = self.proj.weight.to(x.dtype), self.proj.bias.to(x.dtype)
+    def forward(self, x: torch.Tensor, cache=None):
+        """x: [B, T, H, W, C_in] -> (grid [B, T', H', W', dim_out], (T', H', W'));
+        ``cache``: a train step's ``StepCache``."""
+        w = cast(self.proj.weight, x.dtype, cache)
+        b = cast(self.proj.bias, x.dtype, cache)
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, self.proj.stride,
                      self.proj.padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()

@@ -368,14 +368,17 @@ class SViT(nn.Module):
                 cpu.normal_(0.0, 0.02, generator=generator)
             p.copy_(cpu)
 
-    def forward(self, x: torch.Tensor, train=None, generator=None):
-        """``train`` defaults to the module's mode (``self.training``)."""
+    def forward(self, x: torch.Tensor, train=None, generator=None,
+                cache=None):
+        """``train`` defaults to the module's mode (``self.training``);
+        ``cache`` is a train step's ``StepCache`` (the casts and derived
+        parameters made once for its three forwards)."""
         arch = self.arch
         train = self.training if train is None else train
         dt = self.dtype
         B, t_in = x.shape[0], x.shape[1]
         is_video = t_in > 1
-        grid, (t_lat, H, W) = self.patch_embed(x.to(dt))
+        grid, (t_lat, H, W) = self.patch_embed(x.to(dt), cache)
         C = arch.embed_dim
 
         if arch.use_abs_pos:
@@ -401,7 +404,7 @@ class SViT(nn.Module):
 
         for blk in self.blocks:
             grid, extras = blk(grid, extras, self.use_kernels, dt, train,
-                               generator)
+                               generator, cache)
 
         if arch.cls_embed_on:
             # LN is per-token: only [cls | obj] feeds the head

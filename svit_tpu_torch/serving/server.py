@@ -2,7 +2,10 @@
 
 An HTTP endpoint with dynamic batching: requests that arrive within a short
 window are padded into one fixed-shape batch and run as one forward under
-``torch.inference_mode()`` on the card.
+``torch.inference_mode()`` on the card.  There the forward is one CUDA
+graph (``engine/graphs.py``), as the JAX server jit-compiles one program
+for its padded batch: the batch goes through a pinned host buffer into the
+graph's static input, the graph replays, and its outputs are copied out.
 
 API (stdlib http.server):
 
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from svit_tpu_torch.data import transform
+from svit_tpu_torch.engine import graphs
 from svit_tpu_torch.models import build_model
 from svit_tpu_torch.utils import checkpoint as cu
 from svit_tpu_torch.utils import logging
@@ -56,6 +60,8 @@ class BatchedPredictor:
 
         S, T = cfg.DATA.TEST_CROP_SIZE, cfg.DATA.NUM_FRAMES
         self.clip_shape = (T, S, S, 3)
+        self.graph = graphs.CapturedStep(self._run)
+        self._host = self._x = None   # the pinned buffer, the device input
         self.queue: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self.worker = threading.Thread(target=self._loop, daemon=True)
@@ -70,14 +76,32 @@ class BatchedPredictor:
         idx = np.linspace(0, arr.shape[0] - 1, cfg.DATA.NUM_FRAMES).astype(int)
         return arr[idx]
 
+    def _run(self, x):
+        with torch.inference_mode():
+            logits, extra = self.model(x)
+            return logits.float(), extra["pred_bboxes"].float()
+
     @torch.inference_mode()
     def forward(self, clips: np.ndarray):
         """clips [B, T, S, S, 3] float32 -> (probabilities [B, C],
-        pred_bboxes [B, T, O, 5]) as float32 numpy."""
-        x = torch.from_numpy(clips).to(self.device)
-        logits, extra = self.model(x)
-        return (logits.float().cpu().numpy(),
-                extra["pred_bboxes"].float().cpu().numpy())
+        pred_bboxes [B, T, O, 5]) as float32 numpy.  On the card, one
+        graph per batch shape (the server's is ``max_batch``)."""
+        host = torch.from_numpy(clips)
+        if self.device.type != "cuda":
+            logits, boxes = self._run(host.to(self.device))
+        else:
+            if self._host is None or self._host.shape != host.shape:
+                with torch.inference_mode(False):
+                    self._host = torch.empty(host.shape, dtype=host.dtype,
+                                             pin_memory=True)
+                    self._x = torch.empty(host.shape, dtype=host.dtype,
+                                          device=self.device)
+            self._host.copy_(host)
+            self._x.copy_(self._host, non_blocking=True)
+            logits, boxes = self.graph(self._x)
+            # later batches go straight into the graph's static input
+            self._x = self.graph.entries[graphs.signature(self._x)].inputs
+        return logits.cpu().numpy(), boxes.cpu().numpy()
 
     def submit(self, clip: np.ndarray, timeout: float = 30.0):
         """Blocking: returns (logits [C], pred_bboxes [T, O, 5])."""

@@ -107,7 +107,7 @@ def load_train_state(path: str, state) -> Tuple[Dict, int]:
     blob = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                       weights_only=False)
     state.model.load_state_dict(blob["model_state"], strict=True)
-    state.tx.optimizer.load_state_dict(blob["optimizer_state"])
+    state.tx.load_state_dict(blob["optimizer_state"])
     state.step = int(blob["step"])
     restored = {k: int(blob.get(k, -1))
                 for k in ("step", "epoch", "step_in_epoch")}

@@ -1,10 +1,9 @@
 """Model statistics and helpers (counterpart of ``svit_tpu/utils/misc.py``,
 reference ``slowfast/utils/misc.py``).
 
-``log_model_info`` reports the parameter count.  FLOPs come with
-``utils/flops.py``, which is not ported (ROADMAP Queue 1 item 6): they are
-logged as unavailable, as the JAX package logs them on a backend without
-cost analysis (``svit_tpu/utils/misc.py:43-53``).
+``log_model_info`` reports the parameter count and the forward FLOPs of
+one clip from the analytic model (``utils/flops.py``), where the JAX
+package asks XLA's cost analysis (``svit_tpu/utils/misc.py:43-53``).
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import math
 
 import torch
 
+from svit_tpu_torch.utils import flops as flops_lib
 from svit_tpu_torch.utils import logging
 
 logger = logging.get_logger(__name__)
@@ -23,13 +23,14 @@ def params_count(model: torch.nn.Module) -> int:
 
 
 def log_model_info(model: torch.nn.Module, cfg):
-    """Log the model's name and parameter count; returns (params, flops),
-    flops NaN."""
+    """Log the model's name, parameter count and forward FLOPs of one clip
+    of ``DATA.NUM_FRAMES`` frames; returns (params, flops)."""
     n_params = params_count(model)
+    flops = flops_lib.forward_flops(model.arch, 1, cfg.DATA.NUM_FRAMES)
     logger.info("Model: %s", cfg.MODEL.MODEL_NAME)
     logger.info("Params: %s", f"{n_params:,}")
-    logger.warning("FLOP analysis unavailable: utils/flops.py is not ported")
-    return n_params, float("nan")
+    logger.info("GFLOPs (fwd, 1 clip): %.2f", flops / 1e9)
+    return n_params, flops
 
 
 def check_nan_losses(loss: float, extra_msg: str = ""):

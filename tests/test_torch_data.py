@@ -103,8 +103,8 @@ def test_ssv2_items_match_jax(root, mode):
 
 def test_ssv2_splits_and_refusals(root):
     """Every split reads its files as JAX's does; train with the host
-    augmentation builds, and with the on-device one (not ported) raises,
-    naming where it comes."""
+    augmentation builds, and with the on-device one it builds in raw mode
+    (its items against JAX's in ``tests/test_torch_device_aug.py``)."""
     for split in ("standard", "compositional", "fewshot-base",
                   "fewshot-5shot", "fewshot-10shotfinetune"):
         ours = Ssv2.__new__(Ssv2)
@@ -114,9 +114,9 @@ def test_ssv2_splits_and_refusals(root):
             ds.mode, ds.data_root = "val", root
         assert ours._split_files() == ref._split_files()
     assert Ssv2(_cfg(get_cfg, root, **{"AUG.ENABLE": True}), "train").aug
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        Ssv2(_cfg(get_cfg, root, **{"AUG.ENABLE": False,
-                                    "TPU.DEVICE_AUG": True}), "train")
+    raw = Ssv2(_cfg(get_cfg, root, **{"AUG.ENABLE": False,
+                                      "TPU.DEVICE_AUG": True}), "train")
+    assert raw.raw_mode and raw[0][0].dtype == np.uint8
     assert isinstance(build_dataset("ssv2", _cfg(get_cfg, root), "val"),
                       Ssv2)
 
@@ -142,11 +142,12 @@ def test_loader_batches_match_jax(root, split, workers):
 
 def test_loader_refuses_the_training_splits(root):
     """The training splits build (``tests/test_torch_train_data.py``
-    holds their batches against JAX's); what stays unported raises: the
-    on-device augmentation, the Kinetics dataset and an unknown split."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        loader.construct_loader(
-            _cfg(get_cfg, root, **{"TPU.DEVICE_AUG": True}), "train")
+    holds their batches against JAX's), the on-device augmentation's raw
+    uint8 batches too; what stays unported raises: the Kinetics dataset
+    and an unknown split."""
+    train, _ = loader.construct_loader(
+        _cfg(get_cfg, root, **{"TPU.DEVICE_AUG": True}), "train")
+    assert next(iter(train))["clips"].dtype == np.uint8
     with pytest.raises(KeyError):
         loader.construct_loader(
             _cfg(get_cfg, root, **{"TRAIN.DATASET": "kinetics"}), "train")

@@ -40,7 +40,7 @@ from svit_tpu.parallel import mesh as meshlib
 from svit_tpu.utils import converter as jax_converter
 from svit_tpu_torch.config import assert_and_infer_cfg, get_cfg
 from svit_tpu_torch.data.loader import shuffle_dataset
-from svit_tpu_torch.engine import meters
+from svit_tpu_torch.engine import graphs, meters
 from svit_tpu_torch.engine import train as ttrain
 from svit_tpu_torch.engine.multigrid import MultigridSchedule
 from svit_tpu_torch.utils import checkpoint as cu
@@ -163,6 +163,32 @@ def test_one_epoch_matches_jax(root, jax_run, tmp_path):
     state, preempted = ttrain.train_epoch(cfg, trainer, state, rec, 0)
     assert preempted is None and state.step == len(want) == 2
     assert trainer.metric_names == sorted(want[0][2])
+    for i, ((lr, n, md), (jlr, jn, jmd)) in enumerate(zip(rec.rows, want)):
+        assert (lr, n) == (jlr, jn), i
+        for k in jmd:
+            np.testing.assert_allclose(md[k], jmd[k], rtol=RTOL,
+                                       err_msg=f"step {i} {k}")
+
+
+def test_one_epoch_through_a_graph_matches_jax(root, jax_run, tmp_path):
+    """The Trainer's step captured, with a CPU stand-in for the CUDA graph
+    whose replays write one static metric vector: every step still logs
+    its own metrics (the loop clones each step's), equal to JAX's, and the
+    warm-up before the capture leaves no trace."""
+    from tests.test_torch_graphs import EagerGraph
+
+    params, want, _ = jax_run
+    cfg, trainer = _port_trainer(root, str(tmp_path), params)
+    trainer.step_fn = graphs.CapturedTrainStep(trainer.step_fn.step,
+                                               graph_factory=EagerGraph)
+    state = trainer.fresh_state()
+    shuffle_dataset((trainer.train_loader, trainer.image_loader), 0)
+    rec = _Recorder()
+    state, preempted = ttrain.train_epoch(cfg, trainer, state, rec, 0)
+    assert preempted is None and state.step == len(want) == 2
+    (entry,) = trainer.step_fn.entries.values()
+    assert entry.replays == 2
+    assert rec.rows[0][2] != rec.rows[1][2]
     for i, ((lr, n, md), (jlr, jn, jmd)) in enumerate(zip(rec.rows, want)):
         assert (lr, n) == (jlr, jn), i
         for k in jmd:
