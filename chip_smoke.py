@@ -97,7 +97,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    count); the train step's peak memory and model FLOP/s against the
    bf16 peak; the step's ``StepCache`` against the per-use form captured
    beside it (the loss bit for bit, device time and events of a replay
-   of each).
+   of each);
+11. Grad-CAM (``visualization/gradcam.py``) at full size at the target
+   ``TENSORBOARD.MODEL_VIS.GRAD_CAM.LAYER_LIST = ["blocks_0_out"]``, so
+   that its backward (no parameter gradient) crosses blocks 1 to 15: the
+   three runs on the same batch-4 clips, the logits, the target layer's
+   gradient and the pre-ReLU map gated as above; the kernel call's
+   launches against ``expected_gradcam_launches`` (K7 none); the call's
+   wall, device time, idle share at batch 4 and 64 and its peak memory;
+   the default target's map all zero (with a cls token the head reads
+   only the extras: the last block's grid gets no gradient);
+12. demo: ``demo(cfg)`` at full size on 96 JPEG frames at 427 x 240 (a
+   frame directory, PIL), its clip count and written frames against the
+   buffer arithmetic, its loop's clips/s split into preprocessing, the
+   forward (copy in, replay, copy out), drawing and writing; the
+   ``Predictor``'s captured forward bit-equal to the eager one.  The
+   card's machine has no libav, so no ``.mp4`` is written and the
+   Kinetics test (libav decoding) is held on the CPU only.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
@@ -106,7 +122,8 @@ and modes, and of K2's and K4's train-step rows, the train step;
 batch-64 test forward, ``trainer_launches`` phase 9's first run (its
 warm-ups and captures, and its eager eval steps' none: they replay too),
 ``train_replay_launches`` and ``serving_replay_launches`` a replay of phase
-10's train-step and batch-8 serving graphs; K1, K4
+10's train-step and batch-8 serving graphs, ``gradcam_launches`` phase
+11's batch-4 Grad-CAM call; K1, K4
 and K5 carry their uses), the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
@@ -667,6 +684,21 @@ def expected_train_launches(arch, forwards=3, backwards=2):
         for k in ("pool_conv", "pool_conv_dx", "pool_conv_dk",
                   "pooled_attention_bwd"):
             n[k] += backwards * (2 - dead)
+    return n
+
+
+def expected_gradcam_launches(arch, target):
+    """Launches of one Grad-CAM call (``visualization/gradcam.py``) at the
+    output of block ``target``: one eval forward, then a backward through
+    the later blocks that wants no parameter gradient.  There each
+    fused_pool_ln backward runs K2 bare and K6 but no K7 (the filters want
+    no gradient), each attention backward K5; with a cls token the last
+    block's grid attention and q pool take none (as in the train step)."""
+    n = collections.Counter(expected_launches(arch))
+    for i in range(target + 1, len(arch.blocks)):
+        dead = int(arch.cls_embed_on and i == len(arch.blocks) - 1)
+        for k in ("pool_conv", "pool_conv_dx", "pooled_attention_bwd"):
+            n[k] += 2 - dead
     return n
 
 
@@ -2649,6 +2681,212 @@ def run_compiled_phase(cfg, arch, torch, reference):
             "eval": run_compiled_eval(cfg, arch, torch)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Grad-CAM at full size (visualization/gradcam.py)
+# ---------------------------------------------------------------------------
+
+GRADCAM_BATCH = 4
+GRADCAM_LAYER = "blocks_0_out"   # the backward crosses blocks 1 to 15
+
+
+def gradcam_cfg(name):
+    """configs/ssv2.yaml at full size for run ``name`` of ``RUNS``, with
+    ``TENSORBOARD.MODEL_VIS.GRAD_CAM.LAYER_LIST`` naming the target."""
+    from svit_tpu_torch.config import assert_and_infer_cfg, get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(CFG)
+    cfg.TRAIN.MIXED_PRECISION = name != "plain_f32"
+    cfg.TPU.USE_PALLAS_ATTENTION = name == "kernels"
+    cfg.TENSORBOARD.MODEL_VIS.GRAD_CAM.LAYER_LIST = [GRADCAM_LAYER]
+    return assert_and_infer_cfg(cfg)
+
+
+def gradcam_clips(cfg, batch, torch):
+    return torch.randn(
+        (batch, cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE,
+         cfg.DATA.TEST_CROP_SIZE, 3),
+        generator=torch.Generator().manual_seed(SEED + 11 + batch)).cuda()
+
+
+def time_gradcam(cam, clips, torch, n):
+    """Median wall of ``n`` calls, a profiled call's device time and the
+    idle share of the median wall; peak memory of one call."""
+    times = time_calls(lambda: cam.layer_cam(clips), torch, n)
+    prof = profile_call(lambda: cam.layer_cam(clips), torch)
+    torch.cuda.reset_peak_memory_stats()
+    cam.layer_cam(clips)
+    torch.cuda.synchronize()
+    ms = statistics.median(times)
+    out = {"batch": clips.shape[0], "ms": times, "median_ms": ms,
+           "device_ms": prof["device_ms"], "kernels_ms": prof["kernels_ms"],
+           "idle_share": max(0.0, 1 - prof["device_ms"] / ms),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "families": prof["families"], "top": prof["top"]}
+    log(f"phase 11 Grad-CAM batch {out['batch']}: wall median {ms:.2f} ms "
+        f"({n} calls), device {out['device_ms']:.2f} ms (hand-written "
+        f"kernels {out['kernels_ms']:.2f}), idle share "
+        f"{out['idle_share']:.3f}, peak memory {out['peak_gib']:.2f} GiB, "
+        f"{out['batch'] / ms * 1e3:.2f} clips/s")
+    return out
+
+
+def run_gradcam_phase(torch):
+    """Phase 11.  Grad-CAM at ``GRADCAM_LAYER`` for the three runs on the
+    same clips and the same seeded labels (each run differentiates the
+    same class's score: with random weights the runs' argmax may differ),
+    gated on the logits, the target layer's gradient and the pre-ReLU map,
+    each gate's limit under 1 (the error of an all-zero output); the
+    kernel run's launches against
+    ``expected_gradcam_launches`` (no K7); the call timed at batch 4 and
+    at the test batch; the default target's all-zero map.  Returns its
+    results and the kernel call's launches."""
+    from svit_tpu_torch.models import build_model
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.visualization.gradcam import GradCAM
+
+    result, values = {}, {k: {} for k in ("logits", "grad", "cam")}
+    for name in RUNS:
+        cfg = gradcam_cfg(name)
+        model, arch = build_model(cfg)
+        layer = cfg.TENSORBOARD.MODEL_VIS.GRAD_CAM.LAYER_LIST[0]
+        cam = GradCAM(model, target_layer=layer, data_mean=cfg.DATA.MEAN,
+                      data_std=cfg.DATA.STD)
+        clips = gradcam_clips(cfg, GRADCAM_BATCH, torch)
+        labels = torch.randint(
+            cfg.MODEL.NUM_CLASSES, (GRADCAM_BATCH,),
+            generator=torch.Generator().manual_seed(SEED + 11)).cuda()
+        if name == "kernels":
+            cam.layer_cam(clips, labels)  # plans, one-hot tiles
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+        out = cam.layer_cam(clips, labels)
+        torch.cuda.synchronize()
+        for k in values:
+            values[k][name] = out[k].float().cpu().numpy()
+        if name == "kernels":
+            launches = dict(_lib.LAUNCHES)
+            want = dict(expected_gradcam_launches(
+                arch, int(layer.split("_")[1])))
+            log(f"phase 11 Grad-CAM launches at {layer}, batch "
+                f"{GRADCAM_BATCH}: {launches} (expected {want})")
+            if launches != want or launches.get("pool_conv_dk", 0):
+                raise SystemExit("phase 11: Grad-CAM launch counts differ")
+            result["launches"] = launches
+            result["timing"] = {
+                b: time_gradcam(cam, gradcam_clips(cfg, b, torch), torch, n)
+                for b, n in ((GRADCAM_BATCH, 10), (TEST_BATCH, 5))}
+            default = GradCAM(model).layer_cam(clips)
+            zero = not (torch.any(default["grad"])
+                        or torch.any(default["cam"]))
+            log(f"phase 11 Grad-CAM at the default target "
+                f"blocks_{arch.depth - 1}_out: gradient and map all zero: "
+                f"{zero}")
+            if not zero:
+                raise SystemExit("phase 11: the default target's map is not "
+                                 "zero")
+            result["default_target_zero"] = zero
+        del model, cam
+        torch.cuda.empty_cache()
+    for k in values:
+        vk, v16, v32 = (torch.from_numpy(values[k][n]) for n in RUNS)
+        err_k, err_p = rel_err(vk, v32), rel_err(v16, v32)
+        limit = TOL_RATIO * err_p + TOL_ABS
+        ok = bool(torch.isfinite(vk).all()) and err_k <= limit < 1
+        log(f"phase 11 gate {k}: err(kernels)={err_k:.3e} err(plain bf16)="
+            f"{err_p:.3e} limit {limit:.3e} (an all-zero output's error is "
+            f"1) shape={tuple(vk.shape)} {'ok' if ok else 'FAIL'}")
+        result[f"gate_{k}"] = {"err_kernels": err_k, "err_plain_bf16": err_p,
+                               "limit": limit}
+        if not ok:
+            raise SystemExit(f"phase 11: Grad-CAM gate failed on {k}")
+    return result, result["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the demo (visualization/demo.py) on a frame directory
+# ---------------------------------------------------------------------------
+
+DEMO_FRAMES = 96
+
+
+def run_demo_phase(torch):
+    """Phase 12.  ``demo(cfg)`` at full size on ``DEMO_FRAMES`` JPEG frames
+    at 427 x 240 (random pixels from seed 0, as ``make_ssv2_tree`` writes
+    them): the clip count the buffer implies and one written frame per
+    buffered frame of each clip (the JAX demo's output); the time split;
+    the ``Predictor`` (its first call captures, later ones replay)
+    bit-equal to the eager forward on the same clip."""
+    import tempfile
+
+    from PIL import Image
+
+    from svit_tpu_torch.config import assert_and_infer_cfg, get_cfg
+    from svit_tpu_torch.visualization import demo as demo_mod
+
+    result = {}
+    with tempfile.TemporaryDirectory() as root:
+        src = os.path.join(root, "frames")
+        os.makedirs(src)
+        rng = np.random.RandomState(SEED)
+        W, H = SSV2_FRAME
+        for t in range(DEMO_FRAMES):
+            Image.fromarray(rng.randint(0, 255, (H, W, 3), np.uint8)).save(
+                os.path.join(src, "%04d.jpg" % (t + 1)))
+        cfg = get_cfg()
+        cfg.merge_from_file(CFG)
+        cfg.OUTPUT_DIR = root
+        cfg.DEMO.ENABLE = True
+        cfg.DEMO.INPUT_VIDEO = src
+        cfg.DEMO.OUTPUT_FILE = os.path.join(root, "out")
+        cfg = assert_and_infer_cfg(cfg)
+        timings = {}
+        n = demo_mod.demo(cfg, timings=timings)
+        written = len(os.listdir(cfg.DEMO.OUTPUT_FILE))
+        seq = cfg.DATA.NUM_FRAMES * cfg.DATA.SAMPLING_RATE
+        keep = seq // 2 if cfg.DEMO.BUFFER_SIZE == 0 else cfg.DEMO.BUFFER_SIZE
+        want = 1 + (DEMO_FRAMES - seq) // (seq - keep)
+        rate = n / timings["loop_s"]
+        log(f"phase 12 demo: {DEMO_FRAMES} frames at {W} x {H}, buffer {seq} "
+            f"keeping {keep}: {n} clips (expected {want}), {written} frames "
+            f"written (expected {want * seq}); loop {timings['loop_s']:.2f} s"
+            f" ({rate:.2f} clips/s, the first clip's capture included): "
+            f"preprocessing {timings['preprocess_s']:.2f} s, forward (copy "
+            f"in, replay, copy out) {timings['forward_s']:.2f} s, drawing "
+            f"{timings['draw_s']:.2f} s, writing {timings['write_s']:.2f} s "
+            f"(its own thread); demo() {timings['wall_s']:.2f} s")
+        if n != want or written != want * seq:
+            raise SystemExit("phase 12: the demo's clip or frame count "
+                             "differs")
+        result.update(timings, clips=n, frames_written=written,
+                      clips_per_s=rate)
+
+        pred = demo_mod.Predictor(cfg)
+        frames = list(demo_mod.frame_source(cfg))[:seq]
+        with torch.inference_mode():
+            logits, extra = pred.model(torch.from_numpy(
+                pred.preprocess(frames)).cuda())
+        want_out = (logits.float().cpu().numpy()[0],
+                    extra["pred_bboxes"].float().cpu().numpy()[0])
+        equal = True
+        for _ in range(3):   # capture, then replays
+            got = pred(frames)
+            equal &= all(np.array_equal(a, b) for a, b in zip(got, want_out))
+        (entry,) = pred.graph.entries.values()
+        steady = statistics.median(time_calls(lambda: pred(frames), torch, 5))
+        log(f"phase 12 Predictor: outputs bit-equal to the eager forward "
+            f"(capture and {entry.replays} replays): {equal}; a call "
+            f"(preprocessing, copy in, replay, copy out) {steady:.2f} ms "
+            f"median of 5")
+        if not equal:
+            raise SystemExit("phase 12: the Predictor differs from the eager "
+                             "forward")
+        result.update(predictor_bit_equal=equal, predictor_call_ms=steady)
+        del pred
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     import torch
 
@@ -2719,6 +2957,9 @@ def main():
     trainer, trainer_launches = run_trainer_phase(torch)
     torch.cuda.empty_cache()
     compiled = run_compiled_phase(cfg, arch, torch, train_reference)
+    torch.cuda.empty_cache()
+    gradcam, gradcam_launches = run_gradcam_phase(torch)
+    demo = run_demo_phase(torch)
     log(f"phase 9's profiled replay (video batch {TRAINER_VIDEO}): "
         f"hand-written kernel events {trainer['run_a']['profile']['families']}"
         f"; phase 10's eager step (video batch {TRAIN_VIDEO}): "
@@ -2747,6 +2988,7 @@ def main():
                     compiled["train"]["launches"].get(counter, 0),
                 "serving_replay_launches":
                     compiled["serving"][BATCH]["launches"].get(counter, 0),
+                "gradcam_launches": gradcam_launches.get(counter, 0),
             })
             if name == "ln_linear":
                 kernels[-1]["uses"] = k1
@@ -2763,9 +3005,10 @@ def main():
                        serving=serving, uses=uses, calls=details, ffn=ffn,
                        train=train, train_uses=train_uses,
                        train_calls=train_details, test=test,
-                       trainer=trainer, compiled=compiled, kernels=kernels),
+                       trainer=trainer, compiled=compiled, gradcam=gradcam,
+                       demo=demo, kernels=kernels),
                   f, indent=1)
-    log(f"all ten phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"all twelve phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

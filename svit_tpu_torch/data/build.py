@@ -2,15 +2,15 @@
 reference ``slowfast/datasets/build.py``).
 
 Importing it registers the port's datasets: ``Ssv2``, ``Ssv2_frames``,
-``Doh_frames`` and ``Multi_images``.  ``Kinetics`` (and its video decoder)
-is not ported yet (ROADMAP Queue 1 item 3).
+``Doh_frames``, ``Multi_images`` and ``Kinetics`` (encoded videos through
+``data/decoder.py``).
 """
 
 from __future__ import annotations
 
 # importing registers the datasets
 from svit_tpu_torch.data import (  # noqa: F401
-    doh_frames, multi_images, ssv2, ssv2_frames)
+    doh_frames, kinetics, multi_images, ssv2, ssv2_frames)
 from svit_tpu_torch.models.registry import DATASET_REGISTRY
 
 

@@ -26,6 +26,12 @@ signature into a ``torch.cuda.CUDAGraph`` and replayed:
   nothing: each graph keeps the counts taken while it was captured
   (``launches``) and its number of replays.
 
+Python's cyclic garbage collector is held off during a capture: a dead
+cycle that holds another graph, collected mid-capture, destroys that
+graph's executable, which a capturing stream does not permit
+(``cudaErrorStreamCaptureInvalidated`` at the capture's end).  Such a
+cycle is collected after the capture.
+
 No operand may move between capture and replay (the kernels' TMA maps hold
 their addresses): a replay checks that the parameters and the optimizer's
 state are the tensors it was captured on, and raises otherwise.  A failed
@@ -39,6 +45,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 from typing import Any, Callable, Optional
 
 import torch
@@ -62,11 +69,24 @@ class CudaGraph:
         outputs).  ``generator`` is a CUDA generator ``fn`` draws from."""
         if generator is not None:
             self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
+        with no_collection(), torch.cuda.graph(self.graph):
             return fn()
 
     def replay(self) -> None:
         self.graph.replay()
+
+
+@contextlib.contextmanager
+def no_collection():
+    """No automatic collection of garbage cycles until the block ends, in
+    any thread (the collector is the process's)."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def tensors(obj) -> list:
@@ -208,6 +228,34 @@ class CapturedStep(_Graphs):
         entry.graph.replay()
         entry.replays += 1
         return _clone(entry.outputs)
+
+
+class PinnedFeed:
+    """Host arrays into a ``CapturedStep`` of one batch argument.  On the
+    card each array goes through a pinned host buffer into the graph's
+    static input (straight into it once the graph exists); elsewhere the
+    step's function runs on the array moved to ``device``."""
+
+    def __init__(self, step: CapturedStep, device: torch.device):
+        self.step, self.device = step, device
+        self._host = self._x = None   # the pinned buffer, the device input
+
+    def __call__(self, array):
+        host = torch.from_numpy(array)
+        if self.device.type != "cuda":
+            return self.step.fn(host.to(self.device))
+        if self._host is None or self._host.shape != host.shape:
+            with torch.inference_mode(False):
+                self._host = torch.empty(host.shape, dtype=host.dtype,
+                                         pin_memory=True)
+                self._x = torch.empty(host.shape, dtype=host.dtype,
+                                      device=self.device)
+        self._host.copy_(host)
+        self._x.copy_(self._host, non_blocking=True)
+        out = self.step(self._x)
+        # later batches go straight into the graph's static input
+        self._x = self.step.entries[signature(self._x)].inputs
+        return out
 
 
 class _Restore:

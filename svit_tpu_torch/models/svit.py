@@ -369,10 +369,17 @@ class SViT(nn.Module):
             p.copy_(cpu)
 
     def forward(self, x: torch.Tensor, train=None, generator=None,
-                cache=None):
+                cache=None, capture_gradcam=False):
         """``train`` defaults to the module's mode (``self.training``);
         ``cache`` is a train step's ``StepCache`` (the casts and derived
-        parameters made once for its three forwards)."""
+        parameters made once for its three forwards).
+
+        ``capture_gradcam`` adds a zero-valued leaf that requires grad to
+        each block's grid output (the JAX model's ``capture_gradcam``
+        perturbations, ``svit_tpu/models/svit.py:449-451``): the gradient
+        of a score with respect to ``extra["perturbations"]["blocks_<i>_out"]``
+        is its gradient with respect to that block's output, which
+        ``extra["intermediates"]`` holds under the same name."""
         arch = self.arch
         train = self.training if train is None else train
         dt = self.dtype
@@ -402,9 +409,15 @@ class SViT(nn.Module):
         if arch.norm_stem:
             grid, extras = self.norm_stem(grid), self.norm_stem(extras)
 
-        for blk in self.blocks:
+        points, acts = {}, {}
+        for i, blk in enumerate(self.blocks):
             grid, extras = blk(grid, extras, self.use_kernels, dt, train,
                                generator, cache)
+            if capture_gradcam:
+                name = f"blocks_{i}_out"
+                acts[name] = grid
+                points[name] = torch.zeros_like(grid, requires_grad=True)
+                grid = grid + points[name]
 
         if arch.cls_embed_on:
             # LN is per-token: only [cls | obj] feeds the head
@@ -413,4 +426,7 @@ class SViT(nn.Module):
             g = self.norm(grid)
             cls_tok = g.reshape(B, -1, g.shape[-1]).mean(dim=1, keepdim=True)
             head_in = torch.cat([cls_tok, self.norm(extras)], dim=1)
-        return self.head(head_in, t_in, train, generator)
+        logits, extra = self.head(head_in, t_in, train, generator)
+        if capture_gradcam:
+            extra["perturbations"], extra["intermediates"] = points, acts
+        return logits, extra

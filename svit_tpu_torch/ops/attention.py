@@ -527,12 +527,16 @@ class _AttentionProjFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, kv, bias_src, wp, base = ctx.saved_tensors
+        want = ctx.needs_input_grad
         g2 = g.reshape(-1, g.shape[-1])
-        dbp = g2.float().sum(0)
-        dwp = (g2.t() @ base.reshape(-1, base.shape[-1])).to(wp.dtype)
-        dbase = (g2 @ wp).view(g.shape)
-        dq, dkv, dbias = pooled_attention_bwd(q, kv, bias_src, dbase,
-                                              *ctx.args)
+        dbp = g2.float().sum(0) if want[4] else None
+        dwp = ((g2.t() @ base.reshape(-1, base.shape[-1])).to(wp.dtype)
+               if want[3] else None)
+        dq = dkv = dbias = None
+        if any(want[:3]):
+            dbase = (g2 @ wp).view(g.shape)
+            dq, dkv, dbias = pooled_attention_bwd(q, kv, bias_src, dbase,
+                                                  *ctx.args)
         return dq, dkv, dbias, dwp, dbp, None, None, None, None
 
 

@@ -567,21 +567,32 @@ class _PoolLnFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """Only the gradients autograd asks for (``needs_input_grad``): a
+        backward that wants ``dx`` alone (Grad-CAM's) launches no K7, as
+        XLA drops the JAX package's unused ``_dk_pallas`` call."""
         x, weight, ln_w, ln_b = ctx.saved_tensors
         stride, hd = ctx.stride, ctx.head_dim
+        want_x, want_k, want_lw, want_lb = ctx.needs_input_grad[:4]
         y = depthwise_conv(x, weight, stride, hd)
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (y, ln_w, ln_b)]
+            leaves = [y.detach().requires_grad_()] + [
+                t.detach().requires_grad_(w)
+                for t, w in ((ln_w, want_lw), (ln_b, want_lb))]
             out = group_layer_norm(*leaves, hd)
-            gy, glw, glb = torch.autograd.grad(out, leaves, g)
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+            gy, glw, glb = (next(got) if t.requires_grad else None
+                            for t in leaves)
         gy = gy.contiguous()
-        dx = depthwise_conv_dx(gy, weight, stride, x.shape)
-        # K7 where it takes the stride; else the tap formulation, as JAX
-        # ``_pdc_bwd`` falls back to XLA's
-        dk_fn = (depthwise_conv_dk
-                 if dk_takes(x.shape, tuple(weight.shape[2:]), stride)
-                 else depthwise_conv_dk_reference)
-        dk = dk_fn(x, gy, tuple(weight.shape[2:]), stride)
+        dx = depthwise_conv_dx(gy, weight, stride, x.shape) if want_x else None
+        dk = None
+        if want_k:
+            # K7 where it takes the stride; else the tap formulation, as JAX
+            # ``_pdc_bwd`` falls back to XLA's
+            dk_fn = (depthwise_conv_dk
+                     if dk_takes(x.shape, tuple(weight.shape[2:]), stride)
+                     else depthwise_conv_dk_reference)
+            dk = dk_fn(x, gy, tuple(weight.shape[2:]), stride)
         return dx, dk, glw, glb, None, None
 
 

@@ -61,7 +61,7 @@ class BatchedPredictor:
         S, T = cfg.DATA.TEST_CROP_SIZE, cfg.DATA.NUM_FRAMES
         self.clip_shape = (T, S, S, 3)
         self.graph = graphs.CapturedStep(self._run)
-        self._host = self._x = None   # the pinned buffer, the device input
+        self.feed = graphs.PinnedFeed(self.graph, self.device)
         self.queue: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self.worker = threading.Thread(target=self._loop, daemon=True)
@@ -86,21 +86,7 @@ class BatchedPredictor:
         """clips [B, T, S, S, 3] float32 -> (probabilities [B, C],
         pred_bboxes [B, T, O, 5]) as float32 numpy.  On the card, one
         graph per batch shape (the server's is ``max_batch``)."""
-        host = torch.from_numpy(clips)
-        if self.device.type != "cuda":
-            logits, boxes = self._run(host.to(self.device))
-        else:
-            if self._host is None or self._host.shape != host.shape:
-                with torch.inference_mode(False):
-                    self._host = torch.empty(host.shape, dtype=host.dtype,
-                                             pin_memory=True)
-                    self._x = torch.empty(host.shape, dtype=host.dtype,
-                                          device=self.device)
-            self._host.copy_(host)
-            self._x.copy_(self._host, non_blocking=True)
-            logits, boxes = self.graph(self._x)
-            # later batches go straight into the graph's static input
-            self._x = self.graph.entries[graphs.signature(self._x)].inputs
+        logits, boxes = self.feed(clips)
         return logits.cpu().numpy(), boxes.cpu().numpy()
 
     def submit(self, clip: np.ndarray, timeout: float = 30.0):

@@ -3,11 +3,16 @@
 The port's parameter names are the PyTorch reference's state-dict names
 (``blocks.3.attn.qkv.weight``, ``head.boxes_mlp.0.bias``, ...), so a
 reference ``.pyth`` checkpoint loads with ``load_state_dict(strict=True)``
-and JAX parameters cross over through ``params_from_jax``.
+and JAX parameters cross over through ``params_from_jax``.  A released
+checkpoint differs from the port's in two ways, which
+``reference_to_port`` and ``port_to_reference`` undo and redo: it expects
+BGR input (``flip_input_channels``), and its q, k and v projections may be
+fused or separate where the model wants the other (``convert_qkv``).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -35,6 +40,68 @@ def load_torch_state(path: str, clear_patterns=(), replace_patterns=()
         out[k] = v.detach().cpu() if torch.is_tensor(v) else torch.as_tensor(
             np.asarray(v))
     return out
+
+
+def flip_input_channels(state: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Reverse the patch stem's input-channel axis (BGR <-> RGB), in torch
+    layout [out, in, (kT,) kH, kW].
+
+    The reference's data pipeline feeds cv2-decoded frames and never swaps
+    the channel order (``slowfast/datasets/utils.py:20-48``), so released
+    checkpoints expect BGR input; the port's pipeline is RGB, and
+    ``conv(rgb, flipped_w) == conv(bgr, w)`` exactly.  Valid while
+    DATA.MEAN/STD are the same for every channel (0.45/0.225 in every
+    shipped recipe): normalization then commutes with the flip."""
+    out = dict(state)
+    w = out["patch_embed.proj.weight"]
+    out["patch_embed.proj.weight"] = w.flip(1).contiguous()
+    return out
+
+
+def _qkv_blocks(state, name):
+    return sorted({int(m.group(1)) for k in state
+                   if (m := re.match(rf"blocks\.(\d+)\.attn\.{name}\.weight$",
+                                     k))})
+
+
+def convert_qkv(state: Dict[str, torch.Tensor], separate_qkv: bool
+                ) -> Dict[str, torch.Tensor]:
+    """The q, k and v projections in the layout a model of
+    ``MVIT.SEPARATE_QKV = separate_qkv`` holds: the fused ``attn.qkv`` split
+    into ``attn.q``, ``attn.k`` and ``attn.v`` (reference
+    ``checkpoint.py:582-594``, JAX ``torch_to_flax(separate_qkv=True)``),
+    or those three joined back into ``attn.qkv``."""
+    out = dict(state)
+    src, dst = (("qkv",), ("q", "k", "v")) if separate_qkv else \
+        (("q", "k", "v"), ("qkv",))
+    for i in _qkv_blocks(state, src[0]):
+        tp = f"blocks.{i}.attn"
+        for leaf in ("weight", "bias"):
+            keys = [f"{tp}.{n}.{leaf}" for n in src]
+            if keys[0] not in out:
+                continue
+            parts = [out.pop(k) for k in keys]
+            joined = parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+            pieces = joined.chunk(len(dst), 0)
+            for n, piece in zip(dst, pieces):
+                out[f"{tp}.{n}.{leaf}"] = piece.contiguous()
+    return out
+
+
+def reference_to_port(state: Dict[str, torch.Tensor], separate_qkv=False,
+                      input_order: str = "bgr") -> Dict[str, torch.Tensor]:
+    """A released checkpoint's state dict as the port's: the stem flipped
+    to RGB when the checkpoint was trained on BGR frames, the q, k and v
+    projections in the model's layout."""
+    if input_order == "bgr":
+        state = flip_input_channels(state)
+    return convert_qkv(state, separate_qkv)
+
+
+# the flip and the q, k and v layout are their own inverses: the port's
+# state dict in the reference's input order and the layout asked for
+port_to_reference = reference_to_port
 
 
 def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:

@@ -143,14 +143,19 @@ def test_loader_batches_match_jax(root, split, workers):
 def test_loader_refuses_the_training_splits(root):
     """The training splits build (``tests/test_torch_train_data.py``
     holds their batches against JAX's), the on-device augmentation's raw
-    uint8 batches too; what stays unported raises: the Kinetics dataset
-    and an unknown split."""
+    uint8 batches too; an unregistered dataset and an unknown split raise.
+    The Kinetics dataset is registered (``tests/test_torch_video.py``
+    holds it against JAX's): here its CSV is missing."""
     train, _ = loader.construct_loader(
         _cfg(get_cfg, root, **{"TPU.DEVICE_AUG": True}), "train")
     assert next(iter(train))["clips"].dtype == np.uint8
     with pytest.raises(KeyError):
         loader.construct_loader(
-            _cfg(get_cfg, root, **{"TRAIN.DATASET": "kinetics"}), "train")
+            _cfg(get_cfg, root, **{"TRAIN.DATASET": "nosuch"}), "train")
+    with pytest.raises(AssertionError, match="train.csv not found"):
+        loader.construct_loader(
+            _cfg(get_cfg, root, **{"TRAIN.DATASET": "kinetics",
+                                   "DATA.PATH_TO_DATA_DIR": root}), "train")
     with pytest.raises(NotImplementedError):
         loader.construct_loader(_cfg(get_cfg, root), "image_test")
 

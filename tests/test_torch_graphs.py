@@ -90,6 +90,37 @@ def test_off_the_card_the_eager_step_runs():
     assert not step.entries
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_no_collection_holds_the_collector_off(enabled):
+    """A capture's guard: a cycle that dies inside is not collected there,
+    however much is allocated, and the collector's earlier state comes
+    back after."""
+    import gc
+    import weakref
+
+    class Cycle:
+        pass
+
+    was, threshold = gc.isenabled(), gc.get_threshold()
+    try:
+        gc.enable() if enabled else gc.disable()
+        gc.set_threshold(1)
+        with graphs.no_collection():
+            assert not gc.isenabled()
+            dead = Cycle()
+            dead.me = dead
+            ref = weakref.ref(dead)
+            del dead
+            junk = [[] for _ in range(1000)]
+            assert ref() is not None and len(junk) == 1000
+        assert gc.isenabled() == enabled
+        gc.collect()
+        assert ref() is None
+    finally:
+        gc.set_threshold(*threshold)
+        gc.enable() if was else gc.disable()
+
+
 def test_launch_counts_are_taken_at_capture(monkeypatch):
     """A replay counts nothing on the host: the graph keeps the launches
     its capture made, beside its replays."""

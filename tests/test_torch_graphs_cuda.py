@@ -165,6 +165,43 @@ def test_a_second_shape_captures_a_second_graph(card):
     assert state.step == 3
 
 
+def test_a_dead_graph_is_not_collected_during_a_capture(card):
+    """A cycle holding a captured graph that dies while another graph is
+    captured is collected after the capture, not inside it: destroying a
+    graph's executable while a stream captures invalidates the capture.
+    The collector's threshold of 1 would collect it at the capture's next
+    allocation."""
+    import gc
+
+    from svit_tpu_torch.engine import graphs
+
+    class Holder:
+        pass
+
+    old = graphs.CapturedStep(lambda b: b * 2)
+    old(torch.ones(4, device="cuda"))
+    box, calls = [old], []
+    del old
+
+    def fn(b):
+        calls.append(b)
+        if len(calls) == graphs.WARMUP + 1:   # the capture
+            dead = Holder()
+            dead.me, dead.step = dead, box.pop()
+            del dead
+        return [b + i for i in range(64)]
+
+    step = graphs.CapturedStep(fn)
+    threshold = gc.get_threshold()
+    try:
+        gc.set_threshold(1)
+        out = step(torch.ones(4, device="cuda"))
+    finally:
+        gc.set_threshold(*threshold)
+    assert not box
+    assert torch.equal(out[63], torch.full((4,), 64.0, device="cuda"))
+
+
 def test_serving_graph_equals_the_eager_forward(card):
     from svit_tpu_torch.serving.server import BatchedPredictor
 

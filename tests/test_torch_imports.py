@@ -65,7 +65,8 @@ def test_port_imports_with_jax_and_svit_tpu_blocked():
 
 _IMPORT_ONE = _BLOCKER + r'''
 import importlib, sys
-importlib.import_module(sys.argv[1])
+for name in sys.argv[1:]:
+    importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if blocked(m))
 assert not leaked, leaked
 '''
@@ -86,10 +87,21 @@ assert not leaked, leaked
     "svit_tpu_torch.engine.multigrid", "svit_tpu_torch.engine.train",
     "svit_tpu_torch.utils.misc", "svit_tpu_torch.utils.converter",
     "svit_tpu_torch.engine.graphs", "svit_tpu_torch.data.device_aug",
-    "svit_tpu_torch.utils.flops", "svit_tpu_torch.serving.server"])
+    "svit_tpu_torch.utils.flops", "svit_tpu_torch.serving.server",
+    # the periphery, one process a subpackage
+    "svit_tpu_torch.native.video svit_tpu_torch.native.camera",
+    "svit_tpu_torch.data.decoder svit_tpu_torch.data.kinetics",
+    "svit_tpu_torch.visualization.gradcam svit_tpu_torch.visualization.draw "
+    "svit_tpu_torch.visualization.demo "
+    "svit_tpu_torch.visualization.tensorboard_vis "
+    "svit_tpu_torch.visualization.run",
+    "svit_tpu_torch.tools.run_net svit_tpu_torch.tools.train_net "
+    "svit_tpu_torch.tools.test_net svit_tpu_torch.tools.demo_net "
+    "svit_tpu_torch.tools.visualization svit_tpu_torch.tools.serve "
+    "svit_tpu_torch.tools.convert_checkpoint"])
 def test_train_modules_import_with_jax_and_svit_tpu_blocked(module):
-    r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
-                       capture_output=True, text=True, timeout=300)
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *module.split()],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
@@ -102,6 +114,45 @@ def test_build_model_without_device_raises_when_cuda_absent(monkeypatch):
     cfg.merge_from_file(os.path.join(REPO, "configs", "ssv2.yaml"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
+
+
+def _entry(name):
+    """An entry point that takes a config (and ``device``)."""
+    if name == "demo":
+        from svit_tpu_torch.visualization.demo import demo
+        return demo
+    if name == "visualize":
+        from svit_tpu_torch.visualization.run import visualize
+        return visualize
+    from svit_tpu_torch.tools import run_net
+
+    def run(cfg, device=None):
+        path = os.path.join(cfg.OUTPUT_DIR, "cfg.yaml")
+        with open(path, "w") as f:
+            f.write(cfg.dump())
+        run_net.main(["--cfg", path, "TRAIN.ENABLE", "False", "TEST.ENABLE",
+                      "True"], device=device)
+    return run
+
+
+@pytest.mark.parametrize("name", ["demo", "visualize", "run_net"])
+def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path, name):
+    """Without a card the entry points raise before any work; given
+    ``device="cpu"`` they get as far as their input (none exists here)."""
+    from svit_tpu_torch.config import get_cfg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "ssv2.yaml"))
+    cfg.OUTPUT_DIR = str(tmp_path)
+    cfg.SSV2.DATA_ROOT = str(tmp_path / "absent")
+    cfg.DEMO.INPUT_VIDEO = str(tmp_path / "absent")
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 32
+    cfg.DATA.NUM_FRAMES = 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry(name)(cfg)
+    with pytest.raises((AssertionError, FileNotFoundError)):
+        _entry(name)(cfg, device="cpu")
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():
