@@ -38,14 +38,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gradient vector must pass the gate above, and the worst leaf by excess
    is printed.  The kernel step's launch counts must equal what the
    architecture implies; every distinct call of the backward kernels (K5,
-   K6, K7), K2's bare mode, K1's masked mode and K4 is replayed against
+   K6, K7, K3's ``pool_max_bwd``), K2's bare mode, K1's masked mode and
+   K4 is replayed against
    its plain version, timed beside its bound and a library yardstick, and
    so is every K2 call of the step's three forwards (the ``pool_ln (train
    step)`` row).  Then
    five timed steps of the kernel model: median step time, clips/s, peak
    memory, a profiled step's device time by kernel and idle share (with its
    GEMM rows by operand type, and the operand types of every product of
-   the LN-linear backward), a finite loss and parameters that move.
+   the LN-linear backward; no event of ``F.max_pool3d``'s backward), a
+   finite loss and parameters that move.
 
 8. test: a synthetic SSv2 tree in a temp dir (4 videos of 24 JPEG frames
    at 427 x 240, written through PIL from seed 0), then at
@@ -70,8 +72,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    batch 7 and image batch 8, two epochs of 8 steps with a checkpoint and
    an eval epoch after each.  Every step's metrics finite and its launches
    equal to the step's own; the first step gated against
-   ``make_train_step`` as phase 7 gates (and run twice, to show how far the
-   step differs from itself); no f32 GEMM row of a product of f32
+   ``make_train_step`` as phase 7 gates, and that step run twice from one
+   state (loss, metrics, gradients and parameters bit for bit) and once
+   under ``use_deterministic_algorithms``, which must name no op: printed
+   as ``deterministic: true``; no f32 GEMM row of a product of f32
    operands in a profiled step; the per-step wall (median and quartiles of
    the steady steps), data wait, device time, idle share and peak memory.
    Then a rerun to 3 epochs resumes at epoch 2 with the state equal bit for
@@ -86,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    The serving forward (``BatchedPredictor``) at batch 8 and 1, bit-equal
    to the eager forward; the train step on phase 7's batch and seed, its
    loss bit-equal to phase 7's eager kernel step and its gradient under
-   the gate against phase 7's plain runs, the capture's launch counts;
+   the gate against phase 7's plain runs, replayed twice from one state
+   bit for bit (``deterministic: true``), the capture's launch counts;
    the eval (with the consistency loss), image-eval and batch-64 test
    steps against their eager outputs.  Each path's replays and eager
    calls are timed in turns in the same call (median wall, a profiled
@@ -113,7 +118,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forward (copy in, replay, copy out), drawing and writing; the
    ``Predictor``'s captured forward bit-equal to the eager one.  The
    card's machine has no libav, so no ``.mp4`` is written and the
-   Kinetics test (libav decoding) is held on the CPU only.
+   Kinetics test (libav decoding) is held on the CPU only;
+13. NCCL: the captured train step (phase 7's batch and seed) under a
+   process group of one rank, its gradient all-reduce and the losses' and
+   metrics' all-reduces issued inside the capture, against the same step
+   with no group: loss, metrics, gradients and parameters bit for bit, the
+   same hand-written kernel nodes (NCCL adds no kernel at one rank),
+   replays timed in turns (the multi-card run needs more cards);
+14. learning proof: ``python -m svit_tpu_torch.tools.overfit_hw`` (the
+   CLI on 4 solid-colour videos, bf16 kernels, captured step; SIGTERM
+   after 6 steps, then the auto-resume; the first ``loss_ce`` above 1.0,
+   the last below 0.1).
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
@@ -202,6 +217,10 @@ TRAIN_KERNELS = {  # the train step's new kernels and modes, and K4
                "svit_tpu/ops/pallas_pool.py:175 _kernel_s1; "
                "svit_tpu/ops/pallas_pool.py:250 _kernel_strided (the train "
                "step's three forwards)"),
+    "pool_max_bwd": ("svit_tpu_torch/csrc/pool.cu",
+                     "svit_tpu/ops/pallas_pool.py:880 _pool_max_bwd (the VJP "
+                     "of reduce_window: no pallas_call; the backward of "
+                     ":695 _kernel_strided_max)"),
 }
 # a kernel table row -> the launch counter it reads
 COUNTER = {TRAIN_K4: "pooled_attention", TRAIN_K2: "pool_ln"}
@@ -376,6 +395,8 @@ def train_wrappers():
         TRAIN_K4: (attn_ops, "pooled_attention_fwd",
                    attn_ops.pooled_attention_reference, TRAIN_K4),
         TRAIN_K2: (pool, "fused_pool_ln", pool.pool_ln_reference, TRAIN_K2),
+        "pool_max_bwd": (pool, "pool_max_bwd",
+                         pool.pool_max_backward_reference, "pool_max_bwd"),
     }
 
 
@@ -425,6 +446,12 @@ def cost(name, args, kwargs):
             byts = (window_bytes(x, kernel, stride) + nb(g)
                     + 4 * taps * x.shape[-1])
         return byts, 0.0, 2.0 * taps * g_numel
+    if name == "pool_max_bwd":
+        # g and its argmax taps read once, dx written once; one f32 add
+        # per routed element of g
+        g, arg, kernel, stride, in_shape = args
+        return nb(g) + nb(arg) + 2 * math.prod(in_shape), 0.0, float(
+            g.numel())
     if name == "pooled_attention_bwd":
         # five Nq x Nk x head_dim products per head: S, dP, dq, dK, dV
         q, kv, bias_src, do = args[:4]
@@ -496,6 +523,26 @@ def library_call(name, args, kwargs):
         pad = tuple(k // 2 for k in kernel)
         return lambda: torch.nn.grad.conv3d_weight(
             cf(x), (C, 1, *kernel), cf(g), stride, pad, groups=C)
+    if name == "pool_max_bwd":
+        # F.max_pool3d's backward (its CUDA kernel scatters with atomic
+        # adds) on the same cotangent and argmax, as flat input indices
+        g, arg, kernel, stride, in_shape = args
+        B, T, H, W, C = in_shape
+        To, Ho, Wo = g.shape[1:4]
+        tap = arg.long()
+        kT, kH, kW = kernel
+        pos = [torch.arange(n, device=g.device) * s - k // 2
+               for n, s, k in zip((To, Ho, Wo), stride, kernel)]
+        t = pos[0].view(1, -1, 1, 1, 1) + tap // (kH * kW)
+        h = pos[1].view(1, 1, -1, 1, 1) + tap // kW % kH
+        w = pos[2].view(1, 1, 1, -1, 1) + tap % kW
+        idx = ((t * H + h) * W + w).permute(0, 4, 1, 2, 3).contiguous()
+        x = torch.zeros((B, C, T, H, W), dtype=g.dtype, device=g.device)
+        gcf = g.permute(0, 4, 1, 2, 3).contiguous()
+        pad = tuple(k // 2 for k in kernel)
+        return lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+            gcf, x, list(kernel), list(stride), list(pad), [1, 1, 1], False,
+            idx)
     if name == "pooled_attention_bwd":
         from svit_tpu_torch.ops.attention import _gather_bias
 
@@ -603,6 +650,8 @@ def use_of(name, args, kwargs):
         return "fused_ln_dense"
     if name in ("pool_ln", TRAIN_K2):
         return f"fused_pool_ln stride {tuple(args[4])}"
+    if name == "pool_max_bwd":
+        return f"_pool_max_bwd {tuple(args[4])}"
     return "fused_pool_max"
 
 
@@ -680,6 +729,7 @@ def expected_train_launches(arch, forwards=3, backwards=2):
         n["pool_ln"] += forwards * 2
         n["pooled_attention"] += forwards * 2
         n["pool_max"] += forwards * (int(np.prod(s.stride_q)) > 1)
+        n["pool_max_bwd"] += backwards * (int(np.prod(s.stride_q)) > 1)
         dead = int(arch.cls_embed_on and i == len(arch.blocks) - 1)
         for k in ("pool_conv", "pool_conv_dx", "pool_conv_dk",
                   "pooled_attention_bwd"):
@@ -696,6 +746,7 @@ def expected_gradcam_launches(arch, target):
     block's grid attention and q pool take none (as in the train step)."""
     n = collections.Counter(expected_launches(arch))
     for i in range(target + 1, len(arch.blocks)):
+        n["pool_max_bwd"] += int(np.prod(arch.blocks[i].stride_q)) > 1
         dead = int(arch.cls_embed_on and i == len(arch.blocks) - 1)
         for k in ("pool_conv", "pool_conv_dx", "pooled_attention_bwd"):
             n[k] += 2 - dead
@@ -1003,6 +1054,12 @@ def profile_step(step, state, video, image, torch, step_ms):
     device_ms = sum(r[2] for r in rows)
     ours_ms = sum(r[2] for r in rows if any(k in r[0] for k in OUR_KERNELS))
     idle = max(0.0, 1 - device_ms / step_ms)
+    library_pool = sorted({e.key for e in prof.key_averages()
+                           if "max_pool3d_with_indices_backward" in e.key})
+    log(f"profile train step: events of max_pool3d_with_indices_backward "
+        f"(F.max_pool3d's backward): {library_pool or 'none'}")
+    if library_pool:
+        raise SystemExit("train: K3's backward ran through F.max_pool3d")
     log(f"profile train step: wall {wall_ms:.1f} ms (profiled), device "
         f"{device_ms:.1f} ms, hand-written kernels {ours_ms:.1f} ms, idle "
         f"share {idle:.3f} against the unprofiled {step_ms:.1f} ms")
@@ -1227,8 +1284,8 @@ def time_forward(model, arch, torch, batch):
 
 
 OUR_KERNELS = ("ln_linear_kernel", "pool_ln_kernel", "pool_max_kernel",
-               "attn_fwd_kernel", "attn_bwd_", "halo_gen_kernel",
-               "dx_kernel", "conv_dk_", "dk_gen_kernel")
+               "pool_max_bwd_kernel", "attn_fwd_kernel", "attn_bwd_",
+               "halo_gen_kernel", "dx_kernel", "conv_dk_", "dk_gen_kernel")
 
 
 def device_rows(prof, torch):
@@ -1889,8 +1946,8 @@ class TrainerSpy:
             spy.evals.append(stats)
             return stats
 
-        def load(path, state):
-            out = load_fn(path, state)
+        def load(path, state, *mesh):
+            out = load_fn(path, state, *mesh)
             if spy.on_resume is not None:
                 spy.on_resume(path, state)
             return out
@@ -1974,14 +2031,34 @@ def nondeterministic_op(message):
     return message[:120]
 
 
+def step_tensors(model):
+    """Every gradient and parameter of a model after a step (copies)."""
+    return {**{f"grad {n}": p.grad.detach().clone()
+               for n, p in model.named_parameters()},
+            **{f"param {n}": p.detach().clone()
+               for n, p in model.named_parameters()}}
+
+
+def runs_equal(torch, a, b, metrics_a=None, metrics_b=None):
+    """Whether two steps' tensors (``step_tensors``) and metrics are equal
+    bit for bit; and a line that says so, naming what differs."""
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if metrics_a is not None and metrics_a != metrics_b:
+        differ.insert(0, "metrics")
+    return not differ, (f"loss, metrics, {len(a) // 2} gradients and "
+                        f"parameters bit-equal" if not differ else
+                        f"{len(differ)} differ: {differ[:6]}")
+
+
 def first_step_gate(torch, cfg, first, trainer_metrics, names):
     """The Trainer's first step against ``make_train_step`` from the same
     initial parameters, batch and generator seed: kernels in bf16 (twice,
     to show how far the step differs from itself, then once under
     ``torch.use_deterministic_algorithms(warn_only=True)``, which names the
-    ops that have no deterministic implementation), plain in bf16 and plain
-    in f32; the loss and the gradient norm under phase 7's gate, and the
-    Trainer's values beside the kernel steps'."""
+    ops that have no deterministic implementation, and once with cuDNN held
+    to deterministic algorithms, shown beside the default's bits), plain in
+    bf16 and plain in f32; the loss and the gradient norm under phase 7's
+    gate, and the Trainer's values beside the kernel steps'."""
     import warnings
 
     from svit_tpu_torch.engine import steps
@@ -1990,11 +2067,13 @@ def first_step_gate(torch, cfg, first, trainer_metrics, names):
     from svit_tpu_torch.models.optimizer import construct_optimizer
 
     got = dict(zip(names, trainer_metrics.float().cpu().tolist()))
-    values, nondeterministic = {}, set()
+    values, nondeterministic, runs = {}, set(), {}
     for name, dtype, kernels in (("kernels", torch.bfloat16, True),
                                  ("kernels_again", torch.bfloat16, True),
                                  ("kernels_deterministic", torch.bfloat16,
                                   True),
+                                 ("kernels_cudnn_deterministic",
+                                  torch.bfloat16, True),
                                  ("plain_bf16", torch.bfloat16, False),
                                  ("plain_f32", torch.float32, False)):
         model, _ = build_model(cfg, dtype=dtype, use_kernels=kernels,
@@ -2007,24 +2086,47 @@ def first_step_gate(torch, cfg, first, trainer_metrics, names):
             image_weight=1 / 8, with_image=True, with_consistency=True)
         gen = torch.Generator(device="cuda").manual_seed(first["seed"])
         strict = name == "kernels_deterministic"
+        cudnn_was = torch.backends.cudnn.deterministic
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.use_deterministic_algorithms(strict, warn_only=True)
+            torch.backends.cudnn.deterministic = (
+                name == "kernels_cudnn_deterministic")
             try:
                 _, m = step(state, first["video"], first["image"], gen)
                 values[name] = {k: float(v) for k, v in m.items()}
             finally:
                 torch.use_deterministic_algorithms(False)
+                torch.backends.cudnn.deterministic = cudnn_was
         if strict:
             nondeterministic = sorted({nondeterministic_op(str(w.message))
                                        for w in caught
                                        if "eterministic" in str(w.message)})
+        if name.startswith("kernels"):
+            runs[name] = step_tensors(model)
         del model, state, step
         torch.cuda.empty_cache()
     log(f"phase 9 first step: ops without a deterministic implementation: "
         f"{nondeterministic or 'none'}")
+    same = {k: runs_equal(torch, runs["kernels"], runs[k], values["kernels"],
+                          values[k])
+            for k in ("kernels_again", "kernels_deterministic",
+                      "kernels_cudnn_deterministic")}
+    # the global flag may switch ops to other (deterministic) algorithms,
+    # so the third run is shown beside the first, not held to it
+    deterministic = same["kernels_again"][0] and not nondeterministic
+    log(f"phase 9 first step: make_train_step twice from one state: "
+        f"{same['kernels_again'][1]}; under use_deterministic_algorithms: "
+        f"{same['kernels_deterministic'][1]}; with cuDNN's deterministic "
+        f"algorithms: {same['kernels_cudnn_deterministic'][1]}")
+    log(f"phase 9 first step deterministic: {str(deterministic).lower()}")
+    if not deterministic:
+        raise SystemExit("phase 9: the train step is not deterministic")
     result = {"trainer": got, "runs": values,
-              "nondeterministic_ops": nondeterministic}
+              "nondeterministic_ops": nondeterministic,
+              "deterministic": deterministic,
+              "cudnn_deterministic_same_bits":
+                  same["kernels_cudnn_deterministic"][0]}
     for key in ("loss", "grad_norm"):
         v32 = values["plain_f32"][key]
         err_t = abs(got[key] - v32) / abs(v32)
@@ -2313,12 +2415,14 @@ NODE_KERNELS = (
     (("pool_ln", "pool_conv", "pool_conv_dx"),
      ("pool_ln_kernel", "halo_gen_kernel", "dx_kernel")),
     (("pool_max",), ("pool_max_kernel",)),
+    (("pool_max_bwd",), ("pool_max_bwd_kernel",)),
     (("pooled_attention",), ("attn_fwd_kernel",)),
     (("pooled_attention_bwd",), ("attn_bwd_q_kernel",)),
     (("pool_conv_dk",), ("conv_dk_kernel", "dk_gen_kernel")),
 )
 KERNEL_NAMES = ("ln_linear_kernel", "pool_ln_kernel", "halo_gen_kernel",
-                "dx_kernel", "pool_max_kernel", "attn_fwd_kernel",
+                "dx_kernel", "pool_max_kernel", "pool_max_bwd_kernel",
+                "attn_fwd_kernel",
                 "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
                 "attn_bwd_reduce_kernel", "conv_dk_kernel",
                 "conv_dk_reduce_kernel", "dk_gen_kernel")
@@ -2341,6 +2445,7 @@ def kernel_nodes(graph):
     """The hand-written kernels among a ``node_graph``'s nodes, by kernel:
     ``cudaGraphDebugDotPrint`` writes one line per node, a kernel node's
     with its (mangled) name.  A replay runs every node."""
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     path = os.path.join(REPO, "chiprun_out", f"graph_{os.getpid()}.dot")
     graph.graph.debug_dump(path)
     nodes = collections.Counter()
@@ -2474,6 +2579,7 @@ def run_compiled_train(cfg, torch, reference):
     want = dict(expected_train_launches(arch))
     cstep = graphs.CapturedTrainStep(step, graph_factory=node_graph)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    start = graphs._Restore(state, gen)   # the state the step starts from
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2483,6 +2589,21 @@ def run_compiled_train(cfg, torch, reference):
     host = dict(_lib.LAUNCHES)
     (entry,) = cstep.entries.values()
     metrics = {k: float(v) for k, v in m.items()}
+    # the replay again from the same state: bit for bit
+    first = step_tensors(state.model)
+    start.restore()
+    state.step = 0
+    _, m2 = cstep(state, video, image, gen)
+    torch.cuda.synchronize()
+    deterministic, said = runs_equal(
+        torch, first, step_tensors(state.model), metrics,
+        {k: float(v) for k, v in m2.items()})
+    del first
+    log(f"phase 10 train graph, replayed twice from one state: {said}")
+    log(f"phase 10 train graph deterministic: {str(deterministic).lower()}")
+    if not deterministic:
+        raise SystemExit("phase 10: the captured train step is not "
+                         "deterministic")
     loss_equal = metrics["loss"] == reference["losses"]["kernels"]["loss"]
     log(f"phase 10 train step: first call (warm-up, capture, replay) "
         f"{first_s:.2f} s; loss {metrics['loss']!r}, phase 7's eager "
@@ -2546,6 +2667,7 @@ def run_compiled_train(cfg, torch, reference):
         f"replay's wall, {rate / TENSOR_FLOPS:.4f} of the 989 TFLOP/s bf16 "
         f"peak; {card_line()}")
     out = dict(rows, first_call_s=first_s, loss=metrics["loss"],
+               deterministic=deterministic,
                gate_grads_global={"err_graph": err_g,
                                   "err_plain_bf16": err_p},
                launches=entry.launches, first_call_host_launches=host,
@@ -2887,6 +3009,143 @@ def run_demo_phase(torch):
     return result
 
 
+def graph_census(graph):
+    """All nodes of a ``node_graph`` and its NCCL kernel nodes (a
+    collective captured in the graph)."""
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    path = os.path.join(REPO, "chiprun_out", f"graph_{os.getpid()}_all.dot")
+    graph.graph.debug_dump(path)
+    try:
+        with open(path) as f:
+            lines = [ln for ln in f if "topoId" in ln]
+    finally:
+        os.remove(path)
+    return {"nodes": len(lines),
+            "nccl": sum("nccl" in ln.lower() for ln in lines)}
+
+
+def run_nccl_phase(cfg, torch):
+    """Phase 13: the captured train step under a process group of one rank
+    (NCCL), so that its collectives (the gradient all-reduce, the loss
+    denominators', the metrics') are captured in the graph, against the
+    same step with no group: both from one seeded state on phase 7's batch
+    and seed; the loss, metrics, gradients and parameters after AdamW bit
+    for bit; the two graphs' hand-written kernel nodes the same; the
+    collectives issued while the group's step was captured (counted on
+    the host: NCCL sums one rank in place and adds no kernel node, so the
+    graph shows only the buckets' flatten and copy-back); replays of each
+    timed in turns."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from svit_tpu_torch.engine import graphs, steps
+    from svit_tpu_torch.models.losses import get_loss_func
+    from svit_tpu_torch.parallel import mesh as meshlib
+
+    video, image = train_batch(cfg, torch)
+    torch.cuda.set_device(0)
+    issued = collections.Counter()   # collectives issued, by run
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **k):
+        issued[run_name] += 1
+        return all_reduce(*a, **k)
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                            world_size=1, rank=0)
+    try:
+        mesh = meshlib.build_mesh(data=1, model=1)
+        runs, caps = {}, {}
+        dist.all_reduce = counted
+        for run_name, m in (("no group", None), ("1-rank NCCL", mesh)):
+            name = run_name
+            state, _, _ = train_setup(cfg, torch, torch.bfloat16, True)
+            step = steps.make_train_step(
+                state.model, get_loss_func(cfg), state.tx, video_weight=7 / 8,
+                image_weight=1 / 8, with_image=True, with_consistency=True,
+                mesh=m)
+            cstep = graphs.CapturedTrainStep(step, graph_factory=node_graph)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            t0 = time.perf_counter()
+            state, metrics = cstep(state, video, image, gen)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            (entry,) = cstep.entries.values()
+            runs[name] = dict(
+                # per call: the first call makes WARMUP calls and a capture
+                collectives=issued[name] / (graphs.WARMUP + 1),
+                tensors=step_tensors(state.model),
+                metrics={k: float(v) for k, v in metrics.items()},
+                nodes=kernel_nodes(entry.graph),
+                census=graph_census(entry.graph), launches=entry.launches,
+                first_s=first_s)
+            caps[name] = (cstep, state, video, image, gen)
+        dist.all_reduce = all_reduce
+        a, b = runs["no group"], runs["1-rank NCCL"]
+        equal, said = runs_equal(torch, a["tensors"], b["tensors"],
+                                 a["metrics"], b["metrics"])
+        log(f"phase 13 1-rank NCCL group against no group: {said}")
+        log(f"phase 13 collectives a step, issued in the capture: no group "
+            f"{a['collectives']:g}, 1-rank NCCL {b['collectives']:g} (the "
+            f"gradient buckets, the loss denominators, the metrics)")
+        log(f"phase 13 graph nodes: no group {a['census']}, hand-written "
+            f"{a['nodes']}; 1-rank NCCL {b['census']}, hand-written "
+            f"{b['nodes']} (at one rank NCCL sums in place with no kernel: "
+            f"the extra nodes are the buckets' flatten and copy-back)")
+        times = {k: [] for k in caps}
+        for name in ("no group", "1-rank NCCL", "1-rank NCCL", "no group"):
+            cstep, state, v, i, gen = caps[name]
+            times[name] += time_calls(lambda: cstep(state, v, i, gen), torch,
+                                      TIMED)
+        for name, ts in times.items():
+            runs[name]["replay_median_ms"] = statistics.median(ts)
+            runs[name]["replay_ms"] = ts
+        log(f"phase 13 replay wall median: no group "
+            f"{runs['no group']['replay_median_ms']:.2f} ms, 1-rank NCCL "
+            f"{runs['1-rank NCCL']['replay_median_ms']:.2f} ms ({2 * TIMED} "
+            f"each, in turns); {card_line()}")
+        if not equal:
+            raise SystemExit("phase 13: the step under a 1-rank group "
+                             "differs from the step with none")
+        if a["nodes"] != b["nodes"] or a["launches"] != b["launches"]:
+            raise SystemExit("phase 13: the group changed the graph's "
+                             "hand-written kernel nodes")
+        if a["collectives"] or not b["collectives"] or b["census"][
+                "nodes"] <= a["census"]["nodes"]:
+            raise SystemExit("phase 13: the group's step issued no "
+                             "collective in its capture")
+        for r in runs.values():
+            del r["tensors"]
+        del caps
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def run_overfit_phase():
+    """Phase 14: the learning proof through the port's CLI
+    (``svit_tpu_torch/tools/overfit_hw.py``: SIGTERM after 6 steps, the
+    auto-resume, the first loss_ce above 1.0 and the last below 0.1)."""
+    out = os.path.join(REPO, "chiprun_out", "overfit_hw")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "svit_tpu_torch.tools.overfit_hw",
+                        "--out", out], cwd=REPO, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    result = json.loads(lines[-1]) if lines else {}
+    log(f"phase 14 learning proof ({wall:.1f} s): rc {r.returncode}, "
+        f"{ {k: result.get(k) for k in ('steps_phase1', 'preempt_checkpoint', 'steps_total', 'loss_first', 'loss_last', 'resumed', 'converged', 'phase1_s', 'phase2_s')} }")
+    if r.returncode != 0 or not result.get("ok"):
+        log(r.stderr[-3000:])
+        raise SystemExit("phase 14: the learning proof failed")
+    return dict(result, wall_s=wall)
+
+
 def main():
     import torch
 
@@ -2960,6 +3219,9 @@ def main():
     torch.cuda.empty_cache()
     gradcam, gradcam_launches = run_gradcam_phase(torch)
     demo = run_demo_phase(torch)
+    torch.cuda.empty_cache()
+    nccl = run_nccl_phase(cfg, torch)
+    overfit = run_overfit_phase()
     log(f"phase 9's profiled replay (video batch {TRAINER_VIDEO}): "
         f"hand-written kernel events {trainer['run_a']['profile']['families']}"
         f"; phase 10's eager step (video batch {TRAIN_VIDEO}): "
@@ -3006,9 +3268,10 @@ def main():
                        train=train, train_uses=train_uses,
                        train_calls=train_details, test=test,
                        trainer=trainer, compiled=compiled, gradcam=gradcam,
-                       demo=demo, kernels=kernels),
+                       demo=demo, nccl=nccl, overfit=overfit,
+                       kernels=kernels),
                   f, indent=1)
-    log(f"all twelve phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"all fourteen phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

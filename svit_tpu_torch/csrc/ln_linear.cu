@@ -102,6 +102,9 @@ struct Params {
   int splits;             // blocks per row panel
   int tiles_per_split;    // N tiles each of them sweeps
   int direct;             // stores from the fragment, not TMA (see tma_out)
+  float* out_f32;         // the f32 product alone: no bias, GELU, rounding,
+                          // mask or residual (the tensor-parallel fc2's
+                          // partial, summed across ranks before its bias)
 };
 
 // Shared memory, from the 1024-byte aligned base: [panel][ring][output tile
@@ -247,7 +250,7 @@ __device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t u) {
 // column pairs go straight to out0 / out1 instead.  Fragment of m64nNk16:
 // warp wl holds rows 16 wl + lane / 4 (+ 8), columns 8 j + 2 (lane % 4)
 // (+ 1).
-template <bool GELU>
+template <bool GELU, bool F32>
 __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[64],
                                          uint8_t* ot, const float* sb,
                                          const CUtensorMap* tm_o0,
@@ -266,6 +269,13 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&acc)[64],
     for (int h2 = 0; h2 < 2; ++h2) {
       const int row = r0 + 8 * h2;
       float t0 = acc[4 * j + 2 * h2], t1 = acc[4 * j + 2 * h2 + 1];
+      if (F32) {  // a direct launch: each thread's column pairs
+        const int m = mb + row, n = n0 + col;
+        if (m < p.M && n < p.N)
+          *reinterpret_cast<float2*>(p.out_f32 + (size_t)m * p.N + n) =
+              make_float2(t0, t1);
+        continue;
+      }
       if (p.bias_mode == 1) {
         t0 += b.x;
         t1 += b.y;
@@ -366,7 +376,9 @@ __device__ __forceinline__ void slot_of(int t, int c, int kc, int stages,
 // SM: with bm = 128 each warpgroup owns 64 rows and both read every W tile;
 // with bm = 64 ("ping") both share the 64-row panel and take alternate N
 // tiles, so one warpgroup's epilogue runs under the other's products.
-template <int NCW, bool PANEL, bool GELU>
+// F32: the instance of the f32 mode (Params::out_f32), apart so that the
+// others' epilogue carries no branch for it.
+template <int NCW, bool PANEL, bool GELU, bool F32>
 __global__ void __launch_bounds__(NCW * 128 + 32, NCW == 1 ? 3 : 1)
     ln_linear_kernel(const __grid_constant__ CUtensorMap tm_x,
                      const __grid_constant__ CUtensorMap tm_w,
@@ -537,7 +549,8 @@ __global__ void __launch_bounds__(NCW * 128 + 32, NCW == 1 ? 3 : 1)
     mbar_arrive_if(lane == 0, &empty[s]);
     K1_TRACE(tw == 0 && j < 9, 5 + wg * 30 + j * 3, k1_clock());
     if (tma_residual) mbar_wait(&res_bar[wg], j & 1);
-    epilogue<GELU>(p, acc, ot, sb, &tm_o0, &tm_o1, my, mb, n0, wg, wl, lane);
+    epilogue<GELU, F32>(p, acc, ot, sb, &tm_o0, &tm_o1, my, mb, n0, wg, wl,
+                        lane);
     K1_TRACE(tw == 0 && j < 9, 6 + wg * 30 + j * 3, k1_clock());
   }
   bulk_wait();  // this warpgroup's stores are done
@@ -558,10 +571,10 @@ int encode(CUtensorMap* map, const bf16* ptr, int rows, int cols,
                     box_cols == BK ? 128 : 64);
 }
 
-template <int NCW, bool PANEL, bool GELU>
+template <int NCW, bool PANEL, bool GELU, bool F32 = false>
 int launch(const Params& p, const CUtensorMap (&maps)[6], int smem,
            cudaStream_t stream) {
-  auto kernel = ln_linear_kernel<NCW, PANEL, GELU>;
+  auto kernel = ln_linear_kernel<NCW, PANEL, GELU, F32>;
   static bool granted[64] = {};  // the shared-memory grant, per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -615,7 +628,8 @@ extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
                               const float* ln_g, const float* ln_b, float eps,
                               const bf16* w, const float* bias, int bias_mode,
                               int gelu, const bf16* residual, bf16* out0,
-                              bf16* out1, int n_split, int M, int N, int K,
+                              bf16* out1, float* out_f32, int n_split, int M,
+                              int N, int K,
                               const float* mask_add, const float* mask_out,
                               float keep, int rows, int bm, int ncw,
                               int stages, int splits, cudaStream_t stream) {
@@ -630,11 +644,16 @@ extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
   if (L.total > SMEM_BLOCK_MAX) return ERR_PLAN;
   // TMA stores need every output sub-tile inside one output of at least
   // SUB columns: the split on a sub-tile edge
-  const bool tma_out = n_split >= SUB && (n_split == N || n_split % SUB == 0) &&
+  const bool tma_out = !out_f32 && n_split >= SUB &&
+                       (n_split == N || n_split % SUB == 0) &&
                        (n_split == N || N - n_split >= SUB);
+  if (out_f32 && (bias_mode || gelu || residual || mask_out ||
+                  n_split != N || panel))
+    return ERR_PLAN;
   Params p{bm, x, x_add, s_out, ln_g, ln_b, eps, bias, bias_mode, residual,
            out0, out1, n_split, M, N, K, mask_add, mask_out, keep, rows, kc,
-           stages, splits, (n_tiles + splits - 1) / splits, !tma_out};
+           stages, splits, (n_tiles + splits - 1) / splits, !tma_out,
+           out_f32};
   // x, w, s, out0, out1, residual (unused maps stay zero)
   CUtensorMap maps[6] = {};
   int rc = encode(&maps[0], x, M, K, bm, BK);
@@ -645,6 +664,9 @@ extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
     rc = encode(&maps[4], out1, M, N - n_split, 64, SUB);
   if (!rc && tma_out && residual) rc = encode(&maps[5], residual, M, N, 64, SUB);
   if (rc) return rc;
+  if (out_f32)
+    return ncw == 2 ? launch<2, false, false, true>(p, maps, L.total, stream)
+                    : launch<1, false, false, true>(p, maps, L.total, stream);
   return gelu ? dispatch<true>(p, maps, ncw, panel, L.total, stream)
               : dispatch<false>(p, maps, ncw, panel, L.total, stream);
 }

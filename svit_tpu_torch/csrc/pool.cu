@@ -21,7 +21,10 @@
 //   never the stuffed tensor (dx_kernel at the main path's shapes, the
 //   general instance elsewhere).
 // * K3 replaces _kernel_strided_max (fused_pool_max): MaxPool3d with -inf
-//   padding k//2, a gather, 8 channels a thread.
+//   padding k//2, a gather, 8 channels a thread.  Its backward
+//   (pool_max_bwd_kernel) replaces the VJP of reduce_window that JAX's
+//   _pool_max_bwd takes (no pallas_call): a gather over the windows that
+//   cover each input cell, reading the argmax taps the forward wrote.
 //
 // Two instances of the halo tile.  The tuned one takes the main path's
 // shapes: (1|3) x 3 x 3 kernels at T stride 1 on 96-channel slabs (K2's LN
@@ -698,9 +701,16 @@ __global__ void __launch_bounds__(224) conv_dk_kernel(
 struct MaxParams {
   const bf16* x;
   bf16* out;
+  uint8_t* arg;  // ARG: the window's argmax tap per output cell and channel
   int B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo;
 };
 
+// K3.  ARG (the instance a differentiated forward launches) also writes,
+// for each output cell and channel, the tap (dt kH + dh) kW + dw of the
+// window's first maximum in (t, h, w) scan order, counted over the taps
+// inside the grid only: the -inf padding is never a candidate, so it never
+// wins a tie.  A window whose values are all -inf keeps its first valid tap.
+template <bool ARG>
 __global__ void __launch_bounds__(256) pool_max_kernel(MaxParams p) {
   const int C8 = p.C / 8;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -715,8 +725,12 @@ __global__ void __launch_bounds__(256) pool_max_kernel(MaxParams p) {
   const int to = pos % p.To;
   const int b = pos / p.To;
   float mx[8];
+  int am[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) mx[i] = -INFINITY;
+  for (int i = 0; i < 8; ++i) {
+    mx[i] = -INFINITY;
+    am[i] = -1;
+  }
   for (int dt = 0; dt < p.kT; ++dt) {
     const int ti = to * p.sT - p.kT / 2 + dt;
     if (ti < 0 || ti >= p.T) continue;
@@ -726,19 +740,102 @@ __global__ void __launch_bounds__(256) pool_max_kernel(MaxParams p) {
       for (int dw = 0; dw < p.kW; ++dw) {
         const int wi = wo * p.sW - p.kW / 2 + dw;
         if (wi < 0 || wi >= p.W) continue;
+        const int tap = (dt * p.kH + dh) * p.kW + dw;
         float v[8];
         unpack8(*reinterpret_cast<const uint4*>(
                     p.x + ((((size_t)b * p.T + ti) * p.H + hi) * p.W + wi) * p.C + c),
                 v);
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (v[i] > mx[i] || v[i] != v[i]) mx[i] = v[i];  // NaN propagates
+        for (int i = 0; i < 8; ++i) {
+          if (ARG && am[i] < 0) am[i] = tap;  // the first valid tap
+          if (v[i] > mx[i] || v[i] != v[i]) {  // NaN propagates
+            mx[i] = v[i];
+            if (ARG) am[i] = tap;
+          }
+        }
+      }
+    }
+  }
+  const size_t o = ((((size_t)b * p.To + to) * p.Ho + ho) * p.Wo + wo) * p.C + c;
+  *reinterpret_cast<uint4*>(p.out + o) = pack8(mx);
+  if (ARG) {
+    uint2 a{0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a.x |= ((uint32_t)am[i] & 0xffu) << (8 * i);
+      a.y |= ((uint32_t)am[4 + i] & 0xffu) << (8 * i);
+    }
+    *reinterpret_cast<uint2*>(p.arg + o) = a;
+  }
+}
+
+// K3's backward (pool_max_bwd), the VJP of reduce_window's max in gather
+// form: a thread owns 8 channels of one input cell, visits the windows
+// that cover it (at most ceil(k / s) a dimension) in (to, ho, wo) order,
+// adds g in f32 where the window's argmax tap is this cell, and writes dx
+// once in bf16.  No atomics: every run adds in the same order.  Bound by
+// bytes: g and the argmax are read (about once at stride 2, kernel 3: the
+// overlapping windows' rows come from L2) and dx written.
+struct MaxBwdParams {
+  const bf16* g;
+  const uint8_t* arg;
+  bf16* dx;
+  int B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo;
+};
+
+// the outputs o of one axis whose window (o s - k / 2 .. + k - 1) holds
+// i: x the first, y the last
+__device__ __forceinline__ int2 covering(int i, int k, int s, int n) {
+  const int a = i + k / 2 - k + 1;  // o s >= a
+  return make_int2(a > 0 ? (a + s - 1) / s : 0, min((i + k / 2) / s, n - 1));
+}
+
+__global__ void __launch_bounds__(256) pool_max_bwd_kernel(MaxBwdParams p) {
+  const int C8 = p.C / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)p.B * p.T * p.H * p.W * C8;
+  if (idx >= total) return;
+  const int c = (idx % C8) * 8;
+  long long pos = idx / C8;
+  const int wi = pos % p.W;
+  pos /= p.W;
+  const int hi = pos % p.H;
+  pos /= p.H;
+  const int ti = pos % p.T;
+  const int b = pos / p.T;
+  const int2 ot = covering(ti, p.kT, p.sT, p.To);
+  const int2 oh = covering(hi, p.kH, p.sH, p.Ho);
+  const int2 ow = covering(wi, p.kW, p.sW, p.Wo);
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int to = ot.x; to <= ot.y; ++to) {
+    const int dt = ti - (to * p.sT - p.kT / 2);
+    for (int ho = oh.x; ho <= oh.y; ++ho) {
+      const int dh = hi - (ho * p.sH - p.kH / 2);
+      for (int wo = ow.x; wo <= ow.y; ++wo) {
+        const int dw = wi - (wo * p.sW - p.kW / 2);
+        const uint32_t tap = (dt * p.kH + dh) * p.kW + dw;
+        const size_t o =
+            ((((size_t)b * p.To + to) * p.Ho + ho) * p.Wo + wo) * p.C + c;
+        const uint2 a = __ldg(reinterpret_cast<const uint2*>(p.arg + o));
+        const uint32_t pick =  // one bit per channel whose argmax is here
+            (__vcmpeq4(a.x, tap * 0x01010101u) & 0x80808080u) |
+            ((__vcmpeq4(a.y, tap * 0x01010101u) & 0x80808080u) >> 4);
+        if (!pick) continue;
+        float v[8];
+        unpack8(__ldg(reinterpret_cast<const uint4*>(p.g + o)), v);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (pick >> (8 * i + 7) & 1) acc[i] += v[i];
+          if (pick >> (8 * i + 3) & 1) acc[4 + i] += v[4 + i];
+        }
       }
     }
   }
   *reinterpret_cast<uint4*>(
-      p.out + ((((size_t)b * p.To + to) * p.Ho + ho) * p.Wo + wo) * p.C + c) =
-      pack8(mx);
+      p.dx + ((((size_t)b * p.T + ti) * p.H + hi) * p.W + wi) * p.C + c) =
+      pack8(acc);
 }
 
 // ---- the general instance: K2 and K6 (halo_gen_kernel), K7 (dk_gen_kernel)
@@ -1437,14 +1534,34 @@ extern "C" int svit_pool_ln(const bf16* x, const float* w, const float* g,
                  : pool_mode<1>(geo, tx, a, grid, smem, stream);
 }
 
-extern "C" int svit_pool_max(const bf16* x, bf16* out, int B, int T, int H,
-                             int W, int C, int kT, int kH, int kW, int sT,
-                             int sH, int sW, int To, int Ho, int Wo,
-                             cudaStream_t stream) {
-  MaxParams p{x, out, B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo};
+// K3.  ``arg`` (or null): the argmax taps [B, To, Ho, Wo, C] as uint8,
+// written by the ARG instance for the backward.
+extern "C" int svit_pool_max(const bf16* x, bf16* out, uint8_t* arg, int B,
+                             int T, int H, int W, int C, int kT, int kH,
+                             int kW, int sT, int sH, int sW, int To, int Ho,
+                             int Wo, cudaStream_t stream) {
+  if (C % 8 || kT * kH * kW > 255) return static_cast<int>(cudaErrorInvalidValue);
+  MaxParams p{x, out, arg, B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo};
   const long long threads = (long long)B * To * Ho * Wo * (C / 8);
   const unsigned blocks = (unsigned)((threads + 255) / 256);
-  pool_max_kernel<<<blocks, 256, 0, stream>>>(p);
+  if (arg)
+    pool_max_kernel<true><<<blocks, 256, 0, stream>>>(p);
+  else
+    pool_max_kernel<false><<<blocks, 256, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's backward: g [B, To, Ho, Wo, C] bf16 and its argmax taps (uint8) ->
+// dx [B, T, H, W, C] bf16, every element written.
+extern "C" int svit_pool_max_bwd(const bf16* g, const uint8_t* arg, bf16* dx,
+                                 int B, int T, int H, int W, int C, int kT,
+                                 int kH, int kW, int sT, int sH, int sW,
+                                 int To, int Ho, int Wo, cudaStream_t stream) {
+  if (C % 8 || kT * kH * kW > 255) return static_cast<int>(cudaErrorInvalidValue);
+  MaxBwdParams p{g, arg, dx, B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo};
+  const long long threads = (long long)B * T * H * W * (C / 8);
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
+  pool_max_bwd_kernel<<<blocks, 256, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,8 @@ the inverse of the affine to normalised cxcywh HAOG targets.
 
 This is plain torch on the card, as the JAX package computes it as plain
 XLA ops (no Pallas kernel).  Each random function is split into a draw
-(``draw_clip_plans``, from a ``torch.Generator``) and its application given
+(``draw_clip_plans``, from a ``torch.Generator`` or, under data
+parallelism, the global batch's draws, ``parallel/mesh.py:GlobalDraws``) and its application given
 the draws (``augment_clips``): the draws cannot match ``jax.random``'s
 streams, so the tests hand the port the values that JAX drew.  The policy
 approximates the host PIL pipeline (``TPU.PARITY_STRICT`` refuses it).
@@ -29,6 +30,8 @@ import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+
+from svit_tpu_torch.parallel.mesh import rand, randn
 
 Draws = Dict[str, torch.Tensor]
 
@@ -78,15 +81,13 @@ def config_from_cfg(cfg) -> DeviceAugConfig:
 # ---------------------------------------------------------------------------
 
 def _uniform(shape, lo, hi, generator, device):
-    return lo + (hi - lo) * torch.rand(shape, generator=generator,
-                                       device=device)
+    return lo + (hi - lo) * rand(shape, generator, device)
 
 
 def _op_draws(out: Draws, name: str, shape, generator, device) -> None:
-    out[f"{name}_n"] = torch.randn(shape, generator=generator, device=device)
-    out[f"{name}_sign"] = torch.rand(shape, generator=generator, device=device)
-    out[f"{name}_apply"] = torch.rand(shape, generator=generator,
-                                      device=device)
+    out[f"{name}_n"] = randn(shape, generator, device)
+    out[f"{name}_sign"] = rand(shape, generator, device)
+    out[f"{name}_apply"] = rand(shape, generator, device)
 
 
 def draw_affine(B: int, cfg: DeviceAugConfig, generator, device) -> Draws:
@@ -97,12 +98,12 @@ def draw_affine(B: int, cfg: DeviceAugConfig, generator, device) -> Draws:
                          device),
         "log_ratio": _uniform((B,), math.log(cfg.ratio_min),
                               math.log(cfg.ratio_max), generator, device),
-        "x": torch.rand((B,), generator=generator, device=device),
-        "y": torch.rand((B,), generator=generator, device=device),
+        "x": rand((B,), generator, device),
+        "y": rand((B,), generator, device),
     }
     for name in GEOMETRIC_OPS:
         _op_draws(d, name, (B,), generator, device)
-    d["flip"] = torch.rand((B,), generator=generator, device=device)
+    d["flip"] = rand((B,), generator, device)
     return d
 
 
@@ -112,8 +113,8 @@ def draw_photometric(B: int, generator, device) -> Draws:
     d: Draws = {}
     for name in PHOTOMETRIC_OPS:
         _op_draws(d, name, (B,), generator, device)
-    d["sol_n"] = torch.randn((B,), generator=generator, device=device)
-    d["sol_apply"] = torch.rand((B,), generator=generator, device=device)
+    d["sol_n"] = randn((B,), generator, device)
+    d["sol_apply"] = rand((B,), generator, device)
     return d
 
 
@@ -122,14 +123,13 @@ def draw_erase(B: int, T: int, S: int, C: int, generator, device) -> Draws:
     the corner; the pixel noise [B, T, S, S, C]."""
     shape = (B, T)
     return {
-        "do": torch.rand(shape, generator=generator, device=device),
+        "do": rand(shape, generator, device),
         "area": _uniform(shape, 0.02, 1 / 3, generator, device),
         "log_aspect": _uniform(shape, math.log(0.3), math.log(1 / 0.3),
                                generator, device),
-        "top": torch.rand(shape, generator=generator, device=device),
-        "left": torch.rand(shape, generator=generator, device=device),
-        "noise": torch.randn((B, T, S, S, C), generator=generator,
-                             device=device),
+        "top": rand(shape, generator, device),
+        "left": rand(shape, generator, device),
+        "noise": randn((B, T, S, S, C), generator, device),
     }
 
 

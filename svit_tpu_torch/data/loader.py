@@ -9,7 +9,13 @@ Replaces the reference's torch DataLoader + DistributedSampler stack
 - worker parallelism through a process pool (spawned interpreters) or
   threads, with a bounded prefetch queue.
 
-On one card no mesh divides the batch.  The reference's rank-heterogeneous
+Under data parallelism (``shard``: this rank's index and the data axis's
+size, ``parallel/mesh.py:data_sharding``) every rank walks the same
+shuffled order (one seed for all) and reads its share of each global
+batch: the batch's items padded to a multiple of the axis, cut in equal
+runs, the pads (zero weight) on the last ranks.  Concatenated in rank
+order, the shares are the one-process batch with its pads.  The
+reference's rank-heterogeneous
 ``construct_loader_train`` (``loader.py:175-256``) is, as in the JAX
 package, two loaders (video and image) that feed the fused train step.
 The datasets are numpy and PIL only, and process workers are spawned, so a
@@ -129,6 +135,7 @@ class Loader:
         pad_to: Optional[int] = None,
         prefetch: int = 2,
         use_processes: bool = False,
+        shard=(0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -140,6 +147,13 @@ class Loader:
         self.pad_to = pad_to if pad_to is not None else batch_size
         self.prefetch = prefetch
         self.use_processes = use_processes
+        self.shard_index, self.shard_count = shard
+        if self.shard_count > 1:
+            # items of this rank's share, and its rows (``pad_to`` is
+            # per item: ``samples_per_item`` rows each)
+            per = -(-batch_size // self.shard_count)
+            self.pad_to = self.pad_to // batch_size * per
+            self.share = per
         self._epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -158,6 +172,14 @@ class Loader:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
         return idx
+
+    def _collate(self, samples):
+        """A batch (or this rank's share) padded to ``pad_to`` rows; a share
+        with no item is all pads, cut from a collated one."""
+        if samples:
+            return self.collate_fn(samples, self.pad_to)
+        one = self.collate_fn([self.dataset[0]], None)
+        return _pad({k: v[:0] for k, v in one.items()}, self.pad_to)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -181,10 +203,13 @@ class Loader:
             indices[i * self.batch_size : (i + 1) * self.batch_size]
             for i in range(start_iter, n_batches)
         ]
+        if self.shard_count > 1:
+            lo = self.shard_index * self.share
+            batches = [b[lo:lo + self.share] for b in batches]
 
         if self.num_workers <= 0:
             for b in batches:
-                yield self.collate_fn([self.dataset[int(i)] for i in b], self.pad_to)
+                yield self._collate([self.dataset[int(i)] for i in b])
             return
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -217,7 +242,7 @@ class Loader:
                         if stop.is_set():
                             return
                         samples = list(pool.map(fetch, tasks(b)))
-                        out_q.put(self.collate_fn(samples, self.pad_to))
+                        out_q.put(self._collate(samples))
             except Exception as e:  # surface worker errors to the consumer
                 out_q.put(e)
             finally:
@@ -237,7 +262,7 @@ class Loader:
             stop.set()
 
 
-def construct_loader(cfg, split: str):
+def construct_loader(cfg, split: str, shard=(0, 1)):
     """The loader(s) of ``split`` (reference ``loader.py:84-256``).
 
     - ``train``: ``(video_loader, image_loader or None)``, shuffled by
@@ -252,7 +277,9 @@ def construct_loader(cfg, split: str):
     - ``test``: ``TEST.DATASET`` at ``TEST.BATCH_SIZE``, every video
       replicated ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` times.
     The evaluation splits run in order, the last batch padded with
-    zero-weight samples."""
+    zero-weight samples.  ``shard`` (this rank's data index and the data
+    axis's size, ``parallel/mesh.py:data_sharding``) gives each rank its
+    share of every global batch."""
     from svit_tpu_torch.config.defaults import num_image_ranks
 
     if split == "train":
@@ -264,7 +291,7 @@ def construct_loader(cfg, split: str):
             collate_fn=collate_video,
             pad_to=cfg.TRAIN.BATCH_SIZE * num_sample,
             prefetch=cfg.TPU.PREFETCH_DEPTH,
-            use_processes=bool(cfg.DATA_LOADER.USE_PROCESSES))
+            use_processes=bool(cfg.DATA_LOADER.USE_PROCESSES), shard=shard)
         image_loader = None
         if num_image_ranks(cfg) > 0:
             image_ds = build_dataset("multi_images", cfg, "train")
@@ -274,7 +301,8 @@ def construct_loader(cfg, split: str):
                 seed=cfg.RNG_SEED + 1, collate_fn=collate_image,
                 pad_to=cfg.IMAGE_TRAIN.BATCH_SIZE,
                 prefetch=cfg.TPU.PREFETCH_DEPTH,
-                use_processes=bool(cfg.DATA_LOADER.USE_PROCESSES))
+                use_processes=bool(cfg.DATA_LOADER.USE_PROCESSES),
+                shard=shard)
         return video_loader, image_loader
     collate = collate_video
     if split == "val":
@@ -300,7 +328,7 @@ def construct_loader(cfg, split: str):
     return Loader(ds, batch, shuffle=False, drop_last=False,
                   num_workers=workers, seed=cfg.RNG_SEED,
                   collate_fn=collate, pad_to=batch,
-                  prefetch=cfg.TPU.PREFETCH_DEPTH)
+                  prefetch=cfg.TPU.PREFETCH_DEPTH, shard=shard)
 
 
 def shuffle_dataset(loader, cur_epoch: int):

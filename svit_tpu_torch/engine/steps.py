@@ -15,7 +15,9 @@ One call of the step does what the JAX package's jitted step does:
 
 Random numbers (the on-device augmentation, stochastic depth, dropout,
 head dropout) come from the ``torch.Generator`` passed in, drawn in the
-order augmentation, consistency, video, image.  They cannot match JAX's
+order augmentation, consistency, video, image; under data parallelism
+every rank seeds it alike and each draw is the global batch's, cut to the
+rank's rows (``DataShare.draws``).  They cannot match JAX's
 streams; the tests feed both sides rates of 0.
 
 The three forwards share one ``StepCache``: each weight is cast to bf16
@@ -28,6 +30,25 @@ reads the learning rate at the transform's device step counter and leaves
 ``state.step`` alone, so ``engine/graphs.py`` captures it in a CUDA graph
 (the JAX package's ``jax.jit``); ``train_step`` sets the counter from the
 host's step, runs it and counts the step.
+
+Under data parallelism (``mesh``, ``parallel/mesh.py``) each rank runs
+the step on its share of the global batch (``mesh.data_share()``): the
+losses are its terms of the global batch's, the gradients are summed
+over the data group in buckets after the backward and before the clip
+(``mesh.all_reduce_gradients``: inside the step, so inside its CUDA
+graph), and the metrics too.  The clip and the norm then see the global
+gradient; under tensor parallelism the norm sums the squares of the
+sharded tensors over the model group (``Transform.shard``).  With no
+process group none of this runs.
+
+The step is deterministic: two runs from one state on one batch give the
+same loss, gradients and parameters bit for bit.  The hand-written
+backward kernels add in fixed orders (K3's ``pool_max_bwd`` included), and
+on the card cuDNN's default convolution gradients (the patch embed, the
+object-token multiplier) were bit-identical from run to run too
+(``chip_smoke.py`` phase 9 runs a step under
+``torch.use_deterministic_algorithms``, which names no op); nothing is set
+for the process.
 
 The eval steps (``make_eval_step``, ``make_image_eval_step``,
 ``make_test_step``) run the model in eval mode under
@@ -49,6 +70,7 @@ from svit_tpu_torch.data import device_aug
 from svit_tpu_torch.models.common import StepCache
 from svit_tpu_torch.models.losses import consistency_loss
 from svit_tpu_torch.models.optimizer import Transform
+from svit_tpu_torch.parallel import mesh as meshlib
 
 
 @dataclasses.dataclass
@@ -64,7 +86,7 @@ def create_train_state(model, tx: Transform) -> TrainState:
 
 def make_train_step(model, loss_obj, tx, video_weight: float,
                     image_weight: float, with_image: bool,
-                    with_consistency: bool, device_aug_cfg=None):
+                    with_consistency: bool, device_aug_cfg=None, mesh=None):
     """Build the fused video + image train step.
 
     video_batch: {clips [B, T, H, W, 3], labels [B], weight [B]}
@@ -73,13 +95,16 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
 
     With ``device_aug_cfg`` (a ``DeviceAugConfig``) the clips and frames
     arrive as raw uint8 and the image boxes as xyxy input pixels; the
-    augmentation runs inside the step (``data/device_aug.py``).
+    augmentation runs inside the step (``data/device_aug.py``).  With a
+    ``mesh`` whose data group exists, the batches are this rank's shares
+    and the step sums the gradients and the metrics over the data group.
 
     ``train_step(state, video_batch, image_batch, generator)`` updates the
     state's model in place and returns ``(state, metrics)``: the loss keys,
     ``loss`` and ``grad_norm`` as detached scalars on the device.
     """
     del model, tx  # carried by the state, as the JAX step takes them from it
+    share = meshlib.ONE if mesh is None else mesh.data_share()
 
     def loss_fn(m, video_batch, image_batch, generator):
         cache = StepCache()   # the casts and derived parameters, once
@@ -97,7 +122,8 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
         logits, extra = m(clips, train=True, generator=generator,
                           cache=cache)
         vdict = loss_obj.video_losses(logits, video_batch["labels"], extra,
-                                      frames_extra, video_batch.get("weight"))
+                                      frames_extra, video_batch.get("weight"),
+                                      share)
         total = video_weight * loss_obj.weighted_sum(vdict)
         metrics.update(vdict)
         if with_image and image_batch is not None:
@@ -106,13 +132,14 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
             idict = loss_obj.image_losses(
                 iextra, {"haog_bboxes": image_batch["haog_bboxes"],
                          "contact_state": image_batch["contact_state"]},
-                image_batch.get("weight"))
+                image_batch.get("weight"), share)
             total = total + image_weight * loss_obj.weighted_sum(idict)
             metrics.update(idict)
         metrics["loss"] = total
         return total, metrics
 
     def device_step(state: TrainState, video_batch, image_batch, generator):
+        generator = share.draws(generator)
         if device_aug_cfg is not None:
             video_batch = dict(video_batch, clips=device_aug.device_augment(
                 video_batch["clips"], generator, device_aug_cfg))
@@ -129,6 +156,9 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
             p.grad = None
         total, metrics = loss_fn(m, video_batch, image_batch, generator)
         total.backward()
+        if share.group is not None:
+            meshlib.all_reduce_gradients(params, share.group)
+            metrics = meshlib.all_reduce_scalars(metrics, share.group)
         metrics["grad_norm"] = state.tx.apply(params)
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -12,22 +12,33 @@ f32 vector a step, cloned out of the graph's output; they are fetched once
 per ``LOG_PERIOD`` window (one stack, one device-to-host copy), where the
 NaN guard runs, so no step waits on the host.  With ``TPU.DEVICE_AUG`` the
 loaders ship raw uint8 frames and the step augments them on the card
-(``data/device_aug.py``).  bf16 needs no loss scaling; the reference's
-per-GPU processes, DDP wrap and metric gathers have no counterpart on one
-card (ROADMAP Queue 1 item 5).
+(``data/device_aug.py``).  bf16 needs no loss scaling.
+
+- Several cards: one process each (``utils/misc.py:launch_job``), over a
+  (data, model) mesh (``parallel/mesh.py``).  Each rank reads its share
+  of every global batch; the step sums the gradients over the data group
+  inside its CUDA graph, before the clip (the reference's DDP hooks would
+  run outside the graph, and DDP rebuilds its buckets during the warm-up
+  that precedes a capture); ``TPU.MESH_MODEL > 1`` shards the MLPs.  The
+  master logs, writes the checkpoints (full tensors, gathered over the
+  model group) and holds the meters, whose eval counts are summed over
+  the ranks.  With one process there is no group and no collective.
 
 - Resume: ``TRAIN.AUTO_RESUME`` continues from the last checkpoint, at the
   next epoch or, after a mid-epoch save, at its iteration; else
   ``TRAIN.CHECKPOINT_FILE_PATH`` warm-starts by name and shape, else
   ``MODEL.LOAD_IN_PRETRAIN`` loads a timm image pretrain.
-- Preemption: SIGTERM sets a flag that the loop polls after every step; it
-  then saves a mid-epoch checkpoint and returns.
+- Preemption: SIGTERM sets a flag that the loop polls after every step
+  (with several processes, at each ``LOG_PERIOD`` boundary: ``_stop_now``);
+  it then saves a mid-epoch checkpoint and returns.
 - Multigrid long cycles rebuild the Trainer at a new (B, T, S), the
   parameters carried over by shape (``train_net.py:541-564``).
 - ``TPU.PROFILE_DIR`` takes a ``torch.profiler`` trace of the first epoch.
 - Stochastic depth and dropout draw from a generator on the model's device,
   seeded by (``RNG_SEED``, step) at every step as JAX folds the step into
-  its key, so a resumed run draws what the uninterrupted one would.
+  its key, so a resumed run draws what the uninterrupted one would; every
+  rank seeds it alike and keeps its rows of the global batch's draws, so
+  the masks do not depend on the mesh.
 
     python -m svit_tpu_torch.engine.train --cfg configs/ssv2.yaml [KEY VALUE ...]
 
@@ -55,6 +66,8 @@ from svit_tpu_torch.engine.multigrid import MultigridSchedule
 from svit_tpu_torch.engine.test import to_device
 from svit_tpu_torch.models import build_model, losses
 from svit_tpu_torch.models.optimizer import construct_optimizer
+from svit_tpu_torch.parallel import dist as du
+from svit_tpu_torch.parallel import mesh as meshlib
 from svit_tpu_torch.utils import checkpoint as cu
 from svit_tpu_torch.utils import converter, logging, misc
 from svit_tpu_torch.utils.lr_policy import get_lr_at_epoch
@@ -67,7 +80,8 @@ _VIDEO_KEYS = ("clips", "labels", "weight")
 
 def step_seed(seed: int, step: int) -> int:
     """The generator's seed at ``step`` (JAX ``fold_in(rng, step)``'s
-    role)."""
+    role), the same on every rank: each rank's step draws for the global
+    batch and keeps its rows (``DataShare.draws``)."""
     return int(np.random.SeedSequence([int(seed), int(step)])
                .generate_state(1, np.uint64)[0] >> 1)
 
@@ -76,16 +90,25 @@ class Trainer:
     """Everything that depends on the current (B, T, S) shape: the model,
     the loaders, the optimizer and the steps."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, mesh=None):
         self.cfg = cfg
+        self.mesh = meshlib.Mesh(1, 1) if mesh is None else mesh
         self.model, self.arch = build_model(cfg, device=device, train=True)
+        meshlib.shard_model(self.model, self.mesh)
         self.device = next(self.model.parameters()).device
         self.loss_obj = losses.get_loss_func(cfg)
-        self.train_loader, self.image_loader = construct_loader(cfg, "train")
-        self.val_loader = construct_loader(cfg, "val")
+        shard = meshlib.data_sharding(self.mesh)
+        self.train_loader, self.image_loader = construct_loader(
+            cfg, "train", shard)
+        self.val_loader = construct_loader(cfg, "val", shard)
         self.steps_per_epoch = len(self.train_loader)
         self.tx, _ = construct_optimizer(cfg, self.model,
                                          self.steps_per_epoch)
+        if self.mesh.model > 1:
+            spec = meshlib.local_spec(self.mesh, self.model)
+            self.tx.shard(self.mesh.model_group,
+                          [p for n, p in self.model.named_parameters()
+                           if n in spec])
 
         self.with_image = self.image_loader is not None
         w_i = (num_image_ranks(cfg) / max(cfg.NUM_GPUS, 1)
@@ -104,7 +127,8 @@ class Trainer:
             self.model, self.loss_obj, self.tx,
             video_weight=self.video_weight, image_weight=self.image_weight,
             with_image=self.with_image,
-            with_consistency=with_consistency, device_aug_cfg=aug_cfg)
+            with_consistency=with_consistency, device_aug_cfg=aug_cfg,
+            mesh=self.mesh)
         self.step_fn = graphs.CapturedTrainStep(packed)
         # the val loss dict carries the train loss keys (reference
         # eval_extra_metrics) when the loss object makes dicts
@@ -115,7 +139,7 @@ class Trainer:
             with_consistency=with_consistency))
         self.image_val_loader = self.image_eval_step = None
         if self.with_image and val_loss_obj is not None:
-            self.image_val_loader = construct_loader(cfg, "image_val")
+            self.image_val_loader = construct_loader(cfg, "image_val", shard)
             if self.image_val_loader is not None:
                 self.image_eval_step = graphs.CapturedStep(
                     steps.make_image_eval_step(self.model, val_loss_obj))
@@ -225,6 +249,7 @@ def _warm_start(cfg, trainer):
     else:
         return
     model = trainer.model
+    loaded = meshlib.shard_state_dict(loaded, trainer.mesh, model)
     merged = cu.shape_filtered_merge(model.state_dict(), loaded)
     model.load_state_dict(merged)
     logger.info(what)
@@ -234,7 +259,7 @@ def train(cfg, device=None):
     """Train ``cfg``'s model on the card (or ``device``); returns the final
     train state."""
     np.random.seed(cfg.RNG_SEED)
-    logging.setup_logging(cfg.OUTPUT_DIR)
+    logging.setup_logging(cfg.OUTPUT_DIR, is_master=du.is_master_proc())
     logger.info("Train with config:")
     logger.info(pprint.pformat(cfg.to_dict()))
 
@@ -243,14 +268,19 @@ def train(cfg, device=None):
         multigrid = MultigridSchedule()
         cfg = multigrid.init_multigrid(cfg)
 
-    trainer = Trainer(cfg, device)
+    mesh = meshlib.build_mesh(cfg)
+    trainer = Trainer(cfg, device, mesh)
     state = trainer.fresh_state()
+
+    def save(epoch, **kwargs):
+        cu.save_checkpoint(cfg.OUTPUT_DIR, state, epoch, cfg, mesh=mesh,
+                           **kwargs)
 
     start_epoch = start_iter = 0
     last = (cu.get_last_checkpoint(cfg.OUTPUT_DIR)
             if cfg.TRAIN.AUTO_RESUME else None)
     if last:
-        restored, epoch = cu.load_train_state(last, state)
+        restored, epoch = cu.load_train_state(last, state, mesh)
         if restored["step_in_epoch"] >= 0:
             # a mid-epoch (preemption) save: continue inside this epoch
             start_epoch, start_iter = epoch, restored["step_in_epoch"]
@@ -276,16 +306,16 @@ def train(cfg, device=None):
     profile_dir = cfg.TPU.PROFILE_DIR
 
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
-        if guard.fired:
+        if _any_rank(guard.fired):
             logger.warning("SIGTERM received: checkpointing at epoch %d and "
                            "exiting", cur_epoch - 1)
-            cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch - 1, cfg)
+            save(cur_epoch - 1)
             break
         epoch_start_iter, start_iter = start_iter, 0
         if multigrid is not None and multigrid.schedule is not None:
             cfg, changed = multigrid.update_long_cycle(cfg, cur_epoch)
             if changed:
-                trainer = Trainer(cfg, device)
+                trainer = Trainer(cfg, device, mesh)
                 state = trainer.carry_over_state(state)
                 train_meter = meters_lib.TrainMeter(trainer.steps_per_epoch,
                                                     cfg)
@@ -305,8 +335,7 @@ def train(cfg, device=None):
         if preempted_at is not None:
             logger.warning("SIGTERM received: checkpointing mid-epoch %d "
                            "(iter %d) and exiting", cur_epoch, preempted_at)
-            cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg,
-                               step_in_epoch=preempted_at)
+            save(cur_epoch, step_in_epoch=preempted_at)
             break
         epoch_timer.epoch_toc()
         logger.info("Epoch %d took %.2fs (avg %.2fs, median %.2fs)",
@@ -315,7 +344,7 @@ def train(cfg, device=None):
                     epoch_timer.median_epoch_time())
 
         if cu.is_checkpoint_epoch(cfg, cur_epoch):
-            cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
+            save(cur_epoch)
         if ((cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0
                 or cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH):
             eval_epoch(cfg, trainer, state, val_meter, cur_epoch)
@@ -421,10 +450,11 @@ def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
         pending.append((cur_iter, lr, n_videos, metrics.clone()))
         nxt = fetch()   # the next batch's wait and copies overlap the step
         train_meter.iter_toc()
-        if (cur_iter + 1) % cfg.LOG_PERIOD == 0:
+        at_log = (cur_iter + 1) % cfg.LOG_PERIOD == 0
+        if at_log:
             flush_pending()
             train_meter.log_iter_stats(cur_epoch, cur_iter)
-        if guard is not None and guard.fired:
+        if guard is not None and _stop_now(guard, at_log):
             flush_pending()   # the mid-epoch checkpoint must be real
             train_meter.reset()
             return state, cur_iter + 1
@@ -433,6 +463,41 @@ def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
     train_meter.log_epoch_stats(cur_epoch)
     train_meter.reset()
     return state, None
+
+
+def _any_rank(flag: bool) -> bool:
+    """Whether ``flag`` is set on any rank (every rank stops at the same
+    step); the flag itself with one process."""
+    if du.get_world_size() == 1:
+        return flag
+    return any(du.all_gather_host(bool(flag)))
+
+
+def _stop_now(guard, at_log: bool) -> bool:
+    """Whether SIGTERM stops the epoch after this step.  With one process
+    the flag is read after every step.  With several the ranks agree on it
+    only at the ``LOG_PERIOD`` boundaries (``at_log``), where the loop
+    waits for the device anyway, since the host gather syncs with it: a
+    rank stops up to ``LOG_PERIOD - 1`` steps after its signal, and every
+    rank at the same step."""
+    if du.get_world_size() == 1:
+        return guard.fired
+    return at_log and _any_rank(guard.fired)
+
+
+def _combine(outs):
+    """One eval batch's scalars over the ranks' shares: counts and correct
+    counts summed, losses weighted by each share's count."""
+    if len(outs) == 1:
+        return outs[0]
+    total = sum(o["count"] for o in outs)
+    out = {}
+    for k in outs[0]:
+        if k == "count" or k.endswith("_correct"):
+            out[k] = sum(o[k] for o in outs)
+        else:
+            out[k] = sum(o[k] * o["count"] for o in outs) / max(total, 1.0)
+    return out
 
 
 def eval_epoch(cfg, trainer, state, val_meter, cur_epoch):
@@ -444,6 +509,8 @@ def eval_epoch(cfg, trainer, state, val_meter, cur_epoch):
         vb = trainer.put_batch({k: batch[k] for k in _VIDEO_KEYS})
         val_meter.iter_tic()
         out = _fetch(trainer.eval_step(vb))
+        if du.get_world_size() > 1:
+            out = _combine(du.all_gather_host(out))
         # multitask: per-task weighted counts beside the joint ones
         task_correct = {
             k[:-len("_top1_correct")]: (
@@ -463,6 +530,8 @@ def eval_epoch(cfg, trainer, state, val_meter, cur_epoch):
         for batch in trainer.image_val_loader:
             ib = trainer.put_batch({k: batch[k] for k in _IMAGE_KEYS})
             out = _fetch(trainer.image_eval_step(ib))
+            if du.get_world_size() > 1:
+                out = _combine(du.all_gather_host(out))
             n = out.pop("count")
             out.pop("loss")   # keep the val "loss" video-only
             val_meter.update_image_stats(n, out)
@@ -480,8 +549,8 @@ def _fetch(out):
 
 
 def main(argv=None):
-    cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
-    train(cfg)
+    misc.launch_job(assert_and_infer_cfg(load_config(parse_args(argv))),
+                    func=train)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,9 @@ runs the unmasked tail.  With ``MVIT.DROPOUT_RATE > 0`` the attention
 outputs and the MLP take dropout and the tail is unfused, as in JAX.
 Every op here is differentiable: the kernels' backward passes are K5 (the
 attention), K2 bare + K6 + K7 (the pools), the LN-linear uses' own
-backward and the plain twin's autograd (the max pool).
+backward and K3's ``pool_max_bwd`` (the max pool).  Under tensor
+parallelism (``Mlp.tp``, ``TPU.MESH_MODEL > 1``) the fused residual tail
+runs this rank's share of the MLP (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from svit_tpu_torch.models.common import (LayerNorm, Mlp, cast, derived,
 from svit_tpu_torch.ops import attention as attn_ops
 from svit_tpu_torch.ops import ln_linear as ll
 from svit_tpu_torch.ops import pool, pooling
+from svit_tpu_torch.parallel import tensor
 
 Triple = Tuple[int, ...]
 
@@ -319,8 +322,15 @@ class MultiScaleBlock(nn.Module):
                      keep_mask(B, keep, generator, grid.device))
         if drop is not None or (self.proj is not None
                                 and not self.dim_mul_in_att):
+            if self.mlp.tp is not None:
+                raise NotImplementedError(
+                    "TPU.MESH_MODEL > 1 shards the fused residual tail only "
+                    "(no MVIT.DROPOUT_RATE, MVIT.DIM_MUL_IN_ATT=True)")
             return self._unfused_tail(grid, extras, ag, ae, ln2, drop, masks,
                                       keep, dtype)
+        if self.mlp.tp is not None:
+            return self._sharded_tail(grid, extras, ag, ae, ln2, w1, w2,
+                                      masks, keep, use_kernels)
         if masks is None:
             out_g = ops.ffn_residual(grid, ag, *ln2, w1, fc1.bias, w2,
                                      fc2.bias)
@@ -332,6 +342,24 @@ class MultiScaleBlock(nn.Module):
         ye = ll.ffn(ex, *ln2, w1, fc1.bias, w2, fc2.bias)
         if masks is not None:
             ye = ll.drop_path_scale(ye, masks[1], keep)
+        return out_g, ex + ye
+
+    def _sharded_tail(self, grid, extras, ag, ae, ln2, w1, w2, masks, keep,
+                      use_kernels):
+        """The residual tail with the MLP sharded over the model group
+        (``parallel/tensor.py``): this rank's fc1 columns and fc2 rows, the
+        f32 partials summed across the group before fc2's bias."""
+        group, fc1, fc2 = self.mlp.tp, self.mlp.fc1, self.mlp.fc2
+        op = ll.ln_linear if use_kernels else ll.ln_linear_reference
+        ma, my = masks if masks is not None else (None, None)
+        if masks is not None:
+            ae = ll.drop_path_scale(ae, ma, keep)
+        out_g = tensor.ffn_residual(group, grid, ag, *ln2, w1, fc1.bias, w2,
+                                    fc2.bias, ma, my, keep, op=op)
+        ex = extras + ae
+        ye = tensor.ffn(group, ex, *ln2, w1, fc1.bias, w2, fc2.bias)
+        if masks is not None:
+            ye = ll.drop_path_scale(ye, my, keep)
         return out_g, ex + ye
 
     def _unfused_tail(self, grid, extras, ag, ae, ln2, drop, masks, keep,

@@ -6,7 +6,8 @@ forward is exact-erf GELU between them and runs through the K1 epilogue
 (``ops/ln_linear.py``) or, for the extras stream, ``ln_linear.ffn``.
 
 ``keep_mask`` and ``dropout`` draw the train mode's random numbers from an
-explicit ``torch.Generator``.  Their streams cannot match JAX's, so the
+explicit ``torch.Generator`` (or, under data parallelism, the global
+batch's draws of one, ``parallel/mesh.py:GlobalDraws``).  Their streams cannot match JAX's, so the
 tests feed both sides the same masks or run with the rates at 0.
 
 ``StepCache`` holds what a train step derives from its parameters once and
@@ -19,12 +20,13 @@ import torch
 from torch import nn
 
 from svit_tpu_torch.ops.ln_linear import EPS, layer_norm
+from svit_tpu_torch.parallel.mesh import rand
 
 
 def keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
     """f32 0/1 mask, 1 with probability ``keep`` (``jax.random.bernoulli``:
     uniform < keep)."""
-    u = torch.rand(shape, generator=generator, device=device)
+    u = rand(shape, generator, device)
     return (u < keep).float()
 
 
@@ -120,3 +122,6 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim_in, hidden)
         self.fc2 = nn.Linear(hidden, dim_out)
+        # the model group when fc1 and fc2 hold this rank's shards
+        # (parallel/mesh.py:shard_model)
+        self.tp = None

@@ -8,6 +8,14 @@ value unchanged.
 
 Loss keys match the reference: ``loss_ce, boxes_l1_loss, boxes_bce_loss,
 boxes_giou_loss, loss_contact_state, video_image_desc_l{1,2}_loss``.
+
+Under data parallelism each rank holds a share of the global batch, and
+the train step passes it (``share``, a ``parallel/mesh.py:DataShare``):
+each loss is then this rank's term of the global one, its numerator over
+the global denominator (the weight totals summed over the data group), an
+unweighted mean divided by the data size.  The terms sum over the ranks to
+the loss of the whole batch, which is the one-process loss on the
+concatenated batch, so the summed gradients are too.
 """
 
 from __future__ import annotations
@@ -18,25 +26,28 @@ import torch
 import torch.nn.functional as F
 
 from svit_tpu_torch.ops import box_ops
+from svit_tpu_torch.parallel.mesh import ONE, DataShare
 
 
-def _weighted_mean(per, weight):
+def _weighted_mean(per, weight, share: DataShare):
     if weight is None:
-        return per.mean()
-    return (per * weight).sum() / weight.sum().clamp(min=1.0)
+        return share.mean(per)
+    return (per * weight).sum() / share.total(weight.sum()).clamp(min=1.0)
 
 
-def cross_entropy(logits, labels, weight=None):
+def cross_entropy(logits, labels, weight=None, share: DataShare = ONE):
     """Mean CE over the batch; labels are int class ids."""
     logp = F.log_softmax(logits.float(), dim=-1)
     safe = labels.clamp(0, logits.shape[-1] - 1)
     nll = -logp.gather(-1, safe[..., None].long())[..., 0]
-    return _weighted_mean(nll, weight)
+    return _weighted_mean(nll, weight, share)
 
 
-def soft_target_cross_entropy(logits, soft_targets):
+def soft_target_cross_entropy(logits, soft_targets,
+                              share: DataShare = ONE):
     """Reference ``SoftTargetCrossEntropy``."""
-    return (-soft_targets * F.log_softmax(logits.float(), dim=-1)).sum(-1).mean()
+    return share.mean((-soft_targets * F.log_softmax(logits.float(),
+                                                dim=-1)).sum(-1))
 
 
 def bce_with_logits(logits, targets):
@@ -46,7 +57,7 @@ def bce_with_logits(logits, targets):
             + torch.log1p(torch.exp(-logits.abs())))
 
 
-def boxes_loss(pred, tar, weight=None):
+def boxes_loss(pred, tar, weight=None, share: DataShare = ONE):
     """HAOG box losses.  pred: [B, T, O, 5] = (presence logit, cxcywh); tar:
     [B, T, O, 4] cxcywh (all-zero rows are absent) or [B, T, O, 5] with a
     leading score.  Returns (l1, bce, giou)."""
@@ -66,11 +77,12 @@ def boxes_loss(pred, tar, weight=None):
 
     bce = bce_with_logits(pred[..., 0], tar_mask_cont) * w_sample
     per_sample_el = tar_mask_cont.shape[1] * tar_mask_cont.shape[2]
-    loss_bce = bce.sum() / (weight.sum() * per_sample_el).clamp(min=1.0)
+    loss_bce = bce.sum() / share.total(weight.sum() * per_sample_el).clamp(
+        min=1.0)
 
     tar_mask = tar_mask * w_sample
     pred_boxes = pred[..., 1:]
-    n_sel = tar_mask.sum()
+    n_sel = share.total(tar_mask.sum())
     denom = n_sel.clamp(min=1.0)
     loss_l1 = ((pred_boxes - tar).abs().mean(-1) * tar_mask).sum() / denom
     giou = box_ops.paired_giou(box_ops.box_cxcywh_to_xyxy(pred_boxes),
@@ -80,7 +92,7 @@ def boxes_loss(pred, tar, weight=None):
     return loss_l1 * has_any, loss_bce, loss_giou * has_any
 
 
-def contact_state_loss(pred, tar, weight=None):
+def contact_state_loss(pred, tar, weight=None, share: DataShare = ONE):
     """Masked CE over contact states.  pred: [B, T, 2, 5] logits; tar: [B, 2]
     int in {-1 (ignored), 0..4}."""
     per_sample = pred.shape[1] * pred.shape[2]
@@ -91,18 +103,19 @@ def contact_state_loss(pred, tar, weight=None):
         mask = mask * weight.float().repeat_interleave(per_sample)
     logp = F.log_softmax(pred, dim=-1)
     nll = -logp.gather(-1, tar.clamp(min=0)[:, None].long())[:, 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / share.total(mask.sum()).clamp(min=1.0)
 
 
-def consistency_loss(video_obj_desc, frame_obj_desc, kind: str = "l1"):
+def consistency_loss(video_obj_desc, frame_obj_desc, kind: str = "l1",
+                     share: DataShare = ONE):
     """Frame-clip consistency: the video's object tokens against the
     per-frame ones, which carry no gradient."""
     tar = frame_obj_desc.detach().reshape(video_obj_desc.shape).float()
     diff = video_obj_desc.float() - tar
     if kind == "l1":
-        return diff.abs().mean()
+        return share.mean(diff.abs())
     if kind == "l2":
-        return diff.square().mean()
+        return share.mean(diff.square())
     raise NotImplementedError(kind)
 
 
@@ -135,30 +148,32 @@ class VideoImageLoss:
         self.consistency_kind = cfg.SVIT.CONSISTENCY_LOSS
 
     def video_losses(self, logits, labels, extra_preds,
-                     frames_extra_preds=None, weight=None):
+                     frames_extra_preds=None, weight=None,
+                     share: DataShare = ONE):
         if labels.dim() == 2:  # soft targets (the mixup path)
             per = (-labels * F.log_softmax(logits.float(), dim=-1)).sum(-1)
-            ret = {"loss_ce": _weighted_mean(per, weight)}
+            ret = {"loss_ce": _weighted_mean(per, weight, share)}
         else:
-            ret = {"loss_ce": cross_entropy(logits, labels, weight)}
+            ret = {"loss_ce": cross_entropy(logits, labels, weight, share)}
         if (self.forward_video_frames and self.consistency_kind
                 and frames_extra_preds is not None):
             key = f"video_image_desc_{self.consistency_kind}_loss"
             ret[key] = consistency_loss(extra_preds["obj_desc"],
                                         frames_extra_preds["obj_desc"],
-                                        self.consistency_kind)
+                                        self.consistency_kind, share)
         return ret
 
-    def image_losses(self, extra_preds, metadata, weight=None):
+    def image_losses(self, extra_preds, metadata, weight=None,
+                     share: DataShare = ONE):
         l1, bce, giou = boxes_loss(extra_preds["pred_bboxes"],
-                                   metadata["haog_bboxes"], weight)
+                                   metadata["haog_bboxes"], weight, share)
         return {
             "boxes_l1_loss": l1,
             "boxes_bce_loss": bce,
             "boxes_giou_loss": giou,
             "loss_contact_state": contact_state_loss(
                 extra_preds["pred_contact_state"], metadata["contact_state"],
-                weight),
+                weight, share),
         }
 
     def weighted_sum(self, loss_dict):

@@ -78,18 +78,17 @@ def lr_table(cfg, steps_per_epoch: int) -> np.ndarray:
                      for s in range(total)], dtype=np.float32)
 
 
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
-    """Scale ``grads`` in place as ``optax.clip_by_global_norm``; returns
-    the global norm before the clip.  No host sync: the choice is a
-    ``where`` on the device."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        norm: torch.Tensor) -> None:
+    """Scale ``grads`` in place as ``optax.clip_by_global_norm``, given
+    their global norm ``norm``.  No host sync: the choice is a ``where`` on
+    the device."""
     clip = norm >= max_norm
     one = torch.ones_like(norm)
     div = torch.where(clip, norm, one)
     mul = torch.where(clip, torch.full_like(norm, max_norm), one)
     for g in grads:
         g.div_(div).mul_(mul)
-    return norm
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -113,6 +112,9 @@ class Transform:
     clip_value: Optional[float] = None
 
     def __post_init__(self):
+        # tensor parallelism (``shard``): the model group, and the ids of
+        # the parameters that hold this rank's shard
+        self.model_group, self.sharded = None, frozenset()
         self.lr = self.optimizer.param_groups[0]["lr"]
         if not all(g["lr"] is self.lr for g in self.optimizer.param_groups):
             raise ValueError("every parameter group must hold the one lr "
@@ -121,6 +123,29 @@ class Transform:
                                           device=self.lr.device)
         self.step_t = torch.zeros((), dtype=torch.int64,
                                   device=self.lr.device)
+
+    def shard(self, model_group, sharded_params) -> None:
+        """Under tensor parallelism the global norm sums the squares of
+        ``sharded_params`` (this rank's shards) over ``model_group`` and
+        counts every other (replicated) parameter once."""
+        self.model_group = model_group
+        self.sharded = frozenset(id(p) for p in sharded_params)
+
+    def global_norm(self, params) -> torch.Tensor:
+        """The L2 norm of the gradients of ``params`` over the whole
+        model, in f32 (``optax.global_norm``)."""
+        grads = [p.grad for p in params]
+        if self.model_group is None:
+            return global_norm(grads)
+        import torch.distributed as dist
+
+        zero = torch.zeros((), device=grads[0].device)
+        squares = [[zero], [zero]]   # replicated, sharded
+        for p, g in zip(params, grads):
+            squares[id(p) in self.sharded].append(g.float().square().sum())
+        own, shards = (torch.stack(s).sum() for s in squares)
+        dist.all_reduce(shards, group=self.model_group)
+        return (own + shards).sqrt()
 
     def set_step(self, step: int) -> None:
         """The counter at ``step``; steps past the table's end take its
@@ -139,14 +164,12 @@ class Transform:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        norm = self.global_norm(params)
         if self.clip_value:
-            norm = global_norm(grads)
             for g in grads:
                 g.clamp_(-self.clip_value, self.clip_value)
         elif self.clip_l2norm:
-            norm = clip_by_global_norm(grads, self.clip_l2norm)
-        else:
-            norm = global_norm(grads)
+            clip_by_global_norm(grads, self.clip_l2norm, norm)
         self.lr.copy_(torch.index_select(self.lr_table_t, 0,
                                          self.step_t.view(1))[0])
         self.optimizer.step()

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "svit_ln_linear": [
         _P, _P, _P, _P, _P, _F,            # x, x_add, s_out, ln_g, ln_b, eps
         _P, _P, _I, _I, _P,                # w, bias, bias_mode, gelu, residual
-        _P, _P, _I,                        # out0, out1, n_split
+        _P, _P, _P, _I,                    # out0, out1, out_f32, n_split
         _I, _I, _I,                        # M, N, K
         _P, _P, _F, _I,                    # mask_add, mask_out, keep, rows
         _I, _I, _I, _I, _P,                # bm, ncw, stages, splits, stream
@@ -74,7 +74,13 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _P,        # rows, cols, frames, ring, grid, smem, stream
     ],
     "svit_pool_max": [
-        _P, _P,                            # x, out
+        _P, _P, _P,                        # x, out, argmax taps (or null)
+        _I, _I, _I, _I, _I,                # B, T, H, W, C
+        _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
+        _I, _I, _I, _P,                    # To, Ho, Wo, stream
+    ],
+    "svit_pool_max_bwd": [
+        _P, _P, _P,                        # g, argmax taps, dx
         _I, _I, _I, _I, _I,                # B, T, H, W, C
         _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
         _I, _I, _I, _P,                    # To, Ho, Wo, stream

@@ -10,7 +10,10 @@
 - epilogue: either ``acc + bias`` in f32, optionally exact GELU, then one
   rounding to the IO dtype; or (``round_then_bias``) the f32 product is
   rounded first and the bias added in the IO dtype, as the attention
-  projection does; then optionally ``+ residual`` in the IO dtype.
+  projection does; then optionally ``+ residual`` in the IO dtype; or
+  (``out_f32``) the f32 product alone, unrounded: the partial of a
+  tensor-parallel fc2, summed across ranks before its bias
+  (``parallel/tensor.py``).
 
 Weights keep the PyTorch ``[out, in]`` layout.  On a CPU tensor the wrapper
 runs the plain version ``ln_linear_reference``; on a CUDA tensor it launches
@@ -199,7 +202,8 @@ def _round_bf16(v: float) -> float:
 
 def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
                         round_then_bias=False, residual=None, split=None,
-                        mask_add=None, mask_out=None, keep=1.0, rows=1):
+                        mask_add=None, mask_out=None, keep=1.0, rows=1,
+                        out_f32=False):
     """Plain PyTorch twin of ``ln_linear`` with the kernel's rounding.
 
     x: [M, K]; w: [N, K]; bias: [N] (f32); ln: (weight, bias) of size K;
@@ -213,6 +217,10 @@ def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
     s = x if x_add is None else x + x_add
     xn = s if ln is None else layer_norm(s, ln[0], ln[1])
     acc = xn.float() @ w.to(dt).float().t()
+    if out_f32:
+        _check_f32_out(ln, x_add, bias, gelu, round_then_bias, residual,
+                       split, mask_out)
+        return acc
     if round_then_bias:
         y = acc.to(dt)
         if bias is not None:
@@ -229,6 +237,15 @@ def ln_linear_reference(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
         y = y + residual
     y = _split(y, split)
     return y if x_add is None else (y, s)
+
+
+def _check_f32_out(ln, x_add, bias, gelu, round_then_bias, residual, split,
+                   mask_out):
+    if (ln is not None or x_add is not None or bias is not None or gelu
+            or round_then_bias or residual is not None or split is not None
+            or mask_out is not None):
+        raise ValueError("out_f32 takes the product alone: no LN, x_add, "
+                         "bias, GELU, residual, split or output mask")
 
 
 def ln_linear_mm(x, w, bias=None, *, ln=None, gelu=False,
@@ -251,7 +268,7 @@ def ln_linear_mm(x, w, bias=None, *, ln=None, gelu=False,
 
 def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
               round_then_bias=False, residual=None, split=None,
-              mask_add=None, mask_out=None, keep=1.0, rows=1):
+              mask_add=None, mask_out=None, keep=1.0, rows=1, out_f32=False):
     """Kernel K1 (``csrc/ln_linear.cu``); same contract as
     ``ln_linear_reference``.  Takes bf16 activations and weights, f32 LN
     parameters and bias; with ``ln`` or ``x_add``, K up to ``PANEL_K_MAX``.
@@ -260,7 +277,11 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
         return ln_linear_reference(
             x, w, bias, ln=ln, x_add=x_add, gelu=gelu,
             round_then_bias=round_then_bias, residual=residual, split=split,
-            mask_add=mask_add, mask_out=mask_out, keep=keep, rows=rows)
+            mask_add=mask_add, mask_out=mask_out, keep=keep, rows=rows,
+            out_f32=out_f32)
+    if out_f32:
+        _check_f32_out(ln, x_add, bias, gelu, round_then_bias, residual,
+                       split, mask_out)
     if gelu and round_then_bias:
         raise ValueError("gelu applies before the rounding; "
                          "round_then_bias has none")
@@ -281,7 +302,10 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
         _lib.check(ln[0], "ln weight", torch.float32, (K,), x.device)
         _lib.check(ln[1], "ln bias", torch.float32, (K,), x.device)
     n_split = N if split is None else int(split)
-    out0 = torch.empty((M, n_split), dtype=dt, device=x.device)
+    f32 = (torch.empty((M, N), dtype=torch.float32, device=x.device)
+           if out_f32 else None)
+    out0 = (torch.empty((M, n_split), dtype=dt, device=x.device)
+            if f32 is None else None)
     out1 = (torch.empty((M, N - n_split), dtype=dt, device=x.device)
             if n_split < N else None)
     s = torch.empty_like(x) if x_add is not None else None
@@ -300,11 +324,12 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
             _lib.ptr(x), _lib.ptr(x_add), _lib.ptr(s),
             _lib.ptr(ln[0]) if ln else None, _lib.ptr(ln[1]) if ln else None,
             EPS, _lib.ptr(w), _lib.ptr(bias), mode, int(gelu),
-            _lib.ptr(residual), _lib.ptr(out0), _lib.ptr(out1), n_split,
-            M, N, K, _lib.ptr(mask_add), _lib.ptr(mask_out),
+            _lib.ptr(residual), _lib.ptr(out0), _lib.ptr(out1),
+            _lib.ptr(f32), n_split, M, N, K, _lib.ptr(mask_add),
+            _lib.ptr(mask_out),
             _round_bf16(keep), int(rows),
             plan.bm, plan.ncw, plan.stages, plan.splits, _lib.stream())
-    y = out0 if split is None else (out0, out1)
+    y = f32 if out_f32 else out0 if split is None else (out0, out1)
     return y if x_add is None else (y, s)
 
 

@@ -6,9 +6,13 @@
   channels.  The LN scale/bias may be ``head_dim`` wide (shared by the heads)
   or full channel width, which lets the fused k|v pool (``pool_k | pool_v``
   params tiled over heads) run as one launch.
-- ``fused_pool_max`` (K3): MaxPool3d with -inf padding k//2.  Its gradient
-  is the plain twin's autograd (JAX ``_pool_max_bwd`` is XLA's): ties go to
-  the first maximum in window order, as ``reduce_window``'s VJP routes them.
+- ``fused_pool_max`` (K3): MaxPool3d with -inf padding k//2.  Where a
+  gradient is wanted its forward also writes each window's argmax tap
+  (uint8), and its backward ``pool_max_bwd`` gathers g over the windows
+  that cover each input cell (JAX ``_pool_max_bwd``, the VJP of XLA's
+  ``reduce_window``): ties go to the first maximum in window order, as
+  ``reduce_window``'s VJP routes them, the sums are f32 in a fixed order
+  (no atomics: a rerun is bit-identical) and dx is rounded once.
 - ``depthwise_conv`` (K2 in bare mode): the conv alone, rounded to the IO
   dtype (JAX ``pallas_depthwise_conv``'s forward).
 - ``depthwise_conv_dx`` (K6) and ``depthwise_conv_dk`` (K7): its input and
@@ -44,7 +48,7 @@ import torch
 
 from svit_tpu_torch.ops import _lib
 from svit_tpu_torch.ops.pooling import max_pool3d, out_size
-from svit_tpu_torch.ops.vjp import needs_grad, plain_vjp
+from svit_tpu_torch.ops.vjp import needs_grad
 
 Triple = Tuple[int, int, int]
 EPS = 1e-6
@@ -610,16 +614,113 @@ def pool_max_reference(x, kernel: Triple, stride: Triple):
     return max_pool3d(x, kernel, stride)
 
 
+def _windows(x, kernel: Triple, stride: Triple):
+    """[B, To, Ho, Wo, C, taps] view of ``x`` padded with -inf (taps in
+    (t, h, w) scan order)."""
+    pad = [k // 2 for k in reversed(kernel) for _ in (0, 1)]
+    xp = torch.nn.functional.pad(x.permute(0, 4, 1, 2, 3), pad,
+                                 value=float("-inf"))
+    for d, (k, s) in enumerate(zip(kernel, stride)):
+        xp = xp.unfold(2 + d, k, s)
+    # [B, C, To, Ho, Wo, kT, kH, kW]
+    return xp.flatten(5).permute(0, 2, 3, 4, 1, 5)
+
+
+def pool_max_argmax_reference(x, kernel: Triple, stride: Triple):
+    """Each window's first maximum as its tap index ``(dt kH + dh) kW +
+    dw`` (uint8 [B, To, Ho, Wo, C]), the argmax K3 writes for its
+    backward.  The -inf padding never wins: a window's taps outside the
+    grid rank below every value in it."""
+    win = _windows(x, kernel, stride)
+    valid = _windows(torch.ones_like(x[..., :1]), kernel, stride) > 0
+    # rank by value, the padding below -inf; the first maximum wins a tie
+    ranked = torch.where(valid, win.float(),
+                         torch.tensor(float("-inf"), device=x.device))
+    first_valid = valid.float().argmax(-1, keepdim=True)
+    best = ranked.argmax(-1, keepdim=True)
+    top = ranked.gather(-1, best)
+    best = torch.where(top == float("-inf"), first_valid, best)
+    return best[..., 0].to(torch.uint8)
+
+
+def pool_max_backward_reference(g, arg, kernel: Triple, stride: Triple,
+                                in_shape):
+    """Plain twin of ``pool_max_bwd``: dx [in_shape] of ``g`` [B, To, Ho,
+    Wo, C] routed to each window's argmax tap ``arg``, summed in f32 over
+    the windows in (to, ho, wo) order (the kernel's order: taps in reverse
+    scan order) and rounded once to ``g``'s dtype."""
+    B, T, H, W, C = in_shape
+    To, Ho, Wo = g.shape[1:4]
+    pads = [k // 2 for k in kernel]
+    acc = torch.zeros((B, T + 2 * pads[0] + stride[0], H + 2 * pads[1]
+                       + stride[1], W + 2 * pads[2] + stride[2], C),
+                      dtype=torch.float32, device=g.device)
+    gf = g.float()
+    kT, kH, kW = kernel
+    sT, sH, sW = stride
+    for dt in reversed(range(kT)):
+        for dh in reversed(range(kH)):
+            for dw in reversed(range(kW)):
+                tap = (dt * kH + dh) * kW + dw
+                view = acc[:, dt:dt + sT * To:sT, dh:dh + sH * Ho:sH,
+                           dw:dw + sW * Wo:sW]
+                view += torch.where(arg == tap, gf, 0.0)
+    return acc[:, pads[0]:pads[0] + T, pads[1]:pads[1] + H,
+               pads[2]:pads[2] + W].to(g.dtype).contiguous()
+
+
+def pool_max_bwd(g, arg, kernel: Triple, stride: Triple, in_shape):
+    """K3's backward: ``g`` [B, To, Ho, Wo, C] bf16 and the forward's argmax
+    taps -> dx [in_shape] bf16 (plain version on a CPU tensor)."""
+    if g.device.type == "cpu":
+        return pool_max_backward_reference(g, arg, kernel, stride, in_shape)
+    B, T, H, W, C = in_shape
+    _lib.check(g, "g", torch.bfloat16)
+    _lib.check(arg, "arg", torch.uint8, g.shape, g.device)
+    if C % 8:
+        raise ValueError(f"pool_max_bwd needs C a multiple of 8 (C={C})")
+    dx = torch.empty(tuple(in_shape), dtype=g.dtype, device=g.device)
+    if dx.numel():
+        _lib.launch(
+            "svit_pool_max_bwd", "pool_max_bwd",
+            _lib.ptr(g), _lib.ptr(arg), _lib.ptr(dx), B, T, H, W, C,
+            *kernel, *stride, *g.shape[1:4], _lib.stream())
+    return dx
+
+
+class _PoolMaxFn(torch.autograd.Function):
+    """K3 with its argmax, then ``pool_max_bwd`` (the plain twins on a CPU
+    tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride):
+        ctx.kernel, ctx.stride, ctx.in_shape = kernel, stride, tuple(x.shape)
+        out, arg = _pool_max(x, kernel, stride, with_arg=True)
+        ctx.save_for_backward(arg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (arg,) = ctx.saved_tensors
+        return pool_max_bwd(g.contiguous(), arg, ctx.kernel, ctx.stride,
+                            ctx.in_shape), None, None
+
+
 def fused_pool_max(x, kernel: Triple, stride: Triple):
     """Kernel K3: MaxPool3d of a channels-last bf16 grid, -inf padding k//2.
-    Differentiable through the plain twin's autograd."""
-    return plain_vjp(_pool_max, pool_max_reference, (x,), tuple(kernel),
-                     tuple(stride))
+    Differentiable: K3 with its argmax, then ``pool_max_bwd``."""
+    if not needs_grad(x):
+        return _pool_max(x, tuple(kernel), tuple(stride))
+    return _PoolMaxFn.apply(x, tuple(kernel), tuple(stride))
 
 
-def _pool_max(x, kernel: Triple, stride: Triple):
+def _pool_max(x, kernel: Triple, stride: Triple, with_arg: bool = False):
+    """K3 (the plain twin on a CPU tensor); ``with_arg`` also returns the
+    argmax taps (the instance that writes them)."""
     if x.device.type == "cpu":
-        return pool_max_reference(x, kernel, stride)
+        out = pool_max_reference(x, kernel, stride)
+        return ((out, pool_max_argmax_reference(x, kernel, stride))
+                if with_arg else out)
     B, T, H, W, C = x.shape
     _lib.check(x, "x", torch.bfloat16)
     if C % 8:
@@ -627,9 +728,11 @@ def _pool_max(x, kernel: Triple, stride: Triple):
     To, Ho, Wo = (out_size(d, k, s) for d, k, s in
                   zip((T, H, W), kernel, stride))
     out = torch.empty((B, To, Ho, Wo, C), dtype=x.dtype, device=x.device)
+    arg = (torch.empty(out.shape, dtype=torch.uint8, device=x.device)
+           if with_arg else None)
     if out.numel():
         _lib.launch(
             "svit_pool_max", "pool_max",
-            _lib.ptr(x), _lib.ptr(out), B, T, H, W, C, *kernel, *stride,
-            To, Ho, Wo, _lib.stream())
-    return out
+            _lib.ptr(x), _lib.ptr(out), _lib.ptr(arg), B, T, H, W, C,
+            *kernel, *stride, To, Ho, Wo, _lib.stream())
+    return (out, arg) if with_arg else out

@@ -1,14 +1,11 @@
 """Gradients of the forward kernels that have no backward kernel.
 
 The JAX package differentiates its LN-linear kernels (``_lnqkv_bwd``,
-``_lnd_bwd``, ``_res_bwd``, ``_resm_bwd`` in ``pallas_ffn.py``) and its max
-pool (``_pool_max_bwd`` in ``pallas_pool.py``) by autodiff of the plain
-reference, recomputed from the saved inputs.  ``kernel_vjp`` runs the
-kernel forward, saves only the inputs (not the hidden activations) and
-hands them to a backward of the op's own (``ops/ln_linear.py``: products
-on the tensor cores in the IO dtype).  ``plain_vjp`` is the kernel_vjp
-whose backward recomputes the plain twin under ``torch.enable_grad()`` and
-takes its gradient (the max pool).
+``_lnd_bwd``, ``_res_bwd``, ``_resm_bwd`` in ``pallas_ffn.py``) by autodiff
+of the plain reference, recomputed from the saved inputs.  ``kernel_vjp``
+runs the kernel forward, saves only the inputs (not the hidden
+activations) and hands them to a backward of the op's own
+(``ops/ln_linear.py``: products on the tensor cores in the IO dtype).
 
 Where no gradient is wanted (serving under ``inference_mode``, the train
 step's no-grad consistency forward) every differentiable op calls its
@@ -52,26 +49,3 @@ def kernel_vjp(kernel, backward, tensors, *static):
     if not needs_grad(*tensors):
         return kernel(*tensors, *static)
     return _KernelVJP.apply(kernel, backward, len(tensors), *tensors, *static)
-
-
-def _plain_backward(plain):
-    def backward(tensors, static, grads, wanted):
-        with torch.enable_grad():
-            inputs = [t if t is None else t.detach().requires_grad_(w)
-                      for t, w in zip(tensors, wanted)]
-            out = plain(*inputs, *static)
-            outs = out if isinstance(out, tuple) else (out,)
-            pairs = [(o, g) for o, g in zip(outs, grads)
-                     if g is not None and o.requires_grad]
-            leaves = [i for i, w in zip(inputs, wanted) if w]
-            got = iter(torch.autograd.grad(
-                [o for o, _ in pairs], leaves, [g for _, g in pairs],
-                allow_unused=True) if pairs and leaves else [None] * len(leaves))
-        return [next(got) if w else None for w in wanted]
-    return backward
-
-
-def plain_vjp(kernel, plain, tensors, *static):
-    """``kernel(*tensors, *static)`` with the gradient of
-    ``plain(*tensors, *static)`` recomputed from ``tensors``."""
-    return kernel_vjp(kernel, _plain_backward(plain), tensors, *static)

@@ -4,9 +4,14 @@ as ``TRAIN.ENABLE``, ``TEST.ENABLE``, ``TENSORBOARD.*`` and ``DEMO.ENABLE``
 say (the reference's flag contract):
 
     python -m svit_tpu_torch.tools.run_net --cfg configs/ssv2.yaml KEY VALUE ...
+
+Train, test and visualization each run one process per local card
+(``utils/misc.py:launch_job``, the reference's ``launch_job``); the demo
+runs in this process.
 """
 
 from svit_tpu_torch.config import assert_and_infer_cfg, load_config, parse_args
+from svit_tpu_torch.utils.misc import launch_job
 
 
 def main(argv=None, device=None):
@@ -15,19 +20,19 @@ def main(argv=None, device=None):
     if cfg.TRAIN.ENABLE:
         from svit_tpu_torch.engine.train import train
 
-        train(cfg, device=device)
+        launch_job(cfg, func=train, device=device)
 
     if cfg.TEST.ENABLE:
         from svit_tpu_torch.engine.test import test
 
-        test(cfg, device=device)
+        launch_job(cfg, func=test, device=device)
 
     if cfg.TENSORBOARD.ENABLE and (
             cfg.TENSORBOARD.MODEL_VIS.ENABLE
             or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE):
         from svit_tpu_torch.visualization.run import visualize
 
-        visualize(cfg, device=device)
+        launch_job(cfg, func=visualize, device=device)
 
     if cfg.DEMO.ENABLE:
         from svit_tpu_torch.visualization.demo import demo

@@ -1,5 +1,7 @@
 """Multi-view test CLI (counterpart of ``tools/test_net.py``).
 
+One process per local card (``utils/misc.py:launch_job``):
+
     python -m svit_tpu_torch.tools.test_net --cfg configs/ssv2.yaml KEY VALUE ...
 """
 
@@ -8,8 +10,10 @@ from svit_tpu_torch.config import assert_and_infer_cfg, load_config, parse_args
 
 def main(argv=None, device=None):
     from svit_tpu_torch.engine.test import test
+    from svit_tpu_torch.utils.misc import launch_job
 
-    test(assert_and_infer_cfg(load_config(parse_args(argv))), device=device)
+    launch_job(assert_and_infer_cfg(load_config(parse_args(argv))),
+               func=test, device=device)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,10 @@
   (``load_train_state``).
 - Test-time priority: TEST path > last checkpoint > TRAIN path (reference
   ``checkpoint.py:511-548``).
+- Under a mesh (``parallel/mesh.py``) every rank takes part in a save
+  (the tensor-parallel shards of the parameters and of their optimizer
+  moments are gathered whole) and the master writes it; a load cuts the
+  full tensors to this rank's shards.  So a checkpoint loads at any mesh.
 - ``load_params_any`` reads PyTorch checkpoint files (``.pyth``, ``.pt``,
   ``.pth``, the reference's names) or the port's checkpoint directories
   into the model.  An Orbax directory (the JAX package's train state)
@@ -25,6 +29,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from svit_tpu_torch.parallel import dist as du
+from svit_tpu_torch.parallel import mesh as meshlib
 from svit_tpu_torch.utils import converter, logging
 
 logger = logging.get_logger(__name__)
@@ -70,22 +76,29 @@ def is_checkpoint_epoch(cfg, cur_epoch: int) -> bool:
 
 
 def save_checkpoint(path_to_job: str, state, epoch: int, cfg,
-                    step_in_epoch: Optional[int] = None) -> str:
+                    step_in_epoch: Optional[int] = None, mesh=None) -> str:
     """Save the train state's parameters, optimizer state, ``step``,
     ``epoch`` and the config.  ``step_in_epoch`` marks a mid-epoch
     (preemption) save: that many iterations of ``epoch`` are done, and a
     resume continues inside it; None means the epoch is complete and the
-    directory is named for the next."""
+    directory is named for the next.  Under ``mesh`` every rank calls it
+    and the master writes full tensors."""
     if step_in_epoch is None:
         path = checkpoint_path(path_to_job, epoch + 1)
     else:
         path = checkpoint_path(path_to_job, epoch, step_in_epoch)
     path = os.path.abspath(path)
+    model_state = state.model.state_dict()
+    opt_state = state.tx.optimizer.state_dict()
+    if mesh is not None and mesh.model > 1:
+        model_state = meshlib.full_state_dict(state.model, mesh)
+        opt_state = meshlib.full_optimizer_state(state.tx, state.model, mesh)
+    if not du.is_master_proc():
+        return path
     os.makedirs(path, exist_ok=True)
     blob = {
-        "model_state": {k: v.detach().cpu()
-                        for k, v in state.model.state_dict().items()},
-        "optimizer_state": state.tx.optimizer.state_dict(),
+        "model_state": {k: v.detach().cpu() for k, v in model_state.items()},
+        "optimizer_state": opt_state,
         "step": int(state.step),
         "epoch": epoch,
         "step_in_epoch": -1 if step_in_epoch is None else step_in_epoch,
@@ -99,15 +112,21 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg,
     return path
 
 
-def load_train_state(path: str, state) -> Tuple[Dict, int]:
+def load_train_state(path: str, state, mesh=None) -> Tuple[Dict, int]:
     """Restore a state saved by ``save_checkpoint`` into ``state`` (its
-    model, optimizer and step), in place; returns ({step, epoch,
-    step_in_epoch}, epoch).  ``step_in_epoch`` >= 0 marks a mid-epoch
-    save."""
+    model, optimizer and step), in place, cut to this rank's shards under
+    ``mesh``; returns ({step, epoch, step_in_epoch}, epoch).
+    ``step_in_epoch`` >= 0 marks a mid-epoch save."""
     blob = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                       weights_only=False)
-    state.model.load_state_dict(blob["model_state"], strict=True)
-    state.tx.load_state_dict(blob["optimizer_state"])
+    model_state, opt_state = blob["model_state"], blob["optimizer_state"]
+    if mesh is not None and mesh.model > 1:
+        model_state = meshlib.shard_state_dict(model_state, mesh,
+                                               state.model)
+        opt_state = meshlib.shard_optimizer_state(opt_state, state.tx,
+                                                  state.model, mesh)
+    state.model.load_state_dict(model_state, strict=True)
+    state.tx.load_state_dict(opt_state)
     state.step = int(blob["step"])
     restored = {k: int(blob.get(k, -1))
                 for k in ("step", "epoch", "step_in_epoch")}
@@ -168,6 +187,11 @@ def read_params(path: str, cfg=None) -> Dict[str, torch.Tensor]:
     return converter.load_torch_state(path, clear, replace)
 
 
-def load_params_any(model: torch.nn.Module, path: str, cfg=None) -> None:
-    """Load ``read_params(path, cfg)`` into ``model`` (strict names)."""
-    model.load_state_dict(read_params(path, cfg), strict=True)
+def load_params_any(model: torch.nn.Module, path: str, cfg=None,
+                    mesh=None) -> None:
+    """Load ``read_params(path, cfg)`` into ``model`` (strict names), cut to
+    this rank's shards under ``mesh``."""
+    params = read_params(path, cfg)
+    if mesh is not None and mesh.model > 1:
+        params = meshlib.shard_state_dict(params, mesh, model)
+    model.load_state_dict(params, strict=True)

@@ -4,6 +4,7 @@ reference ``slowfast/utils/misc.py``).
 ``log_model_info`` reports the parameter count and the forward FLOPs of
 one clip from the analytic model (``utils/flops.py``), where the JAX
 package asks XLA's cost analysis (``svit_tpu/utils/misc.py:43-53``).
+``launch_job`` runs a job entry point, one process per local card.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import math
 
 import torch
 
+from svit_tpu_torch.parallel import dist as du
 from svit_tpu_torch.utils import flops as flops_lib
 from svit_tpu_torch.utils import logging
 
@@ -44,3 +46,35 @@ def get_num_classes(cfg):
     if cfg.TRAIN.DATASET == "epickitchens":
         return {"noun": 300, "verb": 97}
     return cfg.MODEL.NUM_CLASSES
+
+
+def _call(func, cfg, device):
+    return func(cfg) if device is None else func(cfg, device=device)
+
+
+def _run_job(local_rank, procs, func, cfg, device):
+    """One spawned process of ``launch_job``: join the group, run."""
+    du.init_distributed(cfg, local_rank, procs)
+    try:
+        _call(func, cfg, device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def launch_job(cfg, init_method=None, func=None, daemon=False, device=None):
+    """Run ``func(cfg)`` (reference ``misc.py:271-299``): with more than one
+    process on this host (``du.local_processes``: one per card, at most
+    ``NUM_GPUS``) spawn one each, every one joining the process group at
+    ``INIT_METHOD`` (``init_method`` overrides it) before it calls
+    ``func``; with one, join a multi-host group if ``NUM_SHARDS > 1`` and
+    call ``func`` here, as the JAX package does.  ``device`` is passed on
+    to ``func`` when given."""
+    if init_method is not None:
+        cfg.INIT_METHOD = init_method
+    procs = du.local_processes(cfg, device)
+    if procs > 1:
+        torch.multiprocessing.spawn(_run_job, args=(procs, func, cfg, device),
+                                    nprocs=procs, daemon=daemon)
+        return None
+    du.init_distributed(cfg, 0, 1)
+    return _call(func, cfg, device)

@@ -9,7 +9,10 @@ histograms every module's intermediates.
     python -m svit_tpu_torch.tools.visualization --cfg configs/ssv2.yaml \\
         TENSORBOARD.ENABLE True TENSORBOARD.MODEL_VIS.ENABLE True
 
-runs on the card, and raises without one.
+runs on the card, and raises without one.  Under a mesh
+(``parallel/mesh.py``) every rank runs its share of the test batches (the
+model's collectives need them all), and the master writes: the wrong
+predictions of every rank are gathered to it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import torch
 
 from svit_tpu_torch.data.loader import construct_loader
 from svit_tpu_torch.models import build_model
+from svit_tpu_torch.parallel import dist as du
+from svit_tpu_torch.parallel import mesh as meshlib
 from svit_tpu_torch.utils import checkpoint as cu
 from svit_tpu_torch.utils import logging
 from svit_tpu_torch.visualization.gradcam import GradCAM
@@ -27,14 +32,15 @@ from svit_tpu_torch.visualization.tensorboard_vis import TensorboardWriter
 logger = logging.get_logger(__name__)
 
 
-def run_visualization(cfg, model, loader, writer):
+def run_visualization(cfg, model, loader, writer, mesh=None):
     """Weights, Grad-CAM and activations of the first three test batches."""
     vis_cfg = cfg.TENSORBOARD.MODEL_VIS
     device = next(model.parameters()).device
 
     if vis_cfg.MODEL_WEIGHTS:
-        writer.plot_weights_and_activations(model.state_dict(),
-                                            tag="weights/")
+        writer.plot_weights_and_activations(
+            meshlib.full_state_dict(model, mesh or meshlib.Mesh(1, 1)),
+            tag="weights/")
 
     gradcam = None
     if vis_cfg.GRAD_CAM.ENABLE:
@@ -92,28 +98,43 @@ def visualize(cfg, device=None):
     """The visualization pass of ``cfg`` over its test split, with the
     weights of ``load_test_checkpoint_path`` (else the seeded random ones),
     on the card unless ``device`` says otherwise."""
-    logging.setup_logging(cfg.OUTPUT_DIR)
+    logging.setup_logging(cfg.OUTPUT_DIR, is_master=du.is_master_proc())
+    mesh = meshlib.build_mesh(cfg)
     model, _ = build_model(cfg, device=device)
+    meshlib.shard_model(model, mesh)
     device = next(model.parameters()).device
     ckpt = cu.load_test_checkpoint_path(cfg)
     if ckpt:
-        cu.load_params_any(model, ckpt, cfg)
-    loader = construct_loader(cfg, "test")
+        cu.load_params_any(model, ckpt, cfg, mesh)
+    loader = construct_loader(cfg, "test", meshlib.data_sharding(mesh))
 
-    writer = TensorboardWriter(cfg)
+    writer = TensorboardWriter(cfg) if du.is_master_proc() else _Silent()
     try:
         if cfg.TENSORBOARD.MODEL_VIS.ENABLE:
-            run_visualization(cfg, model, loader, writer)
+            run_visualization(cfg, model, loader, writer, mesh)
         if cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE:
             wrong_vis = WrongPredictionVis(cfg, writer)
             for batch_idx, batch in enumerate(loader):
                 with torch.inference_mode():
                     logits, _ = model(torch.from_numpy(batch["clips"]).to(
                         device))
-                wrong_vis.visualize_vid(batch["clips"],
-                                        logits.float().cpu().numpy(),
-                                        batch["labels"], batch_idx)
+                valid = batch["weight"] > 0
+                share = (batch["clips"][valid],
+                         logits.float().cpu().numpy()[valid],
+                         batch["labels"][valid])
+                for clips, preds, labels in (
+                        du.all_gather_host(share)
+                        if du.get_world_size() > 1 else [share]):
+                    wrong_vis.visualize_vid(clips, preds, labels, batch_idx)
                 if batch_idx >= 4:
                     break
     finally:
         writer.close()
+
+
+class _Silent:
+    """The writer of a rank other than the master: every call does
+    nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None

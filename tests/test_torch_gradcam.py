@@ -251,6 +251,7 @@ def test_gradcam_kernel_calls(monkeypatch, target):
     table = [(ll, "ln_linear", "ln_linear"),
              (pool, "fused_pool_ln", "pool_ln"),
              (pool, "fused_pool_max", "pool_max"),
+             (pool, "pool_max_bwd", "pool_max_bwd"),
              (attn_ops, "pooled_attention_fwd", "pooled_attention"),
              (pool, "depthwise_conv", "pool_conv"),
              (pool, "depthwise_conv_dx", "pool_conv_dx"),

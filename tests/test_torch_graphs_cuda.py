@@ -8,9 +8,8 @@ A small SViT of ``configs/ssv2.yaml``'s widths (head_dim 96), 2 blocks at
 56 px and 4 frames, bf16 through the kernels, drop-path and head dropout
 on.  Gates: the loss bit for bit (the forward is deterministic and the
 replay draws the eager step's masks), the gradient under ``chip_smoke.py``'s
-gate against the plain f32 step (the backward is not deterministic: K3's
-backward goes through ``F.max_pool3d``'s atomics), the serving forward bit
-for bit.
+gate against the plain f32 step (``tests/test_torch_determinism_cuda.py``
+holds the step to itself bit for bit), the serving forward bit for bit.
 """
 
 import os

@@ -47,6 +47,7 @@ import attention_probe
 import bias_probe
 import chip_smoke
 import k1_probe
+import parallel_probe
 import pool_probe
 leaked = sorted(m for m in sys.modules if blocked(m))
 assert not leaked, leaked
@@ -98,7 +99,10 @@ assert not leaked, leaked
     "svit_tpu_torch.tools.run_net svit_tpu_torch.tools.train_net "
     "svit_tpu_torch.tools.test_net svit_tpu_torch.tools.demo_net "
     "svit_tpu_torch.tools.visualization svit_tpu_torch.tools.serve "
-    "svit_tpu_torch.tools.convert_checkpoint"])
+    "svit_tpu_torch.tools.convert_checkpoint",
+    # the parallel package and the learning proof
+    "svit_tpu_torch.parallel.dist svit_tpu_torch.parallel.mesh "
+    "svit_tpu_torch.parallel.tensor svit_tpu_torch.tools.overfit_hw"])
 def test_train_modules_import_with_jax_and_svit_tpu_blocked(module):
     r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *module.split()],
                        cwd=REPO, capture_output=True, text=True, timeout=300)

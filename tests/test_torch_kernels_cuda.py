@@ -71,6 +71,22 @@ def _ln(gen, K):
             _randn(gen, K, scale=0.1, dtype=torch.float32))
 
 
+# (M, K, N): the tensor-parallel fc2 partials of a model-2 split (each
+# rank's half of the hidden width) at stage 0 and stage 3, ragged rows
+@pytest.mark.parametrize("M,K,N", [(6272, 192, 96), (333, 1536, 768)])
+def test_ln_linear_f32_partial(gen, M, K, N):
+    """K1's f32 mode: the product alone, unrounded (no bias, rounding,
+    mask or residual), against the plain twin's f32 product."""
+    x = _randn(gen, M, K)
+    w = _randn(gen, N, K, scale=K ** -0.5)
+    out = tl.ln_linear(x, w, out_f32=True)
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    _gate(lambda x, w: tl.ln_linear(x, w, out_f32=True),
+          lambda x, w: tl.ln_linear_reference(x, w, out_f32=True), x, w)
+    with pytest.raises(ValueError, match="out_f32"):
+        tl.ln_linear(x, w, _randn(gen, N, dtype=torch.float32), out_f32=True)
+
+
 @pytest.mark.parametrize("M,K,N", [(1000, 96, 288), (333, 384, 96),
                                    (3137, 768, 2304)])
 def test_ln_linear_ln_qkv_split(gen, M, K, N):
@@ -191,6 +207,43 @@ def test_pool_max(gen):
     out = tp.fused_pool_max(x, (1, 3, 3), (1, 2, 2))
     torch.testing.assert_close(out, tp.pool_max_reference(x, (1, 3, 3), (1, 2, 2)),
                                atol=0, rtol=0)
+
+
+# the main path's skip pools (kernel 1 x 3 x 3, stride 2, at fewer clips),
+# a 3 x 3 x 3 window at T stride 2 and a stride-4 kernel-5 one, odd edges
+POOL_MAX_CASES = [
+    ((2, 8, 56, 56, 96), (1, 3, 3), (1, 2, 2)),
+    ((2, 8, 28, 28, 192), (1, 3, 3), (1, 2, 2)),
+    ((2, 8, 14, 14, 384), (1, 3, 3), (1, 2, 2)),
+    ((2, 5, 9, 11, 16), (3, 3, 3), (2, 2, 2)),
+    ((1, 2, 9, 9, 8), (1, 5, 5), (1, 4, 4)),
+]
+
+
+@pytest.mark.parametrize("levels", [0, 3])
+@pytest.mark.parametrize("shape,kernel,stride", POOL_MAX_CASES)
+def test_pool_max_bwd(gen, shape, kernel, stride, levels):
+    """K3's argmax and ``pool_max_bwd`` against their plain twins, bit for
+    bit, on random grids and on grids of three levels (ties in most
+    windows); a rerun is bit-identical (no atomics); the differentiated
+    forward counts one K3 and the backward one pool_max_bwd."""
+    x = (torch.randint(0, levels, shape, device="cuda", generator=gen)
+         .to(BF) if levels else _randn(gen, *shape))
+    out, arg = tp._pool_max(x, kernel, stride, with_arg=True)
+    assert torch.equal(out, tp.pool_max_reference(x, kernel, stride))
+    assert torch.equal(arg, tp.pool_max_argmax_reference(x, kernel, stride))
+    g = _randn(gen, *out.shape)
+    dx = tp.pool_max_bwd(g, arg, kernel, stride, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, tp.pool_max_backward_reference(g, arg, kernel,
+                                                          stride, shape))
+    assert torch.equal(dx, tp.pool_max_bwd(g, arg, kernel, stride, shape))
+    before = _lib.LAUNCHES.copy()
+    xr = x.detach().requires_grad_()
+    dx2, = torch.autograd.grad(tp.fused_pool_max(xr, kernel, stride), xr, g)
+    assert torch.equal(dx2, dx)
+    got = _lib.LAUNCHES - before
+    assert got["pool_max"] == 1 and got["pool_max_bwd"] == 1
 
 
 @pytest.mark.parametrize("heads,q_residual,with_bias", [

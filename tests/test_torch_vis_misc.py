@@ -2,7 +2,12 @@
 against the JAX package's.
 
 - ``yuyv_to_rgb`` equal to the JAX shim's; a missing device raises (no
-  camera exists here, so capture itself is not exercised);
+  camera exists here, so capture itself is not exercised).  The JAX
+  shim checks for its ``.so`` outside its build lock while ``make`` writes
+  the file in place, so under xdist a worker can load a sibling's
+  half-written build, fail, and remember the failure for the rest of the
+  process (``svit_tpu/native/camera.py:_load``).  ``jax_camera_lib`` waits
+  out any build under that lock and loads again;
 - ``TensorboardWriter`` writes event files; ``confusion_matrix`` equals
   the JAX package's;
 - a synthetic reference state dict (fused or separate q, k and v, BGR
@@ -11,6 +16,7 @@ against the JAX package's.
   reference's bit for bit, through the functions and the CLI.
 """
 
+import fcntl
 import glob
 import os
 
@@ -30,8 +36,23 @@ from svit_tpu_torch.visualization import tensorboard_vis
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module")
+def jax_camera_lib():
+    """The JAX camera shim, loaded after any build of it has finished: its
+    build lock is taken (a sibling worker's ``make`` holds it while it
+    writes ``libsvit_camera.so``) and released, then a load that failed on
+    a half-written file is tried again."""
+    lock = os.path.join(os.path.dirname(jax_camera.__file__), ".build.lock")
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+    if jax_camera._lib is None:
+        jax_camera._tried = False
+    assert jax_camera.available(), (
+        "svit_tpu/native/libsvit_camera.so did not build or load")
+
+
 @pytest.mark.parametrize("w,h,seed", [(64, 32, 0), (4, 2, 1), (320, 240, 2)])
-def test_yuyv_to_rgb_equals_jax(w, h, seed):
+def test_yuyv_to_rgb_equals_jax(jax_camera_lib, w, h, seed):
     yuyv = np.random.RandomState(seed).randint(0, 256, h * w * 2,
                                                dtype=np.uint8)
     got = camera.yuyv_to_rgb(yuyv, w, h)
