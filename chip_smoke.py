@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the hand-written kernels of ``svit_tpu_torch/csrc`` (nvcc, sm_90a)
-   and the seconds it took;
+   and the seconds it took; every instance's ``ptxas`` registers and
+   spills (the tuned K3 backward must spill nothing);
 3. model: the SViT-B/16 serving forward (``configs/ssv2.yaml``: 16 frames at
    224 px, 16 blocks, bf16) at batch 8 with random weights from a seed, run
    three ways: kernels in bf16, plain PyTorch in bf16, plain in f32 (TF32
@@ -42,7 +43,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    K4 is replayed against
    its plain version, timed beside its bound and a library yardstick, and
    so is every K2 call of the step's three forwards (the ``pool_ln (train
-   step)`` row).  Then
+   step)`` row) and every call of K3's instance that writes the argmax
+   (``pool_max (train step)``).  Each ``pool_max_bwd`` call logs its
+   route (the tuned tile or the general gather: every main-path call must
+   take the tuned one) and is held bit for bit against its plain twin and
+   the general instance, on the recorded call and on a three-level grid,
+   and against a rerun.  Then
    five timed steps of the kernel model: median step time, clips/s, peak
    memory, a profiled step's device time by kernel and idle share (with its
    GEMM rows by operand type, and the operand types of every product of
@@ -191,6 +197,7 @@ KERNELS = {  # counter name -> (source, TPU kernels it replaces)
 FFN_SHAPES = ((200704, 96), (3136, 768))
 TRAIN_K4 = "pooled_attention (train step)"
 TRAIN_K2 = "pool_ln (train step)"
+TRAIN_K3 = "pool_max (train step)"
 TRAIN_KERNELS = {  # the train step's new kernels and modes, and K4
     "ln_linear_masked": ("svit_tpu_torch/csrc/ln_linear.cu",
                          "svit_tpu/ops/pallas_ffn.py:322 _ffn_res_kernel "
@@ -221,12 +228,20 @@ TRAIN_KERNELS = {  # the train step's new kernels and modes, and K4
                      "svit_tpu/ops/pallas_pool.py:880 _pool_max_bwd (the VJP "
                      "of reduce_window: no pallas_call; the backward of "
                      ":695 _kernel_strided_max)"),
+    TRAIN_K3: ("svit_tpu_torch/csrc/pool.cu",
+               "svit_tpu/ops/pallas_pool.py:695 _kernel_strided_max (the "
+               "instance that also writes the argmax, in the train step's "
+               "video and image forwards)"),
 }
 # a kernel table row -> the launch counter it reads
 COUNTER = {TRAIN_K4: "pooled_attention", TRAIN_K2: "pool_ln"}
+# the rows whose launches are their recorded calls: the train step's K3
+# instance with the argmax counts under "pool_max" with the serving
+# instance that its no-grad consistency forward runs
+RECORDED = (TRAIN_K3,)
 # a recorded call's name -> the kernel whose cost and yardstick it takes
 KIND = {"ln_linear_masked": "ln_linear", TRAIN_K4: "pooled_attention",
-        TRAIN_K2: "pool_ln"}
+        TRAIN_K2: "pool_ln", TRAIN_K3: "pool_max"}
 
 
 def log(*a):
@@ -372,6 +387,20 @@ def _masked(args, kwargs):
     return "ln_linear_masked" if masked else None
 
 
+def _with_arg(args, kwargs):
+    return TRAIN_K3 if kwargs.get("with_arg") else None
+
+
+def pool_max_with_arg_reference(x, kernel, stride, with_arg=False):
+    """The plain twins of K3 and of the argmax it writes for the
+    backward."""
+    from svit_tpu_torch.ops import pool
+
+    out = pool.pool_max_reference(x, kernel, stride)
+    return ((out, pool.pool_max_argmax_reference(x, kernel, stride))
+            if with_arg else out)
+
+
 def train_wrappers():
     """The train step's new kernels: counter name -> (module, attribute,
     plain twin with the kernel's signature, recorder name)."""
@@ -397,6 +426,8 @@ def train_wrappers():
         TRAIN_K2: (pool, "fused_pool_ln", pool.pool_ln_reference, TRAIN_K2),
         "pool_max_bwd": (pool, "pool_max_bwd",
                          pool.pool_max_backward_reference, "pool_max_bwd"),
+        TRAIN_K3: (pool, "_pool_max", pool_max_with_arg_reference,
+                   _with_arg),
     }
 
 
@@ -481,12 +512,15 @@ def cost(name, args, kwargs):
         return (window_bytes(x, w.shape[2:], stride) + nb(w) + nb(ls)
                 + nb(lb) + 2 * out, 0.0, out * (2.0 * taps + 8))
     if name == "pool_max":
+        # x read once, the output written once, and with the argmax one
+        # byte more an output element
         x, kernel, stride = args
         B, T, H, W, C = x.shape
         out = B * C * math.prod(
             (d + 2 * (k // 2) - k) // s + 1
             for d, k, s in zip((T, H, W), kernel, stride))
-        return nb(x) + 2 * out, 0.0, float(out * math.prod(kernel))
+        per_out = 3 if kwargs.get("with_arg") else 2
+        return nb(x) + per_out * out, 0.0, float(out * math.prod(kernel))
     if name == "pooled_attention":
         q, kv, bias_src, k_shape, scale, heads = args[:6]
         B, Nq, C = q.shape
@@ -601,7 +635,9 @@ def library_call(name, args, kwargs):
         x, kernel, stride = args
         pad = tuple(k // 2 for k in kernel)
         return lambda: F.max_pool3d(x.permute(0, 4, 1, 2, 3), kernel, stride,
-                                    pad)
+                                    pad,
+                                    return_indices=kwargs.get("with_arg",
+                                                              False))
     if name == "pooled_attention":
         from svit_tpu_torch.ops.attention import _gather_bias
 
@@ -652,6 +688,8 @@ def use_of(name, args, kwargs):
         return f"fused_pool_ln stride {tuple(args[4])}"
     if name == "pool_max_bwd":
         return f"_pool_max_bwd {tuple(args[4])}"
+    if name == TRAIN_K3:
+        return f"fused_pool_max with argmax {tuple(args[0].shape)}"
     return "fused_pool_max"
 
 
@@ -894,7 +932,14 @@ def run_train_phase(cfg, torch):
            for n, (mod, attr, plain, _) in train_wrappers().items()}
     # the masked K1 launches go through the ln_linear wrapper
     table, uses, details = run_kernel_phase(rec, torch, fns, unit="train step")
+    result["max_bwd_routes"] = max_bwd_gates(rec, torch)
     del rec
+    # the argmax instance: one launch in each differentiated forward's skip
+    # pools, as many as the backward's
+    if table[TRAIN_K3]["launches"] != want["pool_max_bwd"]:
+        raise SystemExit(f"train step: {table[TRAIN_K3]['launches']} K3 "
+                         f"launches with the argmax, expected "
+                         f"{want['pool_max_bwd']}")
 
     # five timed steps of the kernel model
     params = dict(kernel_state.model.named_parameters())
@@ -1102,7 +1147,7 @@ def run_kernel_phase(rec, torch, fns, unit="forward"):
     ``fns`` maps a counter name to (kernel, plain twin).  Returns the
     totals per kernel and per JAX function, and the per-call rows."""
     table = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                     library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+                     library_ms=0.0, bytes_ms=0.0, ops_ms=0.0, launches=0)
              for n in fns}
     uses = collections.defaultdict(collections.Counter)
     details = []
@@ -1137,6 +1182,7 @@ def run_kernel_phase(rec, torch, fns, unit="forward"):
         if not ok:
             raise SystemExit(f"kernel gate failed: {name} {shapes}")
         row = table[name]
+        row["launches"] += count
         row["max_abs_err"] = max(row["max_abs_err"], max_abs)
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                      ("bound_ms", max(bytes_ms, ops_ms)),
@@ -1158,6 +1204,55 @@ def run_kernel_phase(rec, torch, fns, unit="forward"):
             f"plain_ms={u['plain_ms']:.4f} library_ms={u['library_ms']:.4f} "
             f"bound_ms={u['bound_ms']:.4f}")
     return table, {k: dict(u) for k, u in uses.items()}, details
+
+
+def max_bwd_gates(rec, torch):
+    """Phase 7: each recorded ``pool_max_bwd`` call of the train step, its
+    route (``ops/pool.py:max_bwd_plan``: the tuned tile or the general
+    gather), held bit for bit against the plain twin and against the
+    general instance, on the recorded call and on the argmax of a grid of
+    three levels (ties in most windows), and a rerun bit-identical.  Every
+    call of the main path must take the tuned instance.  Returns {route:
+    launches}."""
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.ops import pool
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    routes = collections.Counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for call in rec.calls.values():
+        if call["name"] != "pool_max_bwd":
+            continue
+        g, arg, kernel, stride, in_shape = call["args"]
+        kernel, stride, in_shape = tuple(kernel), tuple(stride), tuple(in_shape)
+        route = pool.max_bwd_plan(in_shape, kernel, stride,
+                                  sms=_lib.sm_count(g.device)).route
+        with torch.inference_mode():
+            x3 = torch.randint(0, 3, in_shape, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+            arg3 = pool._pool_max(x3, kernel, stride, with_arg=True)[1]
+            for what, a in (("recorded", arg), ("three-level grid", arg3)):
+                dx = pool.pool_max_bwd(g, a, kernel, stride, in_shape)
+                others = (
+                    pool.pool_max_backward_reference(g, a, kernel, stride,
+                                                     in_shape),
+                    pool.pool_max_bwd(g, a, kernel, stride, in_shape,
+                                      general=True),
+                    pool.pool_max_bwd(g, a, kernel, stride, in_shape))
+                same = [torch.equal(bits(dx), bits(o)) for o in others]
+                log(f"pool_max_bwd {in_shape} route {route} ({what}): "
+                    f"bit-equal to the plain twin {same[0]}, to the general "
+                    f"instance {same[1]}, rerun {same[2]}")
+                if not all(same):
+                    raise SystemExit(f"phase 7: pool_max_bwd {in_shape} "
+                                     f"({what}) is not bit-equal")
+        routes[route] += call["count"]
+    if set(routes) != {"tile"}:
+        raise SystemExit(f"phase 7: the step's pool_max_bwd calls took "
+                         f"{dict(routes)}, not the tuned instance alone")
+    return dict(routes)
 
 
 def run_ffn_phase(torch):
@@ -1284,7 +1379,8 @@ def time_forward(model, arch, torch, batch):
 
 
 OUR_KERNELS = ("ln_linear_kernel", "pool_ln_kernel", "pool_max_kernel",
-               "pool_max_bwd_kernel", "attn_fwd_kernel", "attn_bwd_",
+               "pool_max_bwd_kernel", "pool_max_bwd_tile_kernel",
+               "attn_fwd_kernel", "attn_bwd_",
                "halo_gen_kernel", "dx_kernel", "conv_dk_", "dk_gen_kernel")
 
 
@@ -2415,13 +2511,15 @@ NODE_KERNELS = (
     (("pool_ln", "pool_conv", "pool_conv_dx"),
      ("pool_ln_kernel", "halo_gen_kernel", "dx_kernel")),
     (("pool_max",), ("pool_max_kernel",)),
-    (("pool_max_bwd",), ("pool_max_bwd_kernel",)),
+    # the main path's calls all take the tuned instance
+    (("pool_max_bwd",), ("pool_max_bwd_tile_kernel",)),
     (("pooled_attention",), ("attn_fwd_kernel",)),
     (("pooled_attention_bwd",), ("attn_bwd_q_kernel",)),
     (("pool_conv_dk",), ("conv_dk_kernel", "dk_gen_kernel")),
 )
 KERNEL_NAMES = ("ln_linear_kernel", "pool_ln_kernel", "halo_gen_kernel",
                 "dx_kernel", "pool_max_kernel", "pool_max_bwd_kernel",
+                "pool_max_bwd_tile_kernel",
                 "attn_fwd_kernel",
                 "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
                 "attn_bwd_reduce_kernel", "conv_dk_kernel",
@@ -3185,6 +3283,10 @@ def main():
             log("  " + line.strip())
     spills = spilling(ptxas)
     log(f"kernel instances that spill: {spills or 'none'}")
+    if not any("pool_max_bwd_tile_kernel" in fn for fn in ptxas):
+        raise SystemExit("the build log has no pool_max_bwd_tile_kernel")
+    if any("pool_max_bwd_tile_kernel" in fn for fn in spills):
+        raise SystemExit("pool_max_bwd_tile_kernel spills")
 
     cfg = get_cfg()
     cfg.merge_from_file(CFG)
@@ -3236,7 +3338,9 @@ def main():
             counter = COUNTER.get(name, name)
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches.get(counter, 0),
+                "replaces": replaces,
+                "launches": (row["launches"] if name in RECORDED
+                             else launches.get(counter, 0)),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"]
@@ -3252,6 +3356,13 @@ def main():
                     compiled["serving"][BATCH]["launches"].get(counter, 0),
                 "gradcam_launches": gradcam_launches.get(counter, 0),
             })
+            if name in RECORDED:       # its counter holds both instances
+                kernels[-1].update(dict.fromkeys(
+                    ("test_launches", "trainer_launches",
+                     "train_replay_launches", "serving_replay_launches",
+                     "gradcam_launches")), train_launches=row["launches"])
+            if name == "pool_max_bwd":
+                kernels[-1]["instances"] = train["max_bwd_routes"]
             if name == "ln_linear":
                 kernels[-1]["uses"] = k1
             elif "attention" in name:   # K4 and K5 by use and Nk

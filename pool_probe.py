@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Sweep kernels K2, K6 and K7 (``svit_tpu_torch/csrc/pool.cu``) on one
-NVIDIA card.
+"""Sweep kernels K2, K3, K6 and K7 (``svit_tpu_torch/csrc/pool.cu``) on
+one NVIDIA card.
 
-    python3 pool_probe.py [--sweep | --no-math]
+    python3 pool_probe.py [--sweep | --no-math] [--k3]
 
 Every distinct pool call of the SViT-B/16 forwards (``configs/ssv2.yaml``:
 video batch 8 and 1, image batch 8, the train step's 128-frame consistency
 forward) as K2 with its LN, and every call of the train step's backward
 (video and image batch 8) as K2 in bare mode, as K6 (the input gradient:
 K2's bare loop on the flipped filter at stride 1, the parity-class kernel
-at strides 2, 4 and 8) and as K7, on random bf16
-inputs from a seed: each at the launch of ``ops/pool.py:pool_plan``,
+at strides 2, 4 and 8) and as K7, and every skip pool of the backward
+passes as K3's backward (``pool_max_bwd``, on the argmax of its input)
+and as K3's forward instance that writes that argmax, on random bf16
+inputs from a seed: each at the launch of ``ops/pool.py:pool_plan`` (K3's
+backward: ``max_bwd_plan``),
 checked against its plain twin in f32 (``chip_smoke``'s gate) and timed by
 device time (``chip_smoke.device_time_ms``) beside the library yardstick
 and the bound (``chip_smoke.cost``).  Then the same four kernels at shapes
@@ -19,7 +22,11 @@ kernel, a T stride of 2, strides that differ between H and W), which the
 general instance serves; they are left out of the main path's sums.
 ``--sweep`` also times each main-path call
 under other tiles (rows, columns, frames) than the plan's, where its bound
-is above 5 us.  ``--no-math`` times a build (``-DSVIT_POOL_NO_MATH``) whose
+is above 5 us, and each K3 backward call under other tiles (rows, columns,
+ring stages) of its tuned instance.  ``--k3`` runs K3's rows alone; K3's
+backward is gated bit for bit against its plain twin.  ``--no-math``
+leaves K3's forward out (it has no ring) and times a build
+(``-DSVIT_POOL_NO_MATH``) whose
 kernels run only the tiles' loads and barriers, ungated: what the TMA halo
 ring costs alone.  Results go to ``chiprun_out/pool_probe.json`` (or
 ``pool_probe_no_math.json``).  Without a card it exits 2.
@@ -29,6 +36,8 @@ import functools
 import json
 import os
 import sys
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FORWARDS = {"video 8": (8, 16), "video 1": (1, 16), "image 8": (8, 1),
@@ -40,7 +49,8 @@ def calls():
     """{(kind, input shape, kernel, stride, head_dim): [uses, launches]}:
     K2 ("pool_ln") for every forward's q and k|v pools, K2 bare
     ("pool_conv"), K6 ("pool_conv_dx") and K7 ("pool_conv_dk") for the
-    backward's."""
+    backward's; K3's backward ("pool_max_bwd") and its argmax instance
+    ("pool_max_arg") for the backward's skip pools."""
     from svit_tpu_torch.config import get_cfg
     from svit_tpu_torch.models.svit import SViTArch
     from svit_tpu_torch.ops.pooling import out_size
@@ -64,6 +74,11 @@ def calls():
                                           stride, 96), [set(), 0])
                     row[0].add(name)
                     row[1] += 1
+            if name in BACKWARD and int(np.prod(s.stride_q)) > 1:
+                kernel = tuple(k + 1 if k > 1 else k for k in s.stride_q)
+                for kind in K3_KINDS:
+                    out[(kind, (B, *size, s.dim_out), kernel,
+                         tuple(s.stride_q), None)] = [{name}, 1]
             size = q_shape
     return out
 
@@ -93,6 +108,7 @@ def wide_calls():
 
 PLAN_KIND = {"pool_ln": "pool", "pool_conv": "pool", "pool_conv_dx": "dx",
              "pool_conv_dk": "dk"}
+K3_KINDS = ("pool_max_bwd", "pool_max_arg")
 
 
 def tiles(plan):
@@ -104,6 +120,15 @@ def tiles(plan):
     return [dict(rows=r, cols=c, frames=f, ring=plan.ring)
             for r in (1, 2, 3, 4) for c in widths for f in chunks
             if (r, c, f) != (plan.rows, plan.cols, plan.frames)]
+
+
+def max_bwd_tiles(plan, Wo):
+    """Other launches of one K3 backward call for ``--sweep``: rows (consumer
+    warps), columns and ring stages of its tuned instance's tile."""
+    widths = sorted({min(Wo, w) for w in (4, 7, 8, 14, 16, 28)})
+    return [dict(rows=r, cols=c, ring=q) for r in (1, 2, 3, 4, 6, 8)
+            for c in widths for q in (2, 3, 4)
+            if (r, c, q) != (plan.rows, plan.cols, plan.ring)]
 
 
 def main():
@@ -119,6 +144,7 @@ def main():
 
     sweep = "--sweep" in sys.argv[1:]
     no_math = "--no-math" in sys.argv[1:]
+    k3_only = "--k3" in sys.argv[1:]
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -127,18 +153,28 @@ def main():
     _lib.build()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     sms = _lib.sm_count(torch.device("cuda"))
-    plan_fn = tp.pool_plan
+    plan_fn, max_bwd_plan = tp.pool_plan, tp.max_bwd_plan
 
     def r(*s, scale=1.0, dtype=torch.bfloat16):
         return (scale * torch.randn(s, device="cuda", generator=gen)).to(dtype)
 
     rows, ok_all = [], True
-    for (kind, shape, kern, stride, hd), (uses, count) in {
-            **calls(), **wide_calls()}.items():
+    todo = {**calls(), **wide_calls()}
+    for (kind, shape, kern, stride, hd), (uses, count) in todo.items():
+        if (k3_only and kind not in K3_KINDS) or (
+                no_math and kind == "pool_max_arg"):
+            continue
         B, T, H, W, C = shape
         To, Ho, Wo = (tp.out_size(d, k, s) for d, k, s in
                       zip((T, H, W), kern, stride))
         x, w = r(*shape), r(C, 1, *kern, scale=0.2, dtype=torch.float32)
+        if kind in K3_KINDS:
+            rows.append(k3_row(kind, x, kern, stride, uses, count, sweep,
+                               no_math, max_bwd_plan, sms, gen))
+            ok_all &= rows[-1]["ok"]
+            print(json.dumps({k: v for k, v in rows[-1].items()
+                              if k != "sweep"}), flush=True)
+            continue
         if kind == "pool_ln":
             ls = 1 + r(C, scale=0.1, dtype=torch.float32)
             lb = r(C, scale=0.1, dtype=torch.float32)
@@ -208,14 +244,79 @@ def main():
         for k in t:
             t[k] += row[k] * row["launches"]
     print("summed over the launches of the four forwards (pool_ln) and of "
-          "the step's backward (pool_conv, pool_conv_dx, pool_conv_dk), and "
-          "over the WIDE shapes once each: " + json.dumps(total), flush=True)
+          "the step's backward (pool_conv, pool_conv_dx, pool_conv_dk, "
+          "pool_max_bwd, pool_max_arg), and over the WIDE shapes once each: "
+          + json.dumps(total), flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     name = "pool_probe_no_math.json" if no_math else "pool_probe.json"
     with open(os.path.join(REPO, "chiprun_out", name), "w") as f:
         json.dump(dict(card=card, rows=rows, total=total), f, indent=1)
     print(card)
     return 0 if ok_all else 1
+
+
+def k3_row(kind, x, kern, stride, uses, count, sweep, no_math, plan_fn, sms,
+           gen):
+    """One K3 call of the step's backward passes: its backward
+    (``pool_max_bwd``: on the argmax of ``x``, gated bit for bit against
+    the plain twin, timed at the plan and, with ``sweep``, under other
+    tiles) or its argmax-writing forward, beside the bound and the library
+    yardstick."""
+    import torch
+
+    import chip_smoke as cs
+    from svit_tpu_torch.ops import pool as tp
+
+    shape = tuple(x.shape)
+    out, arg = tp._pool_max(x, kern, stride, with_arg=True)
+    if kind == "pool_max_arg":
+        args, kwargs = (x, kern, stride), {"with_arg": True}
+        kernel, plain = tp._pool_max, cs.pool_max_with_arg_reference
+        name, plan = "pool_max", None
+    else:
+        g = torch.randn(out.shape, device="cuda", generator=gen).to(x.dtype)
+        args, kwargs = (g, arg, kern, stride, shape), {}
+        kernel, plain = tp.pool_max_bwd, tp.pool_max_backward_reference
+        name, plan = kind, plan_fn(shape, kern, stride, sms=sms)
+    with torch.inference_mode():
+        if no_math:
+            ok, err = True, float("nan")
+        else:
+            got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            ok = all(torch.equal(a, b) for a, b in zip(got, want))
+            err = float(max((a.float() - b.float()).abs().max()
+                            for a, b in zip(got, want)))
+        ms = cs.device_time_ms(lambda: kernel(*args, **kwargs))
+        lib_ms = cs.device_time_ms(cs.library_call(name, args, kwargs), 2)
+    byts, _, cflops = cs.cost(name, args, kwargs)
+    bound = max(byts / cs.HBM_BPS, cflops / cs.CORE_FLOPS) * 1e3
+    row = dict(kind=kind, shape=list(shape), kernel=list(kern),
+               stride=list(stride), head_dim=None, uses=sorted(uses),
+               launches=count, bit_equal=ok, max_abs_err=err, ok=ok, ms=ms,
+               library_ms=lib_ms, bound_ms=bound, bytes=byts,
+               plan=None if plan is None else dict(
+                   route=plan.route, rows=plan.rows, cols=plan.cols,
+                   ring=plan.ring, grid=plan.grid, smem=plan.smem))
+    if sweep and plan is not None and plan.route == "tile":
+        row["sweep"] = []
+        Wo = out.shape[3]
+        for over in max_bwd_tiles(plan, Wo):
+            try:
+                tp.max_bwd_plan = functools.partial(plan_fn, **over)
+                alt = tp.max_bwd_plan(shape, kern, stride, sms=sms)
+                with torch.inference_mode():
+                    row["sweep"].append(dict(
+                        over, grid=alt.grid, smem=alt.smem,
+                        ms=cs.device_time_ms(lambda: kernel(*args))))
+            except ValueError:     # no such tile fits
+                pass
+            finally:
+                tp.max_bwd_plan = plan_fn
+        row["best"] = min(row["sweep"] + [dict(ms=ms)],
+                          key=lambda d: d["ms"])
+    return row
 
 
 if __name__ == "__main__":

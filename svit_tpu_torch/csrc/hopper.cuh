@@ -465,23 +465,55 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+// a libcuda function, found through the runtime (no -lcuda); null if absent
+static inline void* driver_fn(const char* name) {
+  void* f = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion(name, &f, 12000,
+                                                   cudaEnableDefault, &q);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint(name, &f, cudaEnableDefault, &q);
+#endif
+  return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? f : nullptr;
+}
+
+typedef CUresult (*CtxGetCurrent)(CUcontext*);
+typedef CUresult (*CtxSetCurrent)(CUcontext);
+typedef CUresult (*PrimaryCtxRetain)(CUcontext*, CUdevice);
+
+// The encoder is a driver call: it wants a context current on the calling
+// thread.  The runtime makes the device's primary context current at the
+// thread's first call that needs one, which a thread may not have made yet:
+// autograd's backward thread, where a backward that starts with one of these
+// kernels (K3's) runs it first.  Then the current device's primary context
+// is made current here (no runtime call, so nothing that a stream capture
+// would refuse).
+static inline bool context_current() {
+  static CtxGetCurrent get = nullptr;
+  static CtxSetCurrent set = nullptr;
+  static PrimaryCtxRetain retain = nullptr;
+  if (!get || !set || !retain) {
+    set = reinterpret_cast<CtxSetCurrent>(driver_fn("cuCtxSetCurrent"));
+    retain = reinterpret_cast<PrimaryCtxRetain>(
+        driver_fn("cuDevicePrimaryCtxRetain"));
+    get = reinterpret_cast<CtxGetCurrent>(driver_fn("cuCtxGetCurrent"));
+    if (!get || !set || !retain) return false;
+  }
+  CUcontext ctx = nullptr;
+  if (get(&ctx) == CUDA_SUCCESS && ctx) return true;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  // the primary context torch holds; the retain adds a reference it keeps
+  return retain(&ctx, dev) == CUDA_SUCCESS && set(ctx) == CUDA_SUCCESS;
+}
+
+// libcuda's cuTensorMapEncodeTiled, with a context current on this thread;
+// null if either cannot be had
 static inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
+  if (!fn) fn = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+  return fn && context_current() ? fn : nullptr;
 }
 
 // a bf16 tensor of ``rank`` (2 or 3) dimensions, innermost first (``dims``:
@@ -510,14 +542,15 @@ static inline int encode_map(CUtensorMap* map, const void* ptr, int rank,
   return r == CUDA_SUCCESS ? 0 : ERR_TMAP;
 }
 
-// a channels-last bf16 grid [B, T, H, W, C] as a 5-D map, innermost first
-// (``dims``: C, W, H, T, B), no swizzle.  ``box`` is the extent a load
-// traverses along each dimension and ``step`` the traversal stride (1 to
-// 8): a load lands ceil(box / step) elements per dimension, and elements
-// outside the tensor (negative coordinates included) land as zero.
+// a channels-last grid [B, T, H, W, C] of bf16 (``elem`` 2) or uint8
+// (``elem`` 1) as a 5-D map, innermost first (``dims``: C, W, H, T, B), no
+// swizzle.  ``box`` is the extent a load traverses along each dimension and
+// ``step`` the traversal stride (1 to 8): a load lands ceil(box / step)
+// elements per dimension, and elements outside the tensor (negative
+// coordinates included) land as zero.
 static inline int encode_map_5d(CUtensorMap* map, const void* ptr,
                                 const long (&dims)[5], const int (&box)[5],
-                                const int (&step)[5]) {
+                                const int (&step)[5], int elem = 2) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return ERR_ENTRY;
   cuuint64_t d[5], strides[4];
@@ -527,9 +560,12 @@ static inline int encode_map_5d(CUtensorMap* map, const void* ptr,
     bx[i] = (cuuint32_t)box[i];
     el[i] = (cuuint32_t)step[i];
   }
-  strides[0] = d[0] * sizeof(bf16);
+  strides[0] = d[0] * elem;
   for (int i = 1; i < 4; ++i) strides[i] = strides[i - 1] * d[i];
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+  CUresult r = fn(map,
+                  elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  5,
                   const_cast<void*>(ptr), d, strides, bx, el,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -608,7 +608,8 @@ extern "C" const char* svit_error_string(int err) {
     case ERR_PLAN:
       return "the launch plan does not fit the kernel";
     case ERR_ENTRY:
-      return "cuTensorMapEncodeTiled not found in libcuda";
+      return "cuTensorMapEncodeTiled not found in libcuda, or no context "
+             "could be made current";
     case ERR_TMAP:
       return "cuTensorMapEncodeTiled refused a tensor map";
     default:

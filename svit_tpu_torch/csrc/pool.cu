@@ -21,10 +21,12 @@
 //   never the stuffed tensor (dx_kernel at the main path's shapes, the
 //   general instance elsewhere).
 // * K3 replaces _kernel_strided_max (fused_pool_max): MaxPool3d with -inf
-//   padding k//2, a gather, 8 channels a thread.  Its backward
-//   (pool_max_bwd_kernel) replaces the VJP of reduce_window that JAX's
-//   _pool_max_bwd takes (no pallas_call): a gather over the windows that
-//   cover each input cell, reading the argmax taps the forward wrote.
+//   padding k//2, a gather, 8 channels a thread.  Its backward replaces the
+//   VJP of reduce_window that JAX's _pool_max_bwd takes (no pallas_call),
+//   reading the argmax taps the forward wrote: at the main path's skip
+//   pool a TMA-fed tile over base positions (pool_max_bwd_tile_kernel),
+//   elsewhere a gather over the windows that cover each input cell
+//   (pool_max_bwd_kernel); ops/pool.py:max_bwd_plan picks the instance.
 //
 // Two instances of the halo tile.  The tuned one takes the main path's
 // shapes: (1|3) x 3 x 3 kernels at T stride 1 on 96-channel slabs (K2's LN
@@ -823,8 +825,16 @@ __global__ void __launch_bounds__(256) pool_max_bwd_kernel(MaxBwdParams p) {
             (__vcmpeq4(a.x, tap * 0x01010101u) & 0x80808080u) |
             ((__vcmpeq4(a.y, tap * 0x01010101u) & 0x80808080u) >> 4);
         if (!pick) continue;
+        // unpacked by shifts: unpack8 on the loaded temporary took its
+        // address, which put it on the stack (8 bytes of spill)
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(p.g + o));
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
         float v[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(p.g + o)), v);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[2 * i] = __uint_as_float(w[i] << 16);
+          v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           if (pick >> (8 * i + 7) & 1) acc[i] += v[i];
@@ -836,6 +846,169 @@ __global__ void __launch_bounds__(256) pool_max_bwd_kernel(MaxBwdParams p) {
   *reinterpret_cast<uint4*>(
       p.dx + ((((size_t)b * p.T + ti) * p.H + hi) * p.W + wi) * p.C + c) =
       pack8(acc);
+}
+
+// K3's backward at the main path's skip pool (pool_max_bwd_tile_kernel):
+// kernel (1, 3, 3), stride (1, 2, 2), padding (0, 1, 1), C a multiple of
+// 96, fixed at compile time.  K6's dx_kernel geometry with the filter's
+// multiply-add replaced by the argmax select.  A base position (t, m, n)
+// owns the 2 x 2 cell of dx rows {2m, 2m + 1} x columns {2n, 2n + 1}; the
+// windows that cover it are {m, m + 1} x {n, n + 1} (window o covers input
+// rows 2o - 1 .. 2o + 1), so base position (m, n) of the tile reads window
+// positions (m .. m + 1, n .. n + 1) of g and of the argmax.  Each cell adds
+// its (window, tap) pairs in increasing (ho, wo) window order, the general
+// instance's and the plain twin's order, in f32 from +0.0, rounded once:
+//   (2m, 2n)         (m, n) tap 4
+//   (2m, 2n + 1)     (m, n) tap 5; (m, n + 1) tap 3
+//   (2m + 1, 2n)     (m, n) tap 7; (m + 1, n) tap 1
+//   (2m + 1, 2n + 1) (m, n) tap 8; (m, n + 1) tap 6; (m + 1, n) tap 2;
+//                    (m + 1, n + 1) tap 0
+// A pair whose tap is not the window's argmax adds +0.0 (g masked to zero
+// bits), as the plain twin's where(arg == tap, g, 0) does: a sum that starts
+// at +0.0 is never -0.0, so adding +0.0 leaves it exactly as it is.  The
+// windows m + 1 = Ho and n + 1 = Wo lie outside the grid: TMA zero-fills
+// both boxes there, so their argmax reads as tap 0 (a real tap) but their g
+// is +0.0, which adds nothing.  Cells past an odd H or W are not stored.
+//
+// What bounds it: bytes.  g (bf16) and its argmax (uint8) are read, dx
+// (bf16, four times g's elements) written: at stride 2 dx is 73% of the
+// bytes.  The design keeps every byte moving:
+// * a block owns one 96-channel slab (blockIdx.y) and walks the tiles
+//   blockIdx.x, + gridDim.x, ... (at most one wave of blocks): a tile is
+//   ``rows`` x ``cols`` base positions of one frame;
+// * a producer warp loads each tile's (rows + 1) x (cols + 1) windows of g
+//   and of the argmax by TMA (two 5-D maps, bf16 and uint8) into a ring of
+//   stages under full and empty mbarriers, so the next tiles' loads fly
+//   while this one is used: every window leaves HBM once (the one-window
+//   halo the next tile reads again comes from L2);
+// * the consumer warps (``rows`` of them) share the tile's (base position,
+//   16-byte channel chunk) items: each takes 8 channels of one base
+//   position, reads its four windows' g and argmax from shared memory
+//   (16- and 8-byte loads, neighbouring lanes on neighbouring addresses),
+//   selects with __vcmpeq4 on four argmax bytes at a time, and writes the
+//   four dx vectors with 16-byte stores that it never waits for: a warp's
+//   store covers whole 32-byte sectors.
+struct MaxBwdGeo {
+  int B, T, H, W, C, Ho, Wo;
+  int rows, cols, ring;
+  int nh, nw, items;
+  int g_bytes;      // a stage's g box (rounded to 128 bytes); the argmax box follows
+  int stage_bytes;  // one stage: the g box and the argmax box
+  int tx;           // bytes TMA lands in a stage
+  int bar_off;      // the full and empty barriers, after the ring
+  int consumers;    // consumer threads (the producer warp follows)
+};
+
+constexpr int MB_CHUNKS = SLAB / 8;   // 16-byte chunks of a slab in g
+constexpr int MB_THREADS = 9 * 32;    // at most 8 consumer warps and the producer
+
+// tile ``item``: w tiles fastest, then h tiles, the frame, the clip
+__device__ __forceinline__ int4 max_bwd_item(const MaxBwdGeo& g, int item) {
+  const int n0 = item % g.nw * g.cols;
+  int r = item / g.nw;
+  const int m0 = r % g.nh * g.rows;
+  r /= g.nh;
+  return make_int4(r / g.T, r % g.T, m0, n0);  // b, t, m0, n0
+}
+
+// acc += the 8 values of ``v`` whose argmax byte in ``a`` is ``tap``, +0.0
+// for the others (their bits masked to zero)
+__device__ __forceinline__ void add_tap(float (&acc)[8], const uint4& v,
+                                        const uint2& a, uint32_t tap) {
+  const uint32_t t = tap * 0x01010101u;
+  const uint32_t m0 = __vcmpeq4(a.x, t), m1 = __vcmpeq4(a.y, t);
+  const uint32_t w[4] = {v.x & __byte_perm(m0, 0, 0x1100),
+                         v.y & __byte_perm(m0, 0, 0x3322),
+                         v.z & __byte_perm(m1, 0, 0x1100),
+                         v.w & __byte_perm(m1, 0, 0x3322)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[2 * i] += __uint_as_float(w[i] << 16);
+    acc[2 * i + 1] += __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__global__ void __launch_bounds__(MB_THREADS) pool_max_bwd_tile_kernel(
+    const __grid_constant__ CUtensorMap tg,
+    const __grid_constant__ CUtensorMap ta, bf16* dx,
+    const __grid_constant__ MaxBwdGeo g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int c0 = blockIdx.y * SLAB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.bar_off);
+  uint64_t* empty = full + g.ring;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < g.ring; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], g.consumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if ((int)threadIdx.x >= g.consumers) {
+    if ((int)threadIdx.x == g.consumers) {
+      uint32_t i = 0;
+      for (int item = blockIdx.x; item < g.items; item += gridDim.x, ++i) {
+        const int s = i % g.ring;
+        if (i >= (uint32_t)g.ring) mbar_wait(&empty[s], (i / g.ring - 1) & 1);
+        const int4 it = max_bwd_item(g, item);
+        unsigned char* dst = smem + s * g.stage_bytes;
+        mbar_expect_tx(&full[s], g.tx);
+        tma_load_5d(dst, &tg, &full[s], c0, it.w, it.z, it.y, it.x);
+        tma_load_5d(dst + g.g_bytes, &ta, &full[s], c0, it.w, it.z, it.y,
+                    it.x);
+      }
+    }
+    return;
+  }
+
+  const int cols1 = g.cols + 1;
+  const size_t row = (size_t)g.W * g.C;  // one dx row
+  uint32_t i = 0;
+  for (int item = blockIdx.x; item < g.items; item += gridDim.x, ++i) {
+    const int s = i % g.ring;
+    mbar_wait(&full[s], (i / g.ring) & 1);
+    const int4 it = max_bwd_item(g, item);
+    const int nrows = min(g.rows, g.Ho - it.z), ncols = min(g.cols, g.Wo - it.w);
+    const unsigned char* gs = smem + s * g.stage_bytes;
+    const unsigned char* as = gs + g.g_bytes;
+    bf16* plane = dx + ((size_t)it.x * g.T + it.y) * g.H * row + c0;
+    for (int e = threadIdx.x; !NO_MATH && e < nrows * ncols * MB_CHUNKS;
+         e += g.consumers) {
+      const int k = e % MB_CHUNKS, q = e / MB_CHUNKS;
+      const int j = q % ncols, r = q / ncols;
+      // windows (r, j), (r, j + 1), (r + 1, j), (r + 1, j + 1) of the box
+      const int p0 = r * cols1 + j;
+      const int pos[4] = {p0, p0 + 1, p0 + cols1, p0 + cols1 + 1};
+      uint4 v[4];
+      uint2 a[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        v[w] = *reinterpret_cast<const uint4*>(gs + pos[w] * 2 * SLAB + 16 * k);
+        a[w] = *reinterpret_cast<const uint2*>(as + pos[w] * SLAB + 8 * k);
+      }
+      float c00[8], c01[8], c10[8], c11[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) c00[u] = c01[u] = c10[u] = c11[u] = 0.f;
+      add_tap(c00, v[0], a[0], 4);
+      add_tap(c01, v[0], a[0], 5);
+      add_tap(c01, v[1], a[1], 3);
+      add_tap(c10, v[0], a[0], 7);
+      add_tap(c10, v[2], a[2], 1);
+      add_tap(c11, v[0], a[0], 8);
+      add_tap(c11, v[1], a[1], 6);
+      add_tap(c11, v[2], a[2], 2);
+      add_tap(c11, v[3], a[3], 0);
+      const int h = 2 * (it.z + r), w = 2 * (it.w + j);
+      bf16* d = plane + h * row + (size_t)w * g.C + 8 * k;
+      const bool right = w + 1 < g.W, below = h + 1 < g.H;
+      *reinterpret_cast<uint4*>(d) = pack8(c00);
+      if (right) *reinterpret_cast<uint4*>(d + g.C) = pack8(c01);
+      if (below) *reinterpret_cast<uint4*>(d + row) = pack8(c10);
+      if (right && below)
+        *reinterpret_cast<uint4*>(d + row + g.C) = pack8(c11);
+    }
+    mbar_arrive_if(true, &empty[s]);
+  }
 }
 
 // ---- the general instance: K2 and K6 (halo_gen_kernel), K7 (dk_gen_kernel)
@@ -1359,6 +1532,32 @@ int make_geo(Geo& g, int kind, bool gen, int S, int B, int T, int H, int W,
   return 0;
 }
 
+// the tuned K3 backward's layout and tile list, as ops/pool.py:max_bwd_plan
+// derives them (MaxBwdPlan); ERR_PLAN unless the plan's shared memory is
+// this layout's and it fits the kernel
+int max_bwd_geo(MaxBwdGeo& g, int B, int T, int H, int W, int C, int rows,
+                int cols, int ring, int grid, int smem) {
+  g = MaxBwdGeo{};
+  g.B = B, g.T = T, g.H = H, g.W = W, g.C = C;
+  g.Ho = out_size(H, 3, 2), g.Wo = out_size(W, 3, 2);
+  g.rows = rows, g.cols = cols, g.ring = ring;
+  if (rows < 1 || rows > 8 || cols < 1 || cols > 255 || ring < 2 ||
+      ring > 8 || C % SLAB)
+    return ERR_PLAN;
+  const int win = (rows + 1) * (cols + 1) * SLAB;
+  g.g_bytes = round128(2 * win);
+  g.stage_bytes = g.g_bytes + round128(win);
+  g.tx = 3 * win;
+  g.bar_off = ring * g.stage_bytes;
+  g.nh = cdiv(g.Ho, rows), g.nw = cdiv(g.Wo, cols);
+  g.items = B * T * g.nh * g.nw;
+  g.consumers = 32 * rows;
+  if (g.bar_off + 16 * ring != smem || smem > SMEM_BLOCK_MAX || grid < 1 ||
+      grid > g.items)
+    return ERR_PLAN;
+  return 0;
+}
+
 // the input grid [B, T, H, W, C]: one dense halo box, or at stride >= 3 a
 // box of rows x cols positions at traversal strides (sW, sH)
 int encode_x(CUtensorMap* map, const bf16* x, const Geo& g) {
@@ -1552,12 +1751,37 @@ extern "C" int svit_pool_max(const bf16* x, bf16* out, uint8_t* arg, int B,
 }
 
 // K3's backward: g [B, To, Ho, Wo, C] bf16 and its argmax taps (uint8) ->
-// dx [B, T, H, W, C] bf16, every element written.
+// dx [B, T, H, W, C] bf16, every element written.  ``tile``: the tuned
+// instance (pool_max_bwd_tile_kernel; kernel (1, 3, 3), stride (1, 2, 2), C
+// a multiple of 96) at the plan (rows, cols, ring, grid, smem) of
+// ops/pool.py:max_bwd_plan; else the general gather (the plan unused).
 extern "C" int svit_pool_max_bwd(const bf16* g, const uint8_t* arg, bf16* dx,
                                  int B, int T, int H, int W, int C, int kT,
                                  int kH, int kW, int sT, int sH, int sW,
-                                 int To, int Ho, int Wo, cudaStream_t stream) {
+                                 int To, int Ho, int Wo, int tile, int rows,
+                                 int cols, int ring, int grid, int smem,
+                                 cudaStream_t stream) {
   if (C % 8 || kT * kH * kW > 255) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile) {
+    if (kT != 1 || kH != 3 || kW != 3 || sT != 1 || sH != 2 || sW != 2 ||
+        To != T)
+      return static_cast<int>(cudaErrorInvalidValue);
+    MaxBwdGeo geo;
+    int rc = max_bwd_geo(geo, B, T, H, W, C, rows, cols, ring, grid, smem);
+    if (rc) return rc;
+    if (geo.Ho != Ho || geo.Wo != Wo) return ERR_PLAN;
+    CUtensorMap tg, ta;
+    const long dims[5] = {C, Wo, Ho, To, B};
+    const int box[5] = {SLAB, cols + 1, rows + 1, 1, 1};
+    const int step[5] = {1, 1, 1, 1, 1};
+    rc = encode_map_5d(&tg, g, dims, box, step);
+    if (!rc) rc = encode_map_5d(&ta, arg, dims, box, step, 1);
+    if (!rc) rc = grant<pool_max_bwd_tile_kernel>();
+    if (rc) return rc;
+    pool_max_bwd_tile_kernel<<<dim3(grid, C / SLAB), geo.consumers + 32, smem,
+                               stream>>>(tg, ta, dx, geo);
+    return static_cast<int>(cudaGetLastError());
+  }
   MaxBwdParams p{g, arg, dx, B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo};
   const long long threads = (long long)B * T * H * W * (C / 8);
   const unsigned blocks = (unsigned)((threads + 255) / 256);

@@ -83,7 +83,8 @@ _SIGNATURES = {
         _P, _P, _P,                        # g, argmax taps, dx
         _I, _I, _I, _I, _I,                # B, T, H, W, C
         _I, _I, _I, _I, _I, _I,            # kT, kH, kW, sT, sH, sW
-        _I, _I, _I, _P,                    # To, Ho, Wo, stream
+        _I, _I, _I,                        # To, Ho, Wo
+        _I, _I, _I, _I, _I, _I, _P,        # tile, rows, cols, ring, grid, smem, stream
     ],
     "svit_pooled_attention": [
         _P, _P, _P, _P, _P,                # q, kv, bias_src, onehot tiles, out

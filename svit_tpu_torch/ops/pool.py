@@ -17,6 +17,10 @@
   dtype (JAX ``pallas_depthwise_conv``'s forward).
 - ``depthwise_conv_dx`` (K6) and ``depthwise_conv_dk`` (K7): its input and
   filter gradients (JAX ``_pdc_bwd`` and ``_dk_pallas``).
+- ``max_bwd_plan``: the launch of K3's backward.  The tuned instance
+  takes the main path's skip pool (kernel (1, 3, 3), stride (1, 2, 2), C a
+  multiple of 96): a TMA-fed tile over base positions, one 2 x 2 cell of dx
+  each; the general gather takes every other call.
 - ``pool_plan``: the launch of K2, K6 and K7 (instance, slab, tile, TMA
   boxes, ring, grid), pure Python so that the CPU tests check it.  The
   tuned instance takes the main path's shapes ((1|3) x 3 x 3 kernels at T
@@ -65,7 +69,7 @@ GROUP_TAPS = 27            # the taps one thread of the general K7 sums
 # registers a thread takes (``ptxas``, as chip_smoke.py prints it), rounded
 # up to the allocation unit of 8: the tuned KT = 3 instances, and the
 # general ones
-REGS = {"pool": 168, "dk": 128, "gen": 128, "dkgen": 128}
+REGS = {"pool": 168, "dk": 128, "gen": 128, "dkgen": 128, "max_bwd": 72}
 REGS_SM = 65536
 # the tile by spatial stride (1, 2, 3 and more): output rows (one K2
 # consumer warp, or K7 walker, each) and the cap on its columns, as
@@ -78,6 +82,13 @@ TILES = {"pool": {1: (2, 16), 2: (4, 8), 3: (2, 4)},
          "dx": {2: (2, 16), 4: (3, 8), 8: (4, 8)},
          "gen": (4, 8)}
 KINDS = ("pool", "dk", "dx")
+# K3's backward: the call the tuned instance takes, and its tile (base rows,
+# one consumer warp each, and the cap on its columns).  ``pool_probe.py
+# --sweep`` put every tile of 1 to 8 rows, 4 to 28 columns and 2 to 4
+# stages within 4% of this one over the main path's calls on an H100
+# (PERF.md)
+MAX_BWD_KERNEL, MAX_BWD_STRIDE = (1, 3, 3), (1, 2, 2)
+MAX_BWD_TILE = (4, 16)
 
 
 def pool_threads(kind: str, rows: int, route: str = "tuned", slab: int = SLAB,
@@ -369,6 +380,97 @@ def pool_plan(shape, kernel: Triple, stride: Triple, kind: str = "pool", *,
                     ring, box, step, landed, slot, g_bytes, smem,
                     tiles(frames), items, grid, slabs,
                     pool_threads(kind, rows, route, slab, taps), per_sm)
+
+
+@dataclass(frozen=True)
+class MaxBwdPlan:
+    """The launch of K3's backward for one call.
+
+    ``route`` "tile" is the tuned instance (``csrc/pool.cu:
+    pool_max_bwd_tile_kernel``): a block owns one 96-channel slab (grid y)
+    and walks the tiles ``blockIdx.x, + grid, ...``; a tile is ``rows`` x
+    ``cols`` base positions of one frame (base position (m, n) is dx's cell
+    rows 2m, 2m + 1 x columns 2n, 2n + 1) and loads the (rows + 1) x (cols
+    + 1) windows of g and of the argmax that cover it (``box``) by TMA into
+    a ring of ``ring`` stages.  ``rows`` consumer warps and a producer warp
+    (``threads``).  "gather" is the general instance (a thread per 8
+    channels of an input cell): its tile fields are 0."""
+    route: str
+    rows: int
+    cols: int
+    ring: int
+    box: Tuple[int, ...]      # TMA box extent (C, W, H, T, B) of both maps
+    g_bytes: int              # a stage's g box; the argmax box follows
+    stage_bytes: int
+    smem: int
+    tiles: Tuple[int, ...]    # (B, T, h tiles, w tiles)
+    items: int
+    grid: int
+    slabs: int
+    threads: int
+    per_sm: int
+
+
+def max_bwd_tuned(in_shape, kernel: Triple, stride: Triple) -> bool:
+    """Whether the tuned instance takes the call: the main path's skip pool
+    (kernel (1, 3, 3), stride (1, 2, 2), padding (0, 1, 1)), C a multiple
+    of 96."""
+    return (tuple(kernel) == MAX_BWD_KERNEL
+            and tuple(stride) == MAX_BWD_STRIDE and in_shape[-1] % SLAB == 0)
+
+
+def max_bwd_smem(rows: int, cols: int, ring: int):
+    """(g box bytes, stage bytes, shared memory of one block) of the tuned
+    instance, as ``csrc/pool.cu:max_bwd_geo`` lays them out: the ring of
+    stages (the g box, then the argmax box, each rounded to 128 bytes),
+    then a full and an empty barrier a stage."""
+    win = (rows + 1) * (cols + 1) * SLAB
+    g_bytes = _round128(2 * win)
+    stage = g_bytes + _round128(win)
+    return g_bytes, stage, ring * stage + 16 * ring
+
+
+def max_bwd_plan(in_shape, kernel: Triple, stride: Triple, *,
+                 sms: int = 132, general: bool = False,
+                 rows: Optional[int] = None, cols: Optional[int] = None,
+                 ring: Optional[int] = None) -> MaxBwdPlan:
+    """The launch of K3's backward for dx of ``in_shape`` [B, T, H, W, C].
+
+    The tuned instance where it takes the call (``max_bwd_tuned``) and
+    ``general`` is False, else the general gather.  The tile is ``rows`` x
+    ``cols`` base positions: rows and the column cap from
+    ``MAX_BWD_TILE``, the row of Wo base positions cut into near-equal
+    parts of at most the cap.  The ring takes 4 stages, or 3 or 2 where
+    that keeps more blocks an SM.  The grid is at most one wave, each block
+    walking an equal share of the tiles.  The keyword overrides are for
+    sweeps (``pool_probe.py``)."""
+    B, T, H, W, C = in_shape
+    if general or not max_bwd_tuned(in_shape, kernel, stride):
+        return MaxBwdPlan("gather", 0, 0, 0, (), 0, 0, 0, (), 0, 0, 0, 0, 0)
+    Ho, Wo = out_size(H, 3, 2), out_size(W, 3, 2)
+    tile_rows, cap = MAX_BWD_TILE
+    rows = rows or tile_rows
+    cols = cols or _cdiv(Wo, _cdiv(Wo, cap))
+    threads = 32 * rows + 32
+    options = [
+        (min(SMEM_SM // (smem + SMEM_RESERVED),
+             REGS_SM // (threads * REGS["max_bwd"])), q)
+        for q in ((ring,) if ring else (4, 3, 2))
+        if (smem := max_bwd_smem(rows, cols, q)[-1]) <= SMEM_BLOCK_MAX]
+    if (not options or max(options)[0] < 1 or not 1 <= rows <= 8
+            or not 1 <= cols <= 255 or not 2 <= options[0][1] <= 8):
+        raise ValueError(f"max_bwd_plan: no tile fits ({in_shape}, "
+                         f"rows={rows}, cols={cols}, ring={ring})")
+    per_sm, ring = max(options)
+    g_bytes, stage, smem = max_bwd_smem(rows, cols, ring)
+    tiles = (B, T, _cdiv(Ho, rows), _cdiv(Wo, cols))
+    items = math.prod(tiles)
+    slabs = C // SLAB
+    wave = max(1, per_sm * sms // slabs)  # blocks a slab gets in one wave
+    grid = _cdiv(items, _cdiv(items, wave))
+    return MaxBwdPlan("tile", rows, cols, ring, (SLAB, cols + 1, rows + 1, 1, 1),
+                      g_bytes, stage, smem, tiles, items, grid, slabs,
+                      threads, per_sm)
 
 
 def _plan_args(plan: PoolPlan):
@@ -669,22 +771,32 @@ def pool_max_backward_reference(g, arg, kernel: Triple, stride: Triple,
                pads[2]:pads[2] + W].to(g.dtype).contiguous()
 
 
-def pool_max_bwd(g, arg, kernel: Triple, stride: Triple, in_shape):
+def pool_max_bwd(g, arg, kernel: Triple, stride: Triple, in_shape, *,
+                 general: bool = False):
     """K3's backward: ``g`` [B, To, Ho, Wo, C] bf16 and the forward's argmax
-    taps -> dx [in_shape] bf16 (plain version on a CPU tensor)."""
+    taps -> dx [in_shape] bf16 (plain version on a CPU tensor).  On the
+    card the tuned instance takes the main path's skip pool and the general
+    gather every other call, or this one where ``general`` asks for it (to
+    hold the two against each other): ``max_bwd_plan``.  Both add in the
+    plain twin's order: the three agree bit for bit."""
     if g.device.type == "cpu":
         return pool_max_backward_reference(g, arg, kernel, stride, in_shape)
     B, T, H, W, C = in_shape
-    _lib.check(g, "g", torch.bfloat16)
+    outs = tuple(out_size(d, k, s) for d, k, s in
+                 zip((T, H, W), kernel, stride))
+    _lib.check(g, "g", torch.bfloat16, (B, *outs, C))
     _lib.check(arg, "arg", torch.uint8, g.shape, g.device)
     if C % 8:
         raise ValueError(f"pool_max_bwd needs C a multiple of 8 (C={C})")
+    plan = max_bwd_plan(tuple(in_shape), tuple(kernel), tuple(stride),
+                        sms=_lib.sm_count(g.device), general=general)
     dx = torch.empty(tuple(in_shape), dtype=g.dtype, device=g.device)
     if dx.numel():
         _lib.launch(
             "svit_pool_max_bwd", "pool_max_bwd",
             _lib.ptr(g), _lib.ptr(arg), _lib.ptr(dx), B, T, H, W, C,
-            *kernel, *stride, *g.shape[1:4], _lib.stream())
+            *kernel, *stride, *outs, int(plan.route == "tile"), plan.rows,
+            plan.cols, plan.ring, plan.grid, plan.smem, _lib.stream())
     return dx
 
 

@@ -209,12 +209,19 @@ def test_pool_max(gen):
                                atol=0, rtol=0)
 
 
-# the main path's skip pools (kernel 1 x 3 x 3, stride 2, at fewer clips),
-# a 3 x 3 x 3 window at T stride 2 and a stride-4 kernel-5 one, odd edges
+# the main path's skip pools (kernel 1 x 3 x 3, stride 2, at fewer clips:
+# the tuned instance) at its true channel counts and at half of them, an
+# odd-edged one, a 3 x 3 x 3 window at T stride 2 and a stride-4 kernel-5
+# one (the general gather)
 POOL_MAX_CASES = [
     ((2, 8, 56, 56, 96), (1, 3, 3), (1, 2, 2)),
     ((2, 8, 28, 28, 192), (1, 3, 3), (1, 2, 2)),
     ((2, 8, 14, 14, 384), (1, 3, 3), (1, 2, 2)),
+    ((2, 8, 56, 56, 192), (1, 3, 3), (1, 2, 2)),
+    ((2, 8, 28, 28, 384), (1, 3, 3), (1, 2, 2)),
+    ((2, 8, 14, 14, 768), (1, 3, 3), (1, 2, 2)),
+    ((2, 1, 56, 56, 192), (1, 3, 3), (1, 2, 2)),
+    ((1, 2, 57, 55, 96), (1, 3, 3), (1, 2, 2)),
     ((2, 5, 9, 11, 16), (3, 3, 3), (2, 2, 2)),
     ((1, 2, 9, 9, 8), (1, 5, 5), (1, 4, 4)),
 ]
@@ -225,18 +232,27 @@ POOL_MAX_CASES = [
 def test_pool_max_bwd(gen, shape, kernel, stride, levels):
     """K3's argmax and ``pool_max_bwd`` against their plain twins, bit for
     bit, on random grids and on grids of three levels (ties in most
-    windows); a rerun is bit-identical (no atomics); the differentiated
-    forward counts one K3 and the backward one pool_max_bwd."""
+    windows), with a cotangent of widely spread magnitudes (so that another
+    adding order shows); the instance the plan routes to against the
+    general gather, bit for bit; a rerun is bit-identical (no atomics); the
+    differentiated forward counts one K3 and the backward one
+    pool_max_bwd."""
     x = (torch.randint(0, levels, shape, device="cuda", generator=gen)
          .to(BF) if levels else _randn(gen, *shape))
     out, arg = tp._pool_max(x, kernel, stride, with_arg=True)
     assert torch.equal(out, tp.pool_max_reference(x, kernel, stride))
     assert torch.equal(arg, tp.pool_max_argmax_reference(x, kernel, stride))
-    g = _randn(gen, *out.shape)
+    spread = torch.randint(-24, 25, out.shape, device="cuda", generator=gen)
+    g = (_randn(gen, *out.shape).float() * torch.exp2(spread.float())).to(BF)
     dx = tp.pool_max_bwd(g, arg, kernel, stride, shape)
     torch.cuda.synchronize()
-    assert torch.equal(dx, tp.pool_max_backward_reference(g, arg, kernel,
-                                                          stride, shape))
+    want = tp.pool_max_backward_reference(g, arg, kernel, stride, shape)
+    assert torch.equal(dx.view(torch.int16), want.view(torch.int16))
+    route = tp.max_bwd_plan(shape, kernel, stride).route
+    assert route == ("tile" if (kernel, stride) == ((1, 3, 3), (1, 2, 2))
+                     and shape[-1] % 96 == 0 else "gather")
+    general = tp.pool_max_bwd(g, arg, kernel, stride, shape, general=True)
+    assert torch.equal(dx.view(torch.int16), general.view(torch.int16))
     assert torch.equal(dx, tp.pool_max_bwd(g, arg, kernel, stride, shape))
     before = _lib.LAUNCHES.copy()
     xr = x.detach().requires_grad_()
@@ -244,6 +260,32 @@ def test_pool_max_bwd(gen, shape, kernel, stride, levels):
     assert torch.equal(dx2, dx)
     got = _lib.LAUNCHES - before
     assert got["pool_max"] == 1 and got["pool_max_bwd"] == 1
+
+
+def test_pool_max_bwd_first_on_the_backward_thread(gen):
+    """A backward whose first kernel encodes a tensor map (the tuned K3
+    backward) on autograd's device thread, before anything else has run
+    there: the encoder makes the context current on that thread.  A new
+    process, so that the thread is fresh."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from svit_tpu_torch.ops import pool as tp\n"
+        "x = torch.randn(2, 1, 14, 14, 96, device='cuda').to(torch.bfloat16)\n"
+        "x.requires_grad_()\n"
+        "y = tp.fused_pool_max(x, (1, 3, 3), (1, 2, 2))\n"
+        "g = torch.randn_like(y)\n"
+        "dx, = torch.autograd.grad(y, x, g)\n"
+        "_, arg = tp._pool_max(x.detach(), (1, 3, 3), (1, 2, 2), True)\n"
+        "want = tp.pool_max_backward_reference(g, arg, (1, 3, 3),\n"
+        "                                      (1, 2, 2), x.shape)\n"
+        "assert torch.equal(dx, want)\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
 
 
 @pytest.mark.parametrize("heads,q_residual,with_bias", [
