@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the hand-written kernels of ``svit_tpu_torch/csrc`` (nvcc, sm_90a)
    and the seconds it took; every instance's ``ptxas`` registers and
-   spills (the tuned K3 backward must spill nothing);
+   spills (K3's instances, its gathers and its backward's tuned tile,
+   must be there and spill nothing);
 3. model: the SViT-B/16 serving forward (``configs/ssv2.yaml``: 16 frames at
    224 px, 16 blocks, bf16) at batch 8 with random weights from a seed, run
    three ways: kernels in bf16, plain PyTorch in bf16, plain in f32 (TF32
@@ -22,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sleep kernel: ``device_time_ms``) beside the plain version, one PyTorch
    library yardstick and the card's bound; the per-forward totals are
    printed per kernel and
-   per JAX function served.  4b: ``fused_ffn`` (off the model path) is
+   per JAX function served.  Each K3 call is held bit for bit against its
+   plain twin and a rerun, on the recorded call, a three-level grid and
+   an all-negative one.  4b: ``fused_ffn`` (off the model path) is
    replayed the same way at the MLP shapes of stage 0 and stage 3;
 5. forward time and clips/s at batch 8 and batch 1, and one profiled
    forward at each: device time by kernel, the hand-written kernels' share
@@ -48,7 +51,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    route (the tuned tile or the general gather: every main-path call must
    take the tuned one) and is held bit for bit against its plain twin and
    the general instance, on the recorded call and on a three-level grid,
-   and against a rerun.  Then
+   and against a rerun; each ``pool_max (train step)`` call as phase 4
+   holds the serving instance's, the argmax bytes too.  Then
    five timed steps of the kernel model: median step time, clips/s, peak
    memory, a profiled step's device time by kernel and idle share (with its
    GEMM rows by operand type, and the operand types of every product of
@@ -244,6 +248,13 @@ KIND = {"ln_linear_masked": "ln_linear", TRAIN_K4: "pooled_attention",
         TRAIN_K2: "pool_ln", TRAIN_K3: "pool_max"}
 
 
+# K3's instances (``csrc/pool.cu``) and how many the build holds: the
+# forward's gathers (serving and argmax), the backward's tuned tile and its
+# gather
+K3_INSTANCES = {"pool_max_kernel": 2, "pool_max_bwd_tile_kernel": 1,
+                "pool_max_bwd_kernel": 1}
+
+
 def log(*a):
     """A line to standard output and to ``chiprun_out/chip_smoke.log`` (the
     whole run's lines, where the output is cut to its end)."""
@@ -277,6 +288,21 @@ def cat_outputs(out):
     import torch
 
     return torch.cat([t.float().flatten() for t in flat_outputs(out)])
+
+
+def bits_equal(a, b):
+    """Two kernel outputs (tensors, or tuples of them) equal bit for bit:
+    bf16 by its int16 bits (NaN payloads included), other types by
+    value."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    fa, fb = flat_outputs(a), flat_outputs(b)
+    return len(fa) == len(fb) and all(
+        x.shape == y.shape and torch.equal(bits(x), bits(y))
+        for x, y in zip(fa, fb))
 
 
 def to_f32(obj):
@@ -933,6 +959,7 @@ def run_train_phase(cfg, torch):
     # the masked K1 launches go through the ln_linear wrapper
     table, uses, details = run_kernel_phase(rec, torch, fns, unit="train step")
     result["max_bwd_routes"] = max_bwd_gates(rec, torch)
+    max_fwd_gates(rec, torch, TRAIN_K3, "phase 7")
     del rec
     # the argmax instance: one launch in each differentiated forward's skip
     # pools, as many as the backward's
@@ -1204,6 +1231,42 @@ def run_kernel_phase(rec, torch, fns, unit="forward"):
             f"plain_ms={u['plain_ms']:.4f} library_ms={u['library_ms']:.4f} "
             f"bound_ms={u['bound_ms']:.4f}")
     return table, {k: dict(u) for k, u in uses.items()}, details
+
+
+def max_fwd_gates(rec, torch, name, phase):
+    """Phases 4 and 7: each recorded K3 forward call (``name``: "pool_max",
+    the serving instance, or ``TRAIN_K3``, the instance that writes the
+    argmax), held bit for bit against the plain twins and against a rerun
+    (the output's bf16 bits and the argmax bytes), on the recorded call, on
+    a grid of three levels (ties in most windows) and on an all-negative
+    grid (the -inf padding, never a zero, must lose every window)."""
+    from svit_tpu_torch.ops import pool
+
+    with_arg = name == TRAIN_K3
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for call in rec.calls.values():
+        if call["name"] != name:
+            continue
+        x, kernel, stride = call["args"][:3]
+        kernel, stride = tuple(kernel), tuple(stride)
+        shape = tuple(x.shape)
+        with torch.inference_mode():
+            x3 = torch.randint(0, 3, shape, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+            neg = (-0.5 - torch.rand(shape, device="cuda", generator=gen)
+                   ).to(torch.bfloat16)
+            for what, g in (("recorded", x), ("three-level grid", x3),
+                            ("all-negative grid", neg)):
+                got = pool._pool_max(g, kernel, stride, with_arg=with_arg)
+                same = [bits_equal(got, o) for o in (
+                    pool_max_with_arg_reference(g, kernel, stride, with_arg),
+                    pool._pool_max(g, kernel, stride, with_arg=with_arg))]
+                log(f"{name} {shape} ({what}): bit-equal to the plain twin "
+                    f"{same[0]}, to a rerun {same[1]}")
+                if not all(same):
+                    raise SystemExit(f"{phase}: {name} {shape} ({what}) is "
+                                     f"not bit-equal")
+            del x3, neg
 
 
 def max_bwd_gates(rec, torch):
@@ -3283,10 +3346,12 @@ def main():
             log("  " + line.strip())
     spills = spilling(ptxas)
     log(f"kernel instances that spill: {spills or 'none'}")
-    if not any("pool_max_bwd_tile_kernel" in fn for fn in ptxas):
-        raise SystemExit("the build log has no pool_max_bwd_tile_kernel")
-    if any("pool_max_bwd_tile_kernel" in fn for fn in spills):
-        raise SystemExit("pool_max_bwd_tile_kernel spills")
+    for kernel, instances in K3_INSTANCES.items():
+        if sum(kernel in fn for fn in ptxas) != instances:
+            raise SystemExit(f"the build log has not {instances} "
+                             f"{kernel} instances")
+        if any(kernel in fn for fn in spills):
+            raise SystemExit(f"{kernel} spills")
 
     cfg = get_cfg()
     cfg.merge_from_file(CFG)
@@ -3298,6 +3363,7 @@ def main():
     fns = {n: (getattr(mod, attr), plain)
            for n, (mod, attr, plain) in wrappers().items()}
     table, uses, details = run_kernel_phase(rec, torch, fns)
+    max_fwd_gates(rec, torch, "pool_max", "phase 4")
     del rec
     ffn = run_ffn_phase(torch)
     fwd =[time_forward(model, arch, torch, b) for b in (BATCH, 1)]

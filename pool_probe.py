@@ -11,9 +11,11 @@ forward) as K2 with its LN, and every call of the train step's backward
 K2's bare loop on the flipped filter at stride 1, the parity-class kernel
 at strides 2, 4 and 8) and as K7, and every skip pool of the backward
 passes as K3's backward (``pool_max_bwd``, on the argmax of its input)
-and as K3's forward instance that writes that argmax, on random bf16
-inputs from a seed: each at the launch of ``ops/pool.py:pool_plan`` (K3's
-backward: ``max_bwd_plan``),
+and as K3's forward instance that writes that argmax, and every skip pool
+of the forwards as K3's serving instance, on random bf16 inputs from a
+seed: each at the launch of ``ops/pool.py:pool_plan`` (K3's backward:
+``max_bwd_plan``; K3's forward rows are also timed beside a copy of x, the
+bytes the card moves in practice),
 checked against its plain twin in f32 (``chip_smoke``'s gate) and timed by
 device time (``chip_smoke.device_time_ms``) beside the library yardstick
 and the bound (``chip_smoke.cost``).  Then the same four kernels at shapes
@@ -24,7 +26,7 @@ general instance serves; they are left out of the main path's sums.
 under other tiles (rows, columns, frames) than the plan's, where its bound
 is above 5 us, and each K3 backward call under other tiles (rows, columns,
 ring stages) of its tuned instance.  ``--k3`` runs K3's rows alone; K3's
-backward is gated bit for bit against its plain twin.  ``--no-math``
+rows are gated bit for bit against the plain twins.  ``--no-math``
 leaves K3's forward out (it has no ring) and times a build
 (``-DSVIT_POOL_NO_MATH``) whose
 kernels run only the tiles' loads and barriers, ungated: what the TMA halo
@@ -50,7 +52,8 @@ def calls():
     K2 ("pool_ln") for every forward's q and k|v pools, K2 bare
     ("pool_conv"), K6 ("pool_conv_dx") and K7 ("pool_conv_dk") for the
     backward's; K3's backward ("pool_max_bwd") and its argmax instance
-    ("pool_max_arg") for the backward's skip pools."""
+    ("pool_max_arg") for the backward's skip pools, and its serving
+    instance ("pool_max") for every forward's."""
     from svit_tpu_torch.config import get_cfg
     from svit_tpu_torch.models.svit import SViTArch
     from svit_tpu_torch.ops.pooling import out_size
@@ -74,9 +77,11 @@ def calls():
                                           stride, 96), [set(), 0])
                     row[0].add(name)
                     row[1] += 1
-            if name in BACKWARD and int(np.prod(s.stride_q)) > 1:
+            if int(np.prod(s.stride_q)) > 1:
                 kernel = tuple(k + 1 if k > 1 else k for k in s.stride_q)
                 for kind in K3_KINDS:
+                    if kind != "pool_max" and name not in BACKWARD:
+                        continue
                     out[(kind, (B, *size, s.dim_out), kernel,
                          tuple(s.stride_q), None)] = [{name}, 1]
             size = q_shape
@@ -108,7 +113,7 @@ def wide_calls():
 
 PLAN_KIND = {"pool_ln": "pool", "pool_conv": "pool", "pool_conv_dx": "dx",
              "pool_conv_dk": "dk"}
-K3_KINDS = ("pool_max_bwd", "pool_max_arg")
+K3_KINDS = ("pool_max_bwd", "pool_max_arg", "pool_max")
 
 
 def tiles(plan):
@@ -162,7 +167,7 @@ def main():
     todo = {**calls(), **wide_calls()}
     for (kind, shape, kern, stride, hd), (uses, count) in todo.items():
         if (k3_only and kind not in K3_KINDS) or (
-                no_math and kind == "pool_max_arg"):
+                no_math and kind in ("pool_max_arg", "pool_max")):
             continue
         B, T, H, W, C = shape
         To, Ho, Wo = (tp.out_size(d, k, s) for d, k, s in
@@ -243,8 +248,8 @@ def main():
                                         library_ms=0.0))
         for k in t:
             t[k] += row[k] * row["launches"]
-    print("summed over the launches of the four forwards (pool_ln) and of "
-          "the step's backward (pool_conv, pool_conv_dx, pool_conv_dk, "
+    print("summed over the launches of the four forwards (pool_ln, pool_max) "
+          "and of the step's backward (pool_conv, pool_conv_dx, pool_conv_dk, "
           "pool_max_bwd, pool_max_arg), and over the WIDE shapes once each: "
           + json.dumps(total), flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -257,10 +262,11 @@ def main():
 
 def k3_row(kind, x, kern, stride, uses, count, sweep, no_math, plan_fn, sms,
            gen):
-    """One K3 call of the step's backward passes: its backward
-    (``pool_max_bwd``: on the argmax of ``x``, gated bit for bit against
-    the plain twin, timed at the plan and, with ``sweep``, under other
-    tiles) or its argmax-writing forward, beside the bound and the library
+    """One K3 call: its backward (``pool_max_bwd``: on the argmax of ``x``,
+    timed at the plan and, with ``sweep``, under other tiles), its
+    argmax-writing forward (``pool_max_arg``) or its serving forward
+    (``pool_max``; a forward also timed beside a copy of ``x``), gated bit
+    for bit against the plain twins, beside the bound and the library
     yardstick."""
     import torch
 
@@ -269,8 +275,10 @@ def k3_row(kind, x, kern, stride, uses, count, sweep, no_math, plan_fn, sms,
 
     shape = tuple(x.shape)
     out, arg = tp._pool_max(x, kern, stride, with_arg=True)
-    if kind == "pool_max_arg":
-        args, kwargs = (x, kern, stride), {"with_arg": True}
+    copy_ms = None
+    if kind in ("pool_max_arg", "pool_max"):
+        args = (x, kern, stride)
+        kwargs = {"with_arg": True} if kind == "pool_max_arg" else {}
         kernel, plain = tp._pool_max, cs.pool_max_with_arg_reference
         name, plan = "pool_max", None
     else:
@@ -283,19 +291,21 @@ def k3_row(kind, x, kern, stride, uses, count, sweep, no_math, plan_fn, sms,
             ok, err = True, float("nan")
         else:
             got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            ok = cs.bits_equal(got, want)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            ok = all(torch.equal(a, b) for a, b in zip(got, want))
             err = float(max((a.float() - b.float()).abs().max()
                             for a, b in zip(got, want)))
         ms = cs.device_time_ms(lambda: kernel(*args, **kwargs))
+        if plan is None:   # a forward: x read once and written once
+            copy_ms = cs.device_time_ms(lambda: x.clone())
         lib_ms = cs.device_time_ms(cs.library_call(name, args, kwargs), 2)
     byts, _, cflops = cs.cost(name, args, kwargs)
     bound = max(byts / cs.HBM_BPS, cflops / cs.CORE_FLOPS) * 1e3
     row = dict(kind=kind, shape=list(shape), kernel=list(kern),
                stride=list(stride), head_dim=None, uses=sorted(uses),
                launches=count, bit_equal=ok, max_abs_err=err, ok=ok, ms=ms,
-               library_ms=lib_ms, bound_ms=bound, bytes=byts,
+               copy_ms=copy_ms, library_ms=lib_ms, bound_ms=bound, bytes=byts,
                plan=None if plan is None else dict(
                    route=plan.route, rows=plan.rows, cols=plan.cols,
                    ring=plan.ring, grid=plan.grid, smem=plan.smem))

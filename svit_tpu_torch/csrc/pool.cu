@@ -707,68 +707,96 @@ struct MaxParams {
   int B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo;
 };
 
-// K3.  ARG (the instance a differentiated forward launches) also writes,
-// for each output cell and channel, the tap (dt kH + dh) kW + dw of the
-// window's first maximum in (t, h, w) scan order, counted over the taps
-// inside the grid only: the -inf padding is never a candidate, so it never
-// wins a tie.  A window whose values are all -inf keeps its first valid tap.
+// K3's compare.  A window's maximum is taken in (t, h, w) scan order over
+// the taps inside the grid only: a tap replaces the maximum so far where it
+// is greater, or where it is NaN and the maximum is not (NaN propagates and
+// the first NaN holds; +0.0 and -0.0 tie, so the first holds).  The -inf
+// padding is never a candidate, so it never wins a tie, and a window whose
+// values are all -inf keeps its first valid tap.  ARG (the instance a
+// differentiated forward launches) also writes, for each output cell and
+// channel, that tap's index (dt kH + dh) kW + dw.  The maximum is selected
+// as bits, never converted: the output is the winning tap's own bf16, NaN
+// payloads included.
+constexpr uint32_t NEG_INF2 = 0xff80ff80u;  // two bf16 -inf
+
+// 0xffff in each bf16 half of the result where a > b or either is NaN
+__device__ __forceinline__ uint32_t gtu2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("set.gtu.u32.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// 0xffff in each bf16 half of the result where a is not NaN
+__device__ __forceinline__ uint32_t num2(uint32_t a) {
+  uint32_t d;
+  asm("set.eq.u32.bf16x2 %0, %1, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// fold one bf16 pair ``v`` into the maximum pair ``m``; returns where it
+// took (0xffff a half)
+__device__ __forceinline__ uint32_t take2(uint32_t v, uint32_t& m) {
+  const uint32_t t = gtu2(v, m) & num2(m);
+  m = (v & t) | (m & ~t);
+  return t;
+}
+
+// fold one tap (8 channels of bf16 ``v``, tap index ``tap`` in every byte
+// of ``tap4``) into the window's maximum ``mx`` and, with ARG, its argmax
+// bytes ``am`` (channels 0-3, 4-7).  Words, not arrays: nothing of it can
+// land in local memory.
+template <bool ARG>
+__device__ __forceinline__ void max_take(uint4& mx, uint2& am, const uint4 v,
+                                         uint32_t tap4) {
+  const uint32_t t0 = take2(v.x, mx.x), t1 = take2(v.y, mx.y);
+  const uint32_t t2 = take2(v.z, mx.z), t3 = take2(v.w, mx.w);
+  if constexpr (ARG) {  // one mask byte per channel: the low byte of its half
+    const uint32_t lo = __byte_perm(t0, t1, 0x6420);
+    const uint32_t hi = __byte_perm(t2, t3, 0x6420);
+    am.x = (tap4 & lo) | (am.x & ~lo);
+    am.y = (tap4 & hi) | (am.y & ~hi);
+  }
+}
+
+// K3: a thread gathers 8 channels of one output cell over the taps of its
+// window inside the grid (the window clipped to the grid first: no branch
+// per tap), any kernel and stride.  Its indices and offsets are 32-bit (the
+// host keeps x and the output under 2^31 elements): with 64-bit ones ptxas
+// spilled the decoded position around the loops, a 64-bit base per frame
+// cost 5 to 10% on the main path's calls and one per clip spilled (PERF.md).
 template <bool ARG>
 __global__ void __launch_bounds__(256) pool_max_kernel(MaxParams p) {
   const int C8 = p.C / 8;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)p.B * p.To * p.Ho * p.Wo * C8;
-  if (idx >= total) return;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= p.B * p.To * p.Ho * p.Wo * C8) return;
   const int c = (idx % C8) * 8;
-  long long pos = idx / C8;
+  int pos = idx / C8;
   const int wo = pos % p.Wo;
   pos /= p.Wo;
   const int ho = pos % p.Ho;
   pos /= p.Ho;
   const int to = pos % p.To;
   const int b = pos / p.To;
-  float mx[8];
-  int am[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    mx[i] = -INFINITY;
-    am[i] = -1;
-  }
-  for (int dt = 0; dt < p.kT; ++dt) {
-    const int ti = to * p.sT - p.kT / 2 + dt;
-    if (ti < 0 || ti >= p.T) continue;
-    for (int dh = 0; dh < p.kH; ++dh) {
-      const int hi = ho * p.sH - p.kH / 2 + dh;
-      if (hi < 0 || hi >= p.H) continue;
-      for (int dw = 0; dw < p.kW; ++dw) {
-        const int wi = wo * p.sW - p.kW / 2 + dw;
-        if (wi < 0 || wi >= p.W) continue;
-        const int tap = (dt * p.kH + dh) * p.kW + dw;
-        float v[8];
-        unpack8(*reinterpret_cast<const uint4*>(
-                    p.x + ((((size_t)b * p.T + ti) * p.H + hi) * p.W + wi) * p.C + c),
-                v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (ARG && am[i] < 0) am[i] = tap;  // the first valid tap
-          if (v[i] > mx[i] || v[i] != v[i]) {  // NaN propagates
-            mx[i] = v[i];
-            if (ARG) am[i] = tap;
-          }
-        }
-      }
+  // the window's first input cell on each axis, and its cells in the grid
+  const int t0 = to * p.sT - p.kT / 2, h0 = ho * p.sH - p.kH / 2,
+            w0 = wo * p.sW - p.kW / 2;
+  const int t1 = max(t0, 0), t2 = min(t0 + p.kT, p.T);
+  const int h1 = max(h0, 0), h2 = min(h0 + p.kH, p.H);
+  const int w1 = max(w0, 0), w2 = min(w0 + p.kW, p.W);
+  uint4 mx = make_uint4(NEG_INF2, NEG_INF2, NEG_INF2, NEG_INF2);
+  const uint32_t first = ((t1 - t0) * p.kH + h1 - h0) * p.kW + w1 - w0;
+  uint2 am = make_uint2(first * 0x01010101u, first * 0x01010101u);
+  for (int ti = t1; ti < t2; ++ti)
+    for (int hi = h1; hi < h2; ++hi) {
+      const int row = ((b * p.T + ti) * p.H + hi) * p.W;
+      const int tap = ((ti - t0) * p.kH + hi - h0) * p.kW - w0;
+      for (int wi = w1; wi < w2; ++wi)
+        max_take<ARG>(mx, am,
+                      __ldg(reinterpret_cast<const uint4*>(p.x + (row + wi) * p.C + c)),
+                      (tap + wi) * 0x01010101u);
     }
-  }
-  const size_t o = ((((size_t)b * p.To + to) * p.Ho + ho) * p.Wo + wo) * p.C + c;
-  *reinterpret_cast<uint4*>(p.out + o) = pack8(mx);
-  if (ARG) {
-    uint2 a{0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a.x |= ((uint32_t)am[i] & 0xffu) << (8 * i);
-      a.y |= ((uint32_t)am[4 + i] & 0xffu) << (8 * i);
-    }
-    *reinterpret_cast<uint2*>(p.arg + o) = a;
-  }
+  *reinterpret_cast<uint4*>(p.out + 8 * idx) = mx;  // thread idx: 8 channels
+  if (ARG) *reinterpret_cast<uint2*>(p.arg + 8 * idx) = am;
 }
 
 // K3's backward (pool_max_bwd), the VJP of reduce_window's max in gather
@@ -1742,6 +1770,9 @@ extern "C" int svit_pool_max(const bf16* x, bf16* out, uint8_t* arg, int B,
   if (C % 8 || kT * kH * kW > 255) return static_cast<int>(cudaErrorInvalidValue);
   MaxParams p{x, out, arg, B, T, H, W, C, kT, kH, kW, sT, sH, sW, To, Ho, Wo};
   const long long threads = (long long)B * To * Ho * Wo * (C / 8);
+  if ((long long)B * T * H * W * C >= (1LL << 31) - 256 ||  // 32-bit offsets
+      8 * threads >= (1LL << 31) - 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = (unsigned)((threads + 255) / 256);
   if (arg)
     pool_max_kernel<true><<<blocks, 256, 0, stream>>>(p);

@@ -12,7 +12,9 @@
   that cover each input cell (JAX ``_pool_max_bwd``, the VJP of XLA's
   ``reduce_window``): ties go to the first maximum in window order, as
   ``reduce_window``'s VJP routes them, the sums are f32 in a fixed order
-  (no atomics: a rerun is bit-identical) and dx is rounded once.
+  (no atomics: a rerun is bit-identical) and dx is rounded once.  The
+  forward selects bits: its output is the winning tap's own bf16 (NaN
+  propagates, the first NaN holds).
 - ``depthwise_conv`` (K2 in bare mode): the conv alone, rounded to the IO
   dtype (JAX ``pallas_depthwise_conv``'s forward).
 - ``depthwise_conv_dx`` (K6) and ``depthwise_conv_dk`` (K7): its input and
@@ -827,8 +829,9 @@ def fused_pool_max(x, kernel: Triple, stride: Triple):
 
 
 def _pool_max(x, kernel: Triple, stride: Triple, with_arg: bool = False):
-    """K3 (the plain twin on a CPU tensor); ``with_arg`` also returns the
-    argmax taps (the instance that writes them)."""
+    """K3 (the plain twins on a CPU tensor); ``with_arg`` also returns the
+    argmax taps (the instance that writes them).  On the card a gather that
+    selects bits in the plain twins' order: the two agree bit for bit."""
     if x.device.type == "cpu":
         out = pool_max_reference(x, kernel, stride)
         return ((out, pool_max_argmax_reference(x, kernel, stride))
@@ -839,6 +842,9 @@ def _pool_max(x, kernel: Triple, stride: Triple, with_arg: bool = False):
         raise ValueError(f"pool_max needs C a multiple of 8 (C={C})")
     To, Ho, Wo = (out_size(d, k, s) for d, k, s in
                   zip((T, H, W), kernel, stride))
+    if max(x.numel(), B * To * Ho * Wo * C) >= 2 ** 31 - 256:
+        raise ValueError(f"pool_max takes x and its output under 2^31 "
+                         f"elements (x {tuple(x.shape)})")
     out = torch.empty((B, To, Ho, Wo, C), dtype=x.dtype, device=x.device)
     arg = (torch.empty(out.shape, dtype=torch.uint8, device=x.device)
            if with_arg else None)

@@ -262,6 +262,53 @@ def test_pool_max_bwd(gen, shape, kernel, stride, levels):
     assert got["pool_max"] == 1 and got["pool_max_bwd"] == 1
 
 
+def _max_grid(gen, shape, grid):
+    """A bf16 grid for K3: random, three levels (ties in most windows), all
+    negative (the border windows must never see a zero), with NaN (torch's
+    NaN, 0x7fc0: the plain twins keep its bits) or with -inf (some windows
+    all -inf)."""
+    if grid == "three":
+        return torch.randint(0, 3, shape, device="cuda", generator=gen).to(BF)
+    x = torch.randn(shape, device="cuda", generator=gen)
+    if grid == "negative":
+        return (-0.5 - x.abs()).to(BF)
+    u = torch.rand(shape, device="cuda", generator=gen)
+    if grid == "nan":
+        x[u < 0.05] = float("nan")
+    elif grid == "-inf":
+        x[u < 0.3] = float("-inf")
+        x[:, :, :3, :3] = float("-inf")
+    return x.to(BF)
+
+
+# the skip pool at the main path's channel counts (fewer clips), odd edges,
+# one frame, tiny grids, and other kernels and strides
+POOL_MAX_FWD_CASES = [c[0] for c in POOL_MAX_CASES] + [
+    (1, 1, 7, 9, 192), (2, 1, 3, 2, 96), (1, 1, 1, 1, 96)]
+
+
+@pytest.mark.parametrize("grid", ["random", "three", "negative", "nan",
+                                  "-inf"])
+@pytest.mark.parametrize("shape", POOL_MAX_FWD_CASES)
+def test_pool_max_fwd(gen, shape, grid):
+    """Both K3 instances (the serving one and the one that writes the
+    argmax) against the plain twins, bit for bit: the output's bf16 bits
+    (NaN's included) and the argmax bytes; one launch each."""
+    kernel, stride = ((1, 3, 3), (1, 2, 2)) if shape[-1] % 96 == 0 else \
+        next((k, s) for sh, k, s in POOL_MAX_CASES if sh == shape)
+    x = _max_grid(gen, shape, grid)
+    want = tp.pool_max_reference(x, kernel, stride).view(torch.int16)
+    want_arg = tp.pool_max_argmax_reference(x, kernel, stride)
+    before = _lib.LAUNCHES.copy()
+    out = tp._pool_max(x, kernel, stride)
+    out2, arg = tp._pool_max(x, kernel, stride, with_arg=True)
+    torch.cuda.synchronize()
+    assert (_lib.LAUNCHES - before)["pool_max"] == 2
+    assert torch.equal(out.view(torch.int16), want)
+    assert torch.equal(out2.view(torch.int16), want)
+    assert torch.equal(arg, want_arg)
+
+
 def test_pool_max_bwd_first_on_the_backward_thread(gen):
     """A backward whose first kernel encodes a tensor map (the tuned K3
     backward) on autograd's device thread, before anything else has run

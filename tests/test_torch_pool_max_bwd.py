@@ -40,7 +40,15 @@ CASES = [
 
 
 def _grid(shape, levels, seed):
+    """Random, of ``levels`` values, all negative (every value below the
+    zero a border window must never see), or with NaN (5% of the cells)."""
     rs = np.random.RandomState(seed)
+    if levels == "negative":
+        return (-0.5 - np.abs(rs.randn(*shape))).astype(np.float32)
+    if levels == "nan":
+        x = rs.randn(*shape).astype(np.float32)
+        x[rs.rand(*shape) < 0.05] = np.nan
+        return x
     if levels:
         return rs.randint(0, levels, shape).astype(np.float32)
     return rs.randn(*shape).astype(np.float32)
@@ -60,7 +68,7 @@ def _port_vjp(x, g, kernel, stride):
     return out.detach().float().numpy(), dx.float().numpy()
 
 
-@pytest.mark.parametrize("levels", [0, 2, 3])
+@pytest.mark.parametrize("levels", [0, 2, 3, "negative"])
 @pytest.mark.parametrize("shape,kernel,stride", CASES)
 def test_pool_max_grad_equals_jax_f32(shape, kernel, stride, levels):
     x = _grid(shape, levels, 1)
@@ -71,6 +79,27 @@ def test_pool_max_grad_equals_jax_f32(shape, kernel, stride, levels):
     out_t, dx_t = _port_vjp(x, g, kernel, stride)
     np.testing.assert_array_equal(out_t, out_j)
     np.testing.assert_array_equal(dx_t, dx_j)
+
+
+@pytest.mark.parametrize("grid", ["negative", "nan"])
+@pytest.mark.parametrize("shape,kernel,stride", CASES)
+def test_pool_max_out_equals_jax(shape, kernel, stride, grid):
+    """The forward's values against JAX ``fused_pool_max`` (its Pallas
+    kernel in interpret mode at the skip pool, XLA's ``reduce_window``
+    elsewhere) on an all-negative grid (the -inf padding, never a zero,
+    is what the border windows see) and on one with NaN (NaN propagates
+    through every window that holds one), in f32 and in bf16."""
+    x = _grid(shape, grid, 8)
+    for dt in (np.float32, jnp.bfloat16):
+        xj = jnp.asarray(x, dt)
+        want = np.asarray(pp.fused_pool_max(xj, kernel, stride).astype(
+            jnp.float32))
+        xt = torch.from_numpy(np.array(xj.astype(jnp.float32)))
+        got = tp.fused_pool_max(xt if dt is np.float32
+                                else xt.to(torch.bfloat16), kernel, stride)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        if grid == "nan":
+            assert np.isnan(want).any()
 
 
 @pytest.mark.parametrize("levels", [0, 3])
