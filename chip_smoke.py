@@ -15,8 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    three ways: kernels in bf16, plain PyTorch in bf16, plain in f32 (TF32
    off).  The kernel run's outputs must pass
    ``err(kernels) <= 3 * err(plain bf16) + 2e-3`` (relative L2 error against
-   the f32 run) on the logits and the boxes, and every kernel's launch count
-   over that one forward must equal what the architecture implies;
+   the f32 run; ``tools/check_kernels_hw.py``'s comparison) on the logits,
+   the boxes, the contact logits and the last block's grid output, and
+   every kernel's launch count over that one forward must equal what the
+   architecture implies;
 4. kernels: every distinct call the kernel forward made to a kernel wrapper
    is replayed on the same tensors: the kernel against its plain version in
    bf16 and in f32 (same gate), and timed (device time, queued behind a
@@ -138,7 +140,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 14. learning proof: ``python -m svit_tpu_torch.tools.overfit_hw`` (the
    CLI on 4 solid-colour videos, bf16 kernels, captured step; SIGTERM
    after 6 steps, then the auto-resume; the first ``loss_ce`` above 1.0,
-   the last below 0.1).
+   the last below 0.1);
+15. tools: the measuring tools of ``svit_tpu_torch/tools`` at full size.
+   ``check_kernels_hw.run_gate`` with the backward (batch 2: the four
+   forward outputs, the video loss's gradient, the small train-mode
+   gradient with drop-path) must pass, and its self-test (K4's output
+   rolled, ``SVIT_PALLAS_FAULT=1``) must trip; ``trace_forward`` traces
+   the batch-8 serving forward and the train step, each as a replayed
+   graph and eager, and ``trace_attrib`` prints their device time by
+   family, the 25 busiest owners (the eager call's module, forward or
+   backward), the unowned share and each hand-written family's traced
+   time beside phase 4's or 7's replays (logged, not gated: the profiler
+   drops records); ``profile_model``'s variants at batch 16;
+   ``engine_steady_state`` (``train_epoch`` on staged batches) against
+   phase 10's train replay; ``benchmark`` (the train loader alone) on a
+   tree like phase 9's at the config's loader workers and at none.  The
+   phase prints its wall time.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
@@ -161,6 +178,7 @@ import io
 import json
 import math
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -730,9 +748,11 @@ def expected_launches(arch):
 
 
 def run_model_phase(model, arch, torch):
-    """Phase 3: the three forwards, the gate and the launch counts.
-    Returns the recorded kernel calls."""
+    """Phase 3: the three forwards, the gate (``check_kernels_hw``'s
+    comparison on its four outputs) and the launch counts.  Returns the
+    recorded kernel calls."""
     from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.tools import check_kernels_hw as gate_tool
 
     gen = torch.Generator().manual_seed(SEED)
     x = torch.randn((BATCH, arch.num_frames, arch.crop_size, arch.crop_size, 3),
@@ -741,35 +761,34 @@ def run_model_phase(model, arch, torch):
     originals = rec.patch((mod, attr, name)
                           for name, (mod, attr, _) in wrappers().items())
     try:
-        model.dtype, model.use_kernels = torch.bfloat16, True
         _lib.reset_launch_counts()
-        with torch.inference_mode():
-            _, ek = model(x)
+        with gate_tool.variant(model, torch.bfloat16, True):
+            ek = gate_tool.forward_outputs(model, x)
         torch.cuda.synchronize()
         launches = dict(_lib.LAUNCHES)
     finally:
         Recorder.restore(originals)
-    with torch.inference_mode():
-        model.use_kernels = False
-        _, e16 = model(x)
-        model.dtype = torch.float32
-        _, e32 = model(x)
+    with gate_tool.variant(model, torch.bfloat16, False):
+        e16 = gate_tool.forward_outputs(model, x)
+    with gate_tool.variant(model, torch.float32, False):
+        e32 = gate_tool.forward_outputs(model, x)
     torch.cuda.synchronize()
-    model.dtype, model.use_kernels = torch.bfloat16, True
 
-    result = {"launches": launches}
-    for key in ("raw_logits", "pred_bboxes"):
-        ek_, e16_, e32_ = ek[key].float(), e16[key].float(), e32[key].float()
-        if not bool(torch.isfinite(ek_).all()):
+    result, report = {"launches": launches}, {}
+    for key in ek:   # the logits, boxes, contact logits, last grid
+        if not bool(torch.isfinite(ek[key].float()).all()):
             raise SystemExit(f"model gate: non-finite {key}")
-        err_k, err_p = rel_err(ek_, e32_), rel_err(e16_, e32_)
-        ok = err_k <= TOL_RATIO * err_p + TOL_ABS
-        log(f"model gate {key}: err(kernels)={err_k:.3e} "
-            f"err(plain bf16)={err_p:.3e} shape={tuple(ek_.shape)} "
+        ok = gate_tool._gate_one(key, ek[key], e16[key], e32[key], report)
+        r = report[key]
+        log(f"model gate {key}: err(kernels)={r['err_kernels_vs_f32']:.3e} "
+            f"err(plain bf16)={r['err_plain_bf16_vs_f32']:.3e} limit "
+            f"{r['limit']:.3e} shape={tuple(ek[key].shape)} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"model gate failed on {key}")
-        result[key] = {"err_kernels": err_k, "err_plain_bf16": err_p}
+        result[key] = {"err_kernels": r["err_kernels_vs_f32"],
+                       "err_plain_bf16": r["err_plain_bf16_vs_f32"],
+                       "limit": r["limit"]}
     want = expected_launches(arch)
     log(f"launches in one forward: {launches} (expected {dict(want)})")
     if launches != dict(want):
@@ -1005,13 +1024,14 @@ def run_train_phase(cfg, torch):
 
 
 def gemm_rows(rows):
-    """The profile's GEMM rows (cuBLAS and CUTLASS kernels), each with the
+    """The GEMM rows (cuBLAS and CUTLASS kernels) among a summary's
+    [kernel name, device ms, launches] rows, each with the
     operand type its kernel name gives.  cuBLAS's Hopper kernels are named
     ``nvjet_<operands><accumulator><output>_...`` (t bf16, s f32, h f16):
     ``torch.mm`` of bf16 operands with an f32 output runs
     ``nvjet_tss_...`` (measured on an H100, torch 2.11)."""
     out = []
-    for name, count, ms in rows:
+    for name, ms, count in rows:
         low = name.lower()
         if low.startswith("nvjet_"):
             kind = {"t": "bf16", "s": "f32", "h": "f16"}.get(low[6], "other")
@@ -1021,74 +1041,102 @@ def gemm_rows(rows):
                     else "other")
         else:
             continue
-        out.append({"name": name, "count": count, "ms": ms, "dtype": kind})
+        out.append({"name": name, "count": int(count), "ms": ms,
+                    "dtype": kind})
     return out
 
 
-def tagged_rows(prof, tags, torch):
-    """(kernel name, launches, device ms) of the kernels launched inside the
-    profiler ranges named ``tags`` (``record_function`` on the host: every
-    op below such a range, with the kernels each launched), busiest
-    first."""
-    acc = collections.defaultdict(lambda: [0, 0.0])
+def chrome_trace(prof):
+    """A finished profile as ``trace_attrib`` reads it: exported to a
+    temporary Chrome trace, which goes once read."""
+    import tempfile
 
-    def walk(e):
-        for k in e.kernels:
-            acc[k.name][0] += 1
-            acc[k.name][1] += k.duration / 1e3
-        for c in e.cpu_children:
-            walk(c)
+    from svit_tpu_torch.tools import trace_attrib as ta
 
-    for e in prof.events():
-        if e.name in tags and e.device_type == torch.autograd.DeviceType.CPU:
-            walk(e)
-    return sorted(((n, c, ms) for n, (c, ms) in acc.items()),
-                  key=lambda r: -r[2])
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        return ta.from_profiler(prof, path)
+    finally:
+        os.remove(path)
 
 
-def bias_rows(prof, torch):
+def summary_of(trace, top=None):
+    """``trace_attrib``'s summary of one profiled call (every owner, or the
+    ``top`` busiest), with the hand-written kernels' device ms
+    (``kernels_ms``) and their launches by family (``hand_written``)."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
+    s = ta.summarize(trace, 1, top)
+    ours = ta.hand_written(s)
+    return dict(s, kernels_ms=sum(ms for ms, _ in ours.values()),
+                hand_written={f: int(n) for f, (_, n) in ours.items()})
+
+
+def top_rows(summary, n):
+    """A summary's ``n`` busiest kernels as {name, count, ms} rows."""
+    return [{"name": k, "count": int(c), "ms": ms}
+            for k, ms, c in summary["ops"][:n]]
+
+
+def tagged_rows(trace, tags):
+    """[kernel name, device ms, launches] of the kernels launched inside
+    the profiler ranges named ``tags`` (``record_function`` on the host:
+    every op below such a range, with the kernels each launched), busiest
+    first: ``trace_attrib``'s walk from each kernel's launching op."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
+    acc = collections.defaultdict(lambda: [0.0, 0])
+    for k in trace.kernels:
+        if ta.within(k.op, tags):
+            acc[k.name][0] += k.dur / 1e3
+            acc[k.name][1] += 1
+    return sorted(([n, ms, c] for n, (ms, c) in acc.items()),
+                  key=lambda r: -r[1])
+
+
+def bias_rows(trace):
     """The rel-pos bias builder's kernels in a profile (forward and the
     backward of its products), with their GEMM rows by operand type."""
     from svit_tpu_torch.ops import attention as ta
 
-    rows = tagged_rows(prof, (ta.BIAS_TAG, ta.BIAS_BWD_TAG), torch)
+    rows = tagged_rows(trace, (ta.BIAS_TAG, ta.BIAS_BWD_TAG))
     by_type = collections.Counter()
     for g in gemm_rows(rows):
         by_type[g["dtype"]] += g["ms"]
-    return {"ms": sum(r[2] for r in rows),
-            "launches": sum(r[1] for r in rows),
+    return {"ms": sum(r[1] for r in rows),
+            "launches": sum(r[2] for r in rows),
             "gemm_ms_by_type": dict(by_type),
-            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:8]]}
+            "top": [{"name": n, "count": c, "ms": m} for n, m, c in rows[:8]]}
 
 
-def gemm_owners(prof, torch):
+def gemm_owners(trace):
     """The ops that launched the profile's f32 GEMM kernels: (the launching
     op, its nearest autograd node or outermost op, its input shapes) ->
     [launches, device ms, whether the op is a product of f32 operands],
-    busiest first.  ``_mm``'s products take bf16 operands and an f32 output
-    (``out_dtype``, a third input); cuBLAS may still run a tiny one (N = 5,
-    the contact head) on a kernel named as f32."""
+    busiest first (``trace_attrib``'s launching op and ``anchor``; a graph
+    replay's kernels have no launching op).  ``_mm``'s products take bf16
+    operands and an f32 output (``out_dtype``, a third input); cuBLAS may
+    still run a tiny one (N = 5, the contact head) on a kernel named as
+    f32."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
     acc = collections.defaultdict(lambda: [0, 0.0, False])
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+    for k in trace.kernels:
+        e = k.op
+        if e is None:
             continue
-        for g in gemm_rows([(k.name, 1, k.duration / 1e3)
-                            for k in e.kernels]):
+        for g in gemm_rows([(k.name, k.dur / 1e3, 1)]):
             if g["dtype"] != "f32":
                 continue
-            top, p = e, e.cpu_parent
-            while p is not None:
-                top = p
-                if p.name.startswith("autograd::engine::evaluate_function"):
-                    break
-                p = p.cpu_parent
-            key = f"{e.name} < {top.name} {e.input_shapes}"
+            shapes = e.args.get("Input Dims", [])
+            key = f"{e.name} < {ta.anchor(e).name} {shapes}"
             acc[key][0] += 1
             acc[key][1] += g["ms"]
-            dtypes = getattr(e, "input_dtypes", None)
+            dtypes = e.args.get("Input type")
             acc[key][2] = e.name in MATMUL_OPS and (
                 all(d == "float" for d in dtypes[:2]) if dtypes
-                else len(e.input_shapes) == 2)
+                else len(shapes) == 2)
     return sorted(([k, c, ms, f32] for k, (c, ms, f32) in acc.items()),
                   key=lambda r: -r[2])
 
@@ -1122,9 +1170,9 @@ def profile_step(step, state, video, image, torch, step_ms):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         ll._mm = mm
-    rows = device_rows(prof, torch)
-    device_ms = sum(r[2] for r in rows)
-    ours_ms = sum(r[2] for r in rows if any(k in r[0] for k in OUR_KERNELS))
+    trace = chrome_trace(prof)
+    summary = summary_of(trace)
+    device_ms, ours_ms = summary["device_ms"], summary["kernels_ms"]
     idle = max(0.0, 1 - device_ms / step_ms)
     library_pool = sorted({e.key for e in prof.key_averages()
                            if "max_pool3d_with_indices_backward" in e.key})
@@ -1135,9 +1183,9 @@ def profile_step(step, state, video, image, torch, step_ms):
     log(f"profile train step: wall {wall_ms:.1f} ms (profiled), device "
         f"{device_ms:.1f} ms, hand-written kernels {ours_ms:.1f} ms, idle "
         f"share {idle:.3f} against the unprofiled {step_ms:.1f} ms")
-    for name, count, ms in rows[:16]:
-        log(f"  {ms:9.3f} ms x{count:<5d} {name[:90]}")
-    gemms = gemm_rows(rows)
+    for r in top_rows(summary, 16):
+        log(f"  {r['ms']:9.3f} ms x{r['count']:<5d} {r['name'][:90]}")
+    gemms = gemm_rows(summary["ops"])
     by_type = collections.Counter()
     for g in gemms:
         by_type[g["dtype"]] += g["ms"]
@@ -1148,12 +1196,13 @@ def profile_step(step, state, video, image, torch, step_ms):
     for g in gemms[:12]:
         log(f"  {g['ms']:9.3f} ms x{g['count']:<5d} {g['dtype']:5s} "
             f"{g['name'][:80]}")
-    bias = bias_rows(prof, torch)
+    bias = bias_rows(trace)
     log(f"rel-pos bias builder (forward and its products' backward): "
         f"{bias['ms']:.3f} ms over {bias['launches']} launches, GEMM rows by "
         f"operand type (ms) "
         f"{ {k: round(v, 3) for k, v in bias['gemm_ms_by_type'].items()} }")
-    owners = gemm_owners(prof, torch)
+    owners = gemm_owners(trace)
+    del trace
     log("f32 GEMM rows of the step by launching op:")
     for key, count, ms, f32 in owners[:8]:
         log(f"  {ms:9.3f} ms x{count:<5d} {'f32 operands ' if f32 else ''}"
@@ -1166,7 +1215,7 @@ def profile_step(step, state, video, image, torch, step_ms):
             "ln_linear_bwd_products": dict(products),
             "ln_linear_bwd_tflop": flop[0] / 1e12,
             "gemm_ms_by_type": dict(by_type), "gemms": gemms,
-            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:30]]}
+            "top": top_rows(summary, 30)}
 
 
 def run_kernel_phase(rec, torch, fns, unit="forward"):
@@ -1441,27 +1490,6 @@ def time_forward(model, arch, torch, batch):
     return {"batch": batch, "ms": ms, "clips_per_s": batch / ms * 1e3}
 
 
-OUR_KERNELS = ("ln_linear_kernel", "pool_ln_kernel", "pool_max_kernel",
-               "pool_max_bwd_kernel", "pool_max_bwd_tile_kernel",
-               "attn_fwd_kernel", "attn_bwd_",
-               "halo_gen_kernel", "dx_kernel", "conv_dk_", "dk_gen_kernel")
-
-
-def device_rows(prof, torch):
-    """(kernel name, launches, device ms) of a profile, busiest first.  A
-    user annotation's device range (``Optimizer.step#AdamW.step``) spans
-    kernels that have rows of their own and is left out."""
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if (dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            rows.append((e.key, e.count, dev_us / 1e3))
-    rows.sort(key=lambda r: -r[2])
-    return rows
-
-
 def profile_forward(model, arch, torch, batch, fwd_ms):
     """One forward under torch.profiler: device time by kernel name.  The
     profiler slows the host, so the idle share is also given against
@@ -1479,21 +1507,20 @@ def profile_forward(model, arch, torch, batch, fwd_ms):
             model(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof, torch)
-    device_ms = sum(r[2] for r in rows)
-    ours_ms = sum(r[2] for r in rows if any(k in r[0] for k in OUR_KERNELS))
+    summary = summary_of(chrome_trace(prof))
+    device_ms, ours_ms = summary["device_ms"], summary["kernels_ms"]
     idle = max(0.0, 1 - device_ms / wall_ms)
     idle_unprofiled = max(0.0, 1 - device_ms / fwd_ms)
     log(f"profile batch {batch}: wall {wall_ms:.2f} ms (profiled), device "
         f"{device_ms:.2f} ms, hand-written kernels {ours_ms:.2f} ms, "
         f"idle share {idle:.3f} (profiled), {idle_unprofiled:.3f} against "
         f"the unprofiled {fwd_ms:.2f} ms")
-    for name, count, ms in rows[:12]:
-        log(f"  {ms:9.3f} ms x{count:<5d} {name[:90]}")
+    top = top_rows(summary, 25)
+    for r in top[:12]:
+        log(f"  {r['ms']:9.3f} ms x{r['count']:<5d} {r['name'][:90]}")
     return {"batch": batch, "wall_ms": wall_ms, "device_ms": device_ms,
             "kernels_ms": ours_ms, "idle_share": idle,
-            "idle_share_unprofiled": idle_unprofiled,
-            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:25]]}
+            "idle_share_unprofiled": idle_unprofiled, "top": top}
 
 
 def jpeg_frames(n, seed):
@@ -2134,27 +2161,14 @@ def profile_trainer_step(torch, call):
         out = call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof, torch)
+    trace = chrome_trace(prof)
+    summary = summary_of(trace)
     return {"out": out, "wall_ms": wall_ms,
-            "device_ms": sum(r[2] for r in rows),
-            "kernels_ms": sum(r[2] for r in rows
-                              if any(k in r[0] for k in OUR_KERNELS)),
-            "families": kernel_families(rows),
-            "f32_gemm_owners": gemm_owners(prof, torch),
-            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:16]]}
-
-
-def kernel_families(rows):
-    """Launch events of the hand-written kernels in a profile's rows, by
-    the name pattern of ``OUR_KERNELS`` (a replayed graph's kernels show
-    no launching op, only their names)."""
-    out = collections.Counter()
-    for name, count, _ in rows:
-        for k in OUR_KERNELS:
-            if k in name:
-                out[k] += count
-                break
-    return dict(out)
+            "device_ms": summary["device_ms"],
+            "kernels_ms": summary["kernels_ms"],
+            "families": summary["hand_written"],
+            "f32_gemm_owners": gemm_owners(trace),
+            "top": top_rows(summary, 16)}
 
 
 def extras_gemm_rows(owners):
@@ -2546,25 +2560,23 @@ def time_calls(fn, torch, n):
     return times
 
 
-def profile_call(fn, torch):
-    """One call under torch.profiler: its device time by kernel and the
-    hand-written kernels' launch events by name pattern."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_call(fn, torch, model=None):
+    """One call traced by ``trace_forward.profile_calls`` (no call before
+    it; ``model``'s module scopes if given) and summarized by
+    ``trace_attrib``: its device time, by kernel, family and owner, and
+    the hand-written kernels' launch events by family."""
+    import tempfile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof, torch)
-    return {"wall_ms": wall_ms, "device_ms": sum(r[2] for r in rows),
-            "kernels_ms": sum(r[2] for r in rows
-                              if any(k in r[0] for k in OUR_KERNELS)),
-            "events": sum(r[1] for r in rows),
-            "families": kernel_families(rows),
-            "top": [{"name": n, "count": c, "ms": m} for n, c, m in rows[:12]]}
+    from svit_tpu_torch.tools import trace_forward as tf
+
+    with tempfile.TemporaryDirectory() as tmp:
+        s = summary_of(tf.profile_calls(
+            fn, 1, torch.device("cuda"), os.path.join(tmp, "call.json"),
+            model, warmup=0))
+    return {"device_ms": s["device_ms"], "kernels_ms": s["kernels_ms"],
+            "events": int(sum(n for _, _, n in s["ops"])),
+            "families": s["hand_written"], "top": top_rows(s, 12),
+            "summary": dict(s, ops=s["ops"][:40])}
 
 
 # each launch of these wrappers adds one node of one of these kernels to a
@@ -2580,15 +2592,6 @@ NODE_KERNELS = (
     (("pooled_attention_bwd",), ("attn_bwd_q_kernel",)),
     (("pool_conv_dk",), ("conv_dk_kernel", "dk_gen_kernel")),
 )
-KERNEL_NAMES = ("ln_linear_kernel", "pool_ln_kernel", "halo_gen_kernel",
-                "dx_kernel", "pool_max_kernel", "pool_max_bwd_kernel",
-                "pool_max_bwd_tile_kernel",
-                "attn_fwd_kernel",
-                "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
-                "attn_bwd_reduce_kernel", "conv_dk_kernel",
-                "conv_dk_reduce_kernel", "dk_gen_kernel")
-
-
 def node_graph():
     """The port's ``graphs.CudaGraph``, keeping its ``cudaGraph_t`` after
     the capture so that ``kernel_nodes`` can list it; the replay
@@ -2606,6 +2609,8 @@ def kernel_nodes(graph):
     """The hand-written kernels among a ``node_graph``'s nodes, by kernel:
     ``cudaGraphDebugDotPrint`` writes one line per node, a kernel node's
     with its (mangled) name.  A replay runs every node."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     path = os.path.join(REPO, "chiprun_out", f"graph_{os.getpid()}.dot")
     graph.graph.debug_dump(path)
@@ -2613,8 +2618,9 @@ def kernel_nodes(graph):
     try:
         with open(path) as f:
             for line in f:
-                if "topoId" in line:
-                    nodes.update(k for k in KERNEL_NAMES if k in line)
+                name = ta.kernel_name(line) if "topoId" in line else None
+                if name is not None:
+                    nodes[name] += 1
     finally:
         os.remove(path)
     return dict(nodes)
@@ -2634,19 +2640,22 @@ def check_nodes(what, nodes, launches):
 
 
 def eager_and_graph(what, eager_fn, graph_fn, torch, graph, launches,
-                    n=TIMED):
+                    model, n=TIMED):
     """Timed and profiled eager calls and replays of one path in turns
     (eager, graph, graph, eager); the medians, device times and idle
-    shares.  The graph's kernel nodes must match the capture's
-    ``launches`` (``check_nodes``), and a profiled replay must show every
-    hand-written kernel the graph holds, never more often."""
+    shares, and each profile's ``trace_attrib`` summary (the eager call's
+    by ``model``'s modules).  The graph's kernel nodes must match the
+    capture's ``launches`` (``check_nodes``), and a profiled replay must
+    show every hand-written family the graph holds, never more often."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
     times = {"eager": [], "graph": []}
     for kind in ("eager", "graph", "graph", "eager"):
         fn = eager_fn if kind == "eager" else graph_fn
         times[kind] += time_calls(fn, torch, n)
     out = {}
     for kind, fn in (("eager", eager_fn), ("graph", graph_fn)):
-        prof = profile_call(fn, torch)
+        prof = profile_call(fn, torch, model if kind == "eager" else None)
         ms = statistics.median(times[kind])
         out[kind] = dict(prof, ms=times[kind], median_ms=ms,
                          idle_share=max(0.0, 1 - prof["device_ms"] / ms))
@@ -2662,7 +2671,10 @@ def eager_and_graph(what, eager_fn, graph_fn, torch, graph, launches,
         f"{g['median_ms'] / g['device_ms']:.3f}; device events eager "
         f"{e['events']}, graph {g['events']}")
     nodes = kernel_nodes(graph)
-    held = kernel_families([(k, c, 0.0) for k, c in nodes.items()])
+    held = collections.Counter()
+    for k, c in nodes.items():
+        held[ta.KERNELS[k]] += c
+    held = dict(held)
     log(f"phase 10 {what}: the graph's hand-written kernel nodes {nodes}; "
         f"by family {held}, a profiled replay's events {g['families']}, "
         f"the eager call's {e['families']}")
@@ -2712,7 +2724,7 @@ def run_compiled_serving(cfg, arch, torch):
                                  "differ from the forward's")
             rows = eager_and_graph(f"serving forward batch {batch}", eager,
                                    lambda: pred.graph(x), torch,
-                                   entry.graph, entry.launches)
+                                   entry.graph, entry.launches, pred.model)
             full = statistics.median(time_calls(lambda: pred.forward(clips),
                                                 torch, 10))
             log(f"phase 10 serving batch {batch}: forward() with the pinned "
@@ -2807,7 +2819,8 @@ def run_compiled_train(cfg, torch, reference):
 
     rows = eager_and_graph("train step", lambda: step_e(state_e, video,
                                                         image, gen_e),
-                           replay, torch, entry.graph, entry.launches)
+                           replay, torch, entry.graph, entry.launches,
+                           state_e.model)
     peak = torch.cuda.max_memory_allocated()
     eager_calls = 2 * TIMED + 1
     per_call = {k: v / eager_calls for k, v in _lib.LAUNCHES.items()}
@@ -2947,7 +2960,8 @@ def run_compiled_eval(cfg, arch, torch):
             (entry,) = captured.entries.values()
             out[name].update(eager_and_graph(
                 f"test forward batch {TEST_BATCH}", lambda: fn(b),
-                lambda: captured(b), torch, entry.graph, entry.launches))
+                lambda: captured(b), torch, entry.graph, entry.launches,
+                model))
         del captured
     del model
     torch.cuda.empty_cache()
@@ -3307,6 +3321,228 @@ def run_overfit_phase():
     return dict(result, wall_s=wall)
 
 
+# trace_attrib's hand-written families -> the kernel-table rows of phases 4
+# (the serving forward) and 7 (the train step) that replay their calls (K6
+# at stride 1 runs K2's kernel: the two are one group)
+FAMILY_ROWS = {
+    ("K1 ln_linear",): ("ln_linear", "ln_linear_masked"),
+    ("K2 pool_ln", "K6 conv_dx"): ("pool_ln", TRAIN_K2, "pool_conv",
+                                   "pool_conv_dx"),
+    ("K3 pool_max",): ("pool_max", TRAIN_K3),
+    ("K3 pool_max_bwd",): ("pool_max_bwd",),
+    ("K4 attention",): ("pooled_attention", TRAIN_K4),
+    ("K5 attention_bwd",): ("pooled_attention_bwd",),
+    ("K7 conv_dk",): ("pool_conv_dk",),
+}
+OWNERS_SHOWN = 25
+
+
+def family_vs_replays(summary, table):
+    """Each group of hand-written families: its device ms in a traced
+    eager call against the sum of its rows in a kernel table (the replays
+    of phase 4 or 7)."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
+    traced = ta.hand_written(summary)
+    out = {}
+    for fams, rows in FAMILY_ROWS.items():
+        have = [r for r in rows if r in table]
+        if any(f in traced for f in fams) or have:
+            out[" + ".join(fams)] = {
+                "traced_ms": sum(traced.get(f, (0.0, 0))[0] for f in fams),
+                "replayed_ms": sum(table[r]["ms"] for r in have),
+                "rows": have}
+    return out
+
+
+def owner_kinds(summary):
+    """A summary's owners with the block index folded (``blocks.*``):
+    [kind, ms, glue ms, launches, ms by family], busiest first."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
+    acc = collections.defaultdict(
+        lambda: [0.0, 0.0, 0.0, collections.Counter()])
+    for name, ms, n in summary["owners"]:
+        row = acc[re.sub(r"blocks\.\d+", "blocks.*", name)]
+        row[0] += ms
+        row[1] += ta.glue_ms(summary, name)
+        row[2] += n
+        row[3].update(summary["owner_families"][name])
+    return sorted(([k, *v] for k, v in acc.items()), key=lambda r: -r[1])
+
+
+def log_trace(what, res, table):
+    """Phase 15: one traced path's family table, owners, unowned share and
+    the hand-written groups against the replays."""
+    from svit_tpu_torch.tools import trace_attrib as ta
+
+    for kind in ("graph", "eager"):
+        s = res[kind]
+        log(f"phase 15 {what}, {kind} ({s['iters']} traced): device "
+            f"{s['device_ms']:.3f} ms a call, unowned {s['unowned_ms']:.3f} "
+            f"ms (share {s['unowned_share']:.4f}), graph-replay share "
+            f"{s['graph_replay_share']:.4f}; by family: "
+            + "; ".join(f"{f} {ms:.3f} ms x{n:g}"
+                        for f, ms, n in s["families"]))
+    s = res["eager"]
+    log(f"phase 15 {what}, eager: the {OWNERS_SHOWN} busiest owners "
+        f"(ms a call, launches, the ms of their kernels outside K1-K7):")
+    for name, ms, n in s["owners"][:OWNERS_SHOWN]:
+        log(f"  {ms:9.3f} ms x{n:<7g} glue {ta.glue_ms(s, name):8.3f} "
+            f"ms  {name[:110]}")
+    kinds = owner_kinds(s)
+    log(f"phase 15 {what}, eager, by kind of owner (every block as "
+        f"blocks.*; ms, glue ms, launches; its busiest families):")
+    for kind, ms, g, n, fams in kinds:
+        if ms >= 0.1:
+            log(f"  {ms:9.3f} ms glue {g:8.3f} ms x{n:<7g} {kind}: "
+                + "; ".join(f"{f} {v:.3f}" for f, v in
+                            fams.most_common(5)))
+    groups = family_vs_replays(s, table)
+    for group, g in groups.items():
+        log(f"phase 15 {what}: {group} traced eager {g['traced_ms']:.3f} ms, "
+            f"the replays' sum {g['replayed_ms']:.3f} ms ({g['rows']})")
+    return groups
+
+
+LOADER_REPEAT = 5   # the worker run lists each video of the tree 5 times
+LOADER_PERIOD = 4   # batches a benchmark_iter window
+
+
+def loader_rates(recs, batch):
+    """One benchmark epoch: seconds to the end of its first window (the
+    workers' start-up and first batches), clips/s over the windows after
+    it, and over the whole epoch."""
+    windows = [LOADER_PERIOD / r["iters_per_sec"] for r in recs
+               if r["_type"] == "benchmark_iter"]
+    if len(windows) < 2:
+        raise SystemExit(f"phase 15: the loader ran {len(windows)} windows "
+                         f"of {LOADER_PERIOD} batches, too few to see a "
+                         f"rate past the first")
+    steady = batch * LOADER_PERIOD * (len(windows) - 1) / sum(windows[1:])
+    return {"first_window_s": windows[0], "steady_clips_per_sec": steady,
+            "steady_batches": LOADER_PERIOD * (len(windows) - 1),
+            "epoch_clips_per_sec": recs[-1]["clips_per_sec"],
+            "epoch_s": recs[-1]["seconds"]}
+
+
+def loader_benchmark():
+    """``benchmark_data_loading`` on phase 9's JPEG tree at the config's
+    workers, the tree listed ``LOADER_REPEAT`` times so that the workers
+    run past their start-up, and with none."""
+    import tempfile
+
+    from svit_tpu_torch.tools import benchmark
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ssv2")
+        make_ssv2_tree(root, 174, TRAIN_TREE_VIDEOS, TEST_FRAMES, haog=True)
+        cfg = trainer_cfg(root, os.path.join(tmp, "run"), 1)
+        cfg.BENCHMARK.NUM_EPOCHS, cfg.BENCHMARK.LOG_PERIOD = 1, LOADER_PERIOD
+        listing = os.path.join(root, "json_files",
+                               "something-something-v2-train.json")
+        with open(listing) as f:
+            entries = json.load(f)
+        # the workers' run is long enough to show their rate once started:
+        # the loader reads each listing of a video as a clip of its own
+        for workers, times in ((cfg.DATA_LOADER.NUM_WORKERS, LOADER_REPEAT),
+                               (0, 1)):
+            with open(listing, "w") as f:
+                json.dump(entries * times, f)
+            cfg.DATA_LOADER.NUM_WORKERS = workers
+            recs = benchmark.benchmark_data_loading(cfg)
+            rates = loader_rates(recs, cfg.TRAIN.BATCH_SIZE)
+            log(f"phase 15 benchmark, {workers} loader workers "
+                f"({TRAIN_TREE_VIDEOS} videos listed {times}x, video batch "
+                f"{cfg.TRAIN.BATCH_SIZE}): first window of {LOADER_PERIOD} "
+                f"batches {rates['first_window_s']:.2f} s, then "
+                f"{rates['steady_clips_per_sec']:.2f} clips/s over "
+                f"{rates['steady_batches']} batches; the epoch "
+                f"{rates['epoch_clips_per_sec']:.2f} clips/s over "
+                f"{rates['epoch_s']:.2f} s; iters/s by window "
+                f"{[round(r['iters_per_sec'], 3) for r in recs[:-1]]}")
+            out[workers] = dict(rates, records=recs, listed=times)
+    return out
+
+
+def run_tools_phase(torch, table, train_table, compiled):
+    """Phase 15: the measuring tools of ``svit_tpu_torch/tools`` at full
+    size: the kernel gate's backward parts (phase 3 gates its forward
+    outputs), then its self-test; phase 10's traces of the serving forward
+    and the train step (``trace_forward.profile_calls``) by family and
+    owner (``trace_attrib``); the ablation profiler; the engine's steady
+    state; the data-loading benchmark."""
+    from svit_tpu_torch.tools import check_kernels_hw as gate_tool
+    from svit_tpu_torch.tools import engine_steady_state, profile_model
+
+    t_start = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    report = gate_tool.run_gate(check_bwd=True, check_fwd=False)
+    gate_tool.write(report, os.path.join(REPO, "chiprun_out",
+                                         "kernel_gate.json"))
+    for key, r in report.items():
+        if isinstance(r, dict) and "ok" in r:
+            log(f"phase 15 gate {key}: err(kernels)="
+                f"{r['err_kernels_vs_f32']:.3e} err(plain bf16)="
+                f"{r['err_plain_bf16_vs_f32']:.3e} limit {r['limit']:.3e} "
+                f"{'ok' if r['ok'] else 'FAIL'}")
+    log(f"phase 15 gate: worst leaf {report['bwd.worst_leaf']}, "
+        f"{report['train.masks']} masks handed alike; ok {report['ok']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not report["ok"]:
+        raise SystemExit("phase 15: the kernel gate failed")
+    t0 = time.perf_counter()
+    fault = gate_tool.selftest()
+    log(f"phase 15 self-test (SVIT_PALLAS_FAULT=1): "
+        + "; ".join(f"{k} {fault[k]['err_kernels_vs_f32']:.3e} against "
+                    f"{fault[k]['limit']:.3e}" for k in fault
+                    if k.startswith("fwd."))
+        + f"; tripped {fault['tripped']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not fault["tripped"] or os.environ.get("SVIT_PALLAS_FAULT"):
+        raise SystemExit("phase 15: the gate did not trip on the fault")
+    out["gate"], out["selftest"] = report, fault
+
+    out["trace"] = {}
+    for what, rows, tab in (
+            (f"serving forward batch {BATCH}", compiled["serving"][BATCH],
+             table),
+            (f"train step (video {TRAIN_VIDEO}, image {TRAIN_IMAGE})",
+             compiled["train"], train_table)):
+        res = {k: rows[k]["summary"] for k in ("graph", "eager")}
+        out["trace"][what] = {"groups": log_trace(what, res, tab),
+                              "owner_kinds": owner_kinds(res["eager"])}
+
+    t0 = time.perf_counter()
+    out["profile_model"] = profile_model.profile(batch=16, iters=10,
+                                                 verbose=False)
+    log(f"phase 15 profile_model ({time.perf_counter() - t0:.1f} s, batch "
+        f"16, 10 chained replays each): "
+        + "; ".join(f"{tag} {r['ms']:.2f} ms {r['clips_per_s']:.1f} clips/s"
+                    for tag, r in out["profile_model"].items()))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ess = engine_steady_state.measure(
+        steps=30, warmup=4,
+        bench_ms=compiled["train"]["graph"]["median_ms"], verbose=False,
+        opts=["SVIT.CONSISTENCY_LOSS", "l1"])
+    log(f"phase 15 engine steady state ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(ess)}")
+    out["engine_steady_state"] = ess
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["benchmark"] = loader_benchmark()
+    log(f"phase 15 benchmark ({time.perf_counter() - t0:.1f} s); engine "
+        f"{ess['video_clips_per_sec_chip']:.2f} clips/s")
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"phase 15 tools: wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3390,6 +3626,8 @@ def main():
     torch.cuda.empty_cache()
     nccl = run_nccl_phase(cfg, torch)
     overfit = run_overfit_phase()
+    torch.cuda.empty_cache()
+    tools = run_tools_phase(torch, table, train_table, compiled)
     log(f"phase 9's profiled replay (video batch {TRAINER_VIDEO}): "
         f"hand-written kernel events {trainer['run_a']['profile']['families']}"
         f"; phase 10's eager step (video batch {TRAIN_VIDEO}): "
@@ -3445,10 +3683,10 @@ def main():
                        train=train, train_uses=train_uses,
                        train_calls=train_details, test=test,
                        trainer=trainer, compiled=compiled, gradcam=gradcam,
-                       demo=demo, nccl=nccl, overfit=overfit,
+                       demo=demo, nccl=nccl, overfit=overfit, tools=tools,
                        kernels=kernels),
                   f, indent=1)
-    log(f"all fourteen phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"all fifteen phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

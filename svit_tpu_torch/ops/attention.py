@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -53,6 +54,20 @@ Triple = Tuple[int, int, int]
 # the builder's profiler ranges (forward, and its products' backward)
 BIAS_TAG = "svit::rel_pos_bias"
 BIAS_BWD_TAG = "svit::rel_pos_bias_bwd"
+
+
+def fault_injected() -> bool:
+    """The numerics gate's deliberate fault (``python -m
+    svit_tpu_torch.tools.check_kernels_hw --selftest``), read at every
+    call: with ``SVIT_PALLAS_FAULT=1`` K4's output (both routes: the
+    kernel, and the plain twin on a CPU tensor) is rolled by one channel on
+    the last axis, as a lane-offset fault would shift it; an additive error
+    would vanish in the LayerNorms downstream.  Unset, nothing changes."""
+    return os.environ.get("SVIT_PALLAS_FAULT", "0") == "1"
+
+
+def _faulted(out):
+    return torch.roll(out, 1, dims=-1) if fault_injected() else out
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -376,8 +391,8 @@ def pooled_attention_fwd(q, kv, bias_src, k_shape: Triple, scale: float,
     over TMA-fed key tiles on ``wgmma``, the bias as a product with the
     one-hot map; launched as ``attention_plan`` says.  Returns [B, Nq, C]."""
     if q.device.type == "cpu":
-        return pooled_attention_reference(q, kv, bias_src, k_shape, scale,
-                                          heads, q_residual)
+        return _faulted(pooled_attention_reference(q, kv, bias_src, k_shape,
+                                                   scale, heads, q_residual))
     B, Nq, C = q.shape
     Nk = kv.shape[1]
     R = _checked(q, kv, bias_src, k_shape, heads, "pooled_attention")
@@ -391,7 +406,7 @@ def pooled_attention_fwd(q, kv, bias_src, k_shape: Triple, scale: float,
             _lib.ptr(q), _lib.ptr(kv), _lib.ptr(bias_src), _lib.ptr(mt),
             _lib.ptr(out), B, Nq, Nk, C, heads, R, float(scale),
             int(q_residual), plan.stages, plan.rk, _lib.stream())
-    return out
+    return _faulted(out)
 
 
 def _bias_grad(ds, k_shape: Triple):

@@ -169,6 +169,65 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
             for k, v in state.items()}
 
 
+def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``params_from_jax``: the port's state dict as the JAX
+    package's parameter tree ``{"params": ...}`` of f32 numpy arrays, in
+    its names and layouts (kernels ``[in, out]``, the stem and the pool
+    filters ``[kT, kH, kW, in, out]``)."""
+    tree: dict = {}
+
+    def put(path, value):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    def linear(path, leaf, a):
+        put(path + ["kernel" if leaf == "weight" else "bias"],
+            np.ascontiguousarray(a.T) if leaf == "weight" else a)
+
+    def ln(path, leaf, a):
+        put(path + ["scale" if leaf == "weight" else "bias"], a)
+
+    for name, t in state.items():
+        a = t.detach().cpu().float().numpy()
+        parts = name.split(".")
+        leaf = parts[-1]
+        if len(parts) == 1:
+            put([name], a)
+        elif parts[0] == "patch_embed":
+            put(["patch_embed", "proj", "kernel" if leaf == "weight"
+                 else "bias"],
+                np.ascontiguousarray(a.transpose(2, 3, 4, 1, 0))
+                if leaf == "weight" else a)
+        elif parts[0] in ("norm", "norm_stem"):
+            ln([parts[0]], leaf, a)
+        elif parts[0] == "blocks":
+            fp, sub = [f"blocks_{parts[1]}"], parts[2:]
+            if sub[0] in ("norm1", "norm2"):
+                ln(fp + [sub[0]], leaf, a)
+            elif sub[0] in ("mlp", "proj"):
+                linear(fp + sub[:-1], leaf, a)
+            elif sub[1].startswith("pool_"):
+                put(fp + ["attn", sub[1], "pool_kernel"],
+                    np.ascontiguousarray(a.transpose(2, 3, 4, 1, 0)))
+            elif sub[1].startswith("norm_"):
+                ln(fp + ["attn", "pool_" + sub[1][len("norm_"):], "norm"],
+                   leaf, a)
+            elif sub[1].startswith("rel_pos"):
+                put(fp + ["attn", sub[1]], a)
+            else:
+                linear(fp + ["attn", sub[1]], leaf, a)
+        elif parts[0] == "head":
+            node = parts[1]
+            if node == "projection" and len(parts) == 4:
+                node = f"projection_{parts[2]}"
+            linear(["head", node], leaf, a)
+        else:
+            raise KeyError(f"no JAX name for {name}")
+    return {"params": tree}
+
+
 def inflate_patch_kernel(w2d: torch.Tensor, t: int) -> torch.Tensor:
     """Inflate a 2D patch kernel [out, in, kH, kW] over time (divide by t),
     reference ``checkpoint.py:159-195`` / ``models/utils.py:100-118``."""

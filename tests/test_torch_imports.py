@@ -102,7 +102,13 @@ assert not leaked, leaked
     "svit_tpu_torch.tools.convert_checkpoint",
     # the parallel package and the learning proof
     "svit_tpu_torch.parallel.dist svit_tpu_torch.parallel.mesh "
-    "svit_tpu_torch.parallel.tensor svit_tpu_torch.tools.overfit_hw"])
+    "svit_tpu_torch.parallel.tensor svit_tpu_torch.tools.overfit_hw",
+    # the measuring tools
+    "svit_tpu_torch.tools.common", "svit_tpu_torch.tools.check_kernels_hw",
+    "svit_tpu_torch.tools.trace_forward", "svit_tpu_torch.tools.trace_attrib",
+    "svit_tpu_torch.tools.profile_model",
+    "svit_tpu_torch.tools.engine_steady_state",
+    "svit_tpu_torch.tools.benchmark"])
 def test_train_modules_import_with_jax_and_svit_tpu_blocked(module):
     r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *module.split()],
                        cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -120,8 +126,34 @@ def test_build_model_without_device_raises_when_cuda_absent(monkeypatch):
         build_model(cfg)
 
 
+# the measuring tools, each pointed at an input that does not exist
+TOOLS = ("check_kernels_hw", "trace_forward", "profile_model",
+         "engine_steady_state", "trace_attrib", "benchmark")
+
+
+def _tool(name):
+    import importlib
+
+    tool = importlib.import_module(f"svit_tpu_torch.tools.{name}")
+
+    def run(cfg, device=None):
+        absent = os.path.join(cfg.OUTPUT_DIR, "absent")
+        if name == "trace_attrib":
+            argv = [absent + ".json"]
+        elif name == "benchmark":   # the config's data root is absent
+            argv = ["--cfg", os.path.join(cfg.OUTPUT_DIR, "cfg.yaml")]
+            with open(argv[1], "w") as f:
+                f.write(cfg.dump())
+        else:
+            argv = ["--cfg", absent + ".yaml"]
+        tool.main(argv, device=device)
+    return run
+
+
 def _entry(name):
     """An entry point that takes a config (and ``device``)."""
+    if name in TOOLS:
+        return _tool(name)
     if name == "demo":
         from svit_tpu_torch.visualization.demo import demo
         return demo
@@ -139,7 +171,7 @@ def _entry(name):
     return run
 
 
-@pytest.mark.parametrize("name", ["demo", "visualize", "run_net"])
+@pytest.mark.parametrize("name", ["demo", "visualize", "run_net", *TOOLS])
 def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path, name):
     """Without a card the entry points raise before any work; given
     ``device="cpu"`` they get as far as their input (none exists here)."""
