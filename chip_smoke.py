@@ -155,7 +155,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``engine_steady_state`` (``train_epoch`` on staged batches) against
    phase 10's train replay; ``benchmark`` (the train loader alone) on a
    tree like phase 9's at the config's loader workers and at none.  The
-   phase prints its wall time.
+   phase prints its wall time;
+16. remat: the captured train step with ``TPU.REMAT=True`` (each block
+   under ``torch.utils.checkpoint``, recomputed through K1 to K4 in the
+   backward) and without, from one seeded state, at video 8 + image 8
+   and at 32 + 32: at each size the loss, metrics, gradients, parameters
+   after AdamW and the generator's state bit for bit, the capture's
+   launches (the remat step's forward kernels as five forwards,
+   its backward kernels as the step's), replays timed in turns and
+   ``torch.cuda.max_memory_allocated``.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
@@ -165,7 +173,8 @@ batch-64 test forward, ``trainer_launches`` phase 9's first run (its
 warm-ups and captures, and its eager eval steps' none: they replay too),
 ``train_replay_launches`` and ``serving_replay_launches`` a replay of phase
 10's train-step and batch-8 serving graphs, ``gradcam_launches`` phase
-11's batch-4 Grad-CAM call; K1, K4
+11's batch-4 Grad-CAM call, ``remat_train_launches`` a replay of phase
+16's remat step at video 8 + image 8; K1, K4
 and K5 carry their uses), the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
@@ -802,18 +811,21 @@ def expected_train_launches(arch, forwards=3, backwards=2):
     block with a drop-path rate runs its residual tail in K1's masked mode;
     each fused_pool_ln backward runs K2 bare, K6 and K7, each attention
     backward K5.  With a cls token the head reads only the extras, so the
-    last block's grid output feeds nothing: its grid attention and its q
-    pool take no backward."""
+    last block's grid output feeds nothing: its grid attention, its q pool
+    and its skip pool take no backward.  Under ``TPU.REMAT`` the
+    recompute runs the video's and the image's forward kernels again:
+    ``forwards`` 5."""
     n = collections.Counter()
     for i, s in enumerate(arch.blocks):
         masked = 2 * (s.drop_path > 0)
+        strided = int(np.prod(s.stride_q)) > 1
+        dead = int(arch.cls_embed_on and i == len(arch.blocks) - 1)
         n["ln_linear"] += forwards * (5 + (s.dim != s.dim_out) - masked)
         n["ln_linear_masked"] += forwards * masked
         n["pool_ln"] += forwards * 2
         n["pooled_attention"] += forwards * 2
-        n["pool_max"] += forwards * (int(np.prod(s.stride_q)) > 1)
-        n["pool_max_bwd"] += backwards * (int(np.prod(s.stride_q)) > 1)
-        dead = int(arch.cls_embed_on and i == len(arch.blocks) - 1)
+        n["pool_max"] += forwards * strided
+        n["pool_max_bwd"] += backwards * strided * (1 - dead)
         for k in ("pool_conv", "pool_conv_dx", "pool_conv_dk",
                   "pooled_attention_bwd"):
             n[k] += backwards * (2 - dead)
@@ -826,31 +838,33 @@ def expected_gradcam_launches(arch, target):
     the later blocks that wants no parameter gradient.  There each
     fused_pool_ln backward runs K2 bare and K6 but no K7 (the filters want
     no gradient), each attention backward K5; with a cls token the last
-    block's grid attention and q pool take none (as in the train step)."""
+    block's grid attention, q pool and skip pool take none (as in the
+    train step)."""
     n = collections.Counter(expected_launches(arch))
     for i in range(target + 1, len(arch.blocks)):
-        n["pool_max_bwd"] += int(np.prod(arch.blocks[i].stride_q)) > 1
         dead = int(arch.cls_embed_on and i == len(arch.blocks) - 1)
+        n["pool_max_bwd"] += (int(np.prod(arch.blocks[i].stride_q)) > 1
+                              and not dead)
         for k in ("pool_conv", "pool_conv_dx", "pooled_attention_bwd"):
             n[k] += 2 - dead
     return n
 
 
-def train_batch(cfg, torch):
+def train_batch(cfg, torch, videos=TRAIN_VIDEO, images=TRAIN_IMAGE):
     """The train batch of bench.py:171-192, from seed 0, on the card."""
     S, T = cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.NUM_FRAMES
     rs = np.random.RandomState(SEED)
     video = {
-        "clips": rs.randn(TRAIN_VIDEO, T, S, S, 3).astype(np.float32),
-        "labels": rs.randint(0, cfg.MODEL.NUM_CLASSES, TRAIN_VIDEO),
-        "weight": np.ones((TRAIN_VIDEO,), np.float32),
+        "clips": rs.randn(videos, T, S, S, 3).astype(np.float32),
+        "labels": rs.randint(0, cfg.MODEL.NUM_CLASSES, videos),
+        "weight": np.ones((videos,), np.float32),
     }
     image = {
-        "frames": rs.randn(TRAIN_IMAGE, 1, S, S, 3).astype(np.float32),
-        "haog_bboxes": (rs.rand(TRAIN_IMAGE, 1, cfg.SVIT.O, 4) * 0.5
+        "frames": rs.randn(images, 1, S, S, 3).astype(np.float32),
+        "haog_bboxes": (rs.rand(images, 1, cfg.SVIT.O, 4) * 0.5
                         + 0.1).astype(np.float32),
-        "contact_state": rs.randint(-1, 5, (TRAIN_IMAGE, 2)),
-        "weight": np.ones((TRAIN_IMAGE,), np.float32),
+        "contact_state": rs.randint(-1, 5, (images, 2)),
+        "weight": np.ones((images,), np.float32),
     }
     return ({k: torch.as_tensor(v).cuda() for k, v in video.items()},
             {k: torch.as_tensor(v).cuda() for k, v in image.items()})
@@ -3543,6 +3557,104 @@ def run_tools_phase(torch, table, train_table, compiled):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: TPU.REMAT, each block recomputed in the backward
+# ---------------------------------------------------------------------------
+
+# (video, image) batches: bench.py's, and four times it
+REMAT_SIZES = ((TRAIN_VIDEO, TRAIN_IMAGE), (32, 32))
+REMAT_TAG = f"video {TRAIN_VIDEO} + image {TRAIN_IMAGE}"
+
+
+def remat_step(cfg, torch, remat, video, image):
+    """The captured train step (kernels, bf16) with ``TPU.REMAT`` on or off,
+    from the seeded state: its first call (warm-ups, capture, replay) and
+    what it leaves: metrics, the generator's state, the capture's launches,
+    the peak memory over the call and over what was held before it."""
+    from svit_tpu_torch.engine import graphs
+
+    cfg.TPU.REMAT = remat
+    try:
+        state, step, arch = train_setup(cfg, torch, torch.bfloat16, True)
+    finally:
+        cfg.TPU.REMAT = False
+    if arch.remat != remat:
+        raise SystemExit("phase 16: TPU.REMAT did not reach the arch")
+    cstep = graphs.CapturedTrainStep(step)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, m = cstep(state, video, image, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    (entry,) = cstep.entries.values()
+    return dict(arch=arch, state=state, metrics={k: float(v) for k, v in
+                                                 m.items()},
+                rng=gen.get_state(), launches=entry.launches, peak=peak,
+                step_peak=peak - held,
+                replay=lambda: cstep(state, video, image, gen))
+
+
+def run_remat_phase(cfg, torch):
+    """Phase 16: the captured train step with ``TPU.REMAT`` and without,
+    from one state, at each of ``REMAT_SIZES``.  At each size the loss,
+    metrics, gradients, parameters after AdamW and the generator's state
+    are held bit for bit, and the capture's launches (the
+    remat step's forward kernels count five forwards: the recompute runs
+    the video's and the image's blocks again), replays timed in turns and
+    the peak memory."""
+    out = {}
+    for videos, images in REMAT_SIZES:
+        t0 = time.perf_counter()
+        video, image = train_batch(cfg, torch, videos, images)
+        runs = {remat: remat_step(cfg, torch, remat, video, image)
+                for remat in (False, True)}
+        off, on = runs[False], runs[True]
+        tag = f"video {videos} + image {images}"
+        want = {False: dict(expected_train_launches(off["arch"])),
+                True: dict(expected_train_launches(on["arch"], forwards=5))}
+        log(f"phase 16 {tag}: launches without remat {off['launches']}; "
+            f"with remat {on['launches']}")
+        for remat, r in runs.items():
+            if r["launches"] != want[remat]:
+                raise SystemExit(f"phase 16 {tag}: remat {remat} captured "
+                                 f"{r['launches']}, expected {want[remat]}")
+        equal, said = runs_equal(
+            torch, step_tensors(off["state"].model),
+            step_tensors(on["state"].model), off["metrics"], on["metrics"])
+        rng_equal = torch.equal(off["rng"], on["rng"])
+        log(f"phase 16 {tag}, remat against none from one state: {said}; "
+            f"generator state equal {rng_equal}; loss "
+            f"{on['metrics']['loss']!r}")
+        if not (equal and rng_equal):
+            raise SystemExit(f"phase 16 {tag}: the remat step differs from "
+                             f"the step without remat")
+        times = {False: [], True: []}
+        for remat in (False, True, True, False):
+            times[remat] += time_calls(runs[remat]["replay"], torch, TIMED)
+        row = {}
+        for remat, r in runs.items():
+            row["remat" if remat else "none"] = {
+                "median_ms": statistics.median(times[remat]),
+                "ms": times[remat], "peak_bytes": r["peak"],
+                "step_peak_bytes": r["step_peak"], "launches": r["launches"],
+                "loss": r["metrics"]["loss"]}
+        a, b = row["none"], row["remat"]
+        log(f"phase 16 {tag}: replay median {a['median_ms']:.2f} ms without "
+            f"remat, {b['median_ms']:.2f} with ({2 * TIMED} each, in turns: "
+            f"{b['median_ms'] / a['median_ms']:.3f}x); max_memory_allocated "
+            f"{a['peak_bytes'] / 2 ** 30:.2f} GiB without, "
+            f"{b['peak_bytes'] / 2 ** 30:.2f} GiB with; over what each held "
+            f"before its first call {a['step_peak_bytes'] / 2 ** 30:.2f} and "
+            f"{b['step_peak_bytes'] / 2 ** 30:.2f} GiB "
+            f"({time.perf_counter() - t0:.1f} s); {card_line()}")
+        out[tag] = dict(row, bit_equal=bool(equal), rng_equal=bool(rng_equal))
+        del runs, off, on
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -3628,6 +3740,9 @@ def main():
     overfit = run_overfit_phase()
     torch.cuda.empty_cache()
     tools = run_tools_phase(torch, table, train_table, compiled)
+    torch.cuda.empty_cache()
+    remat = run_remat_phase(cfg, torch)
+    remat_launches = remat[REMAT_TAG]["remat"]["launches"]
     log(f"phase 9's profiled replay (video batch {TRAINER_VIDEO}): "
         f"hand-written kernel events {trainer['run_a']['profile']['families']}"
         f"; phase 10's eager step (video batch {TRAIN_VIDEO}): "
@@ -3659,12 +3774,15 @@ def main():
                 "serving_replay_launches":
                     compiled["serving"][BATCH]["launches"].get(counter, 0),
                 "gradcam_launches": gradcam_launches.get(counter, 0),
+                # per replay of phase 16's remat step (bench.py's batch)
+                "remat_train_launches": remat_launches.get(counter, 0),
             })
             if name in RECORDED:       # its counter holds both instances
                 kernels[-1].update(dict.fromkeys(
                     ("test_launches", "trainer_launches",
                      "train_replay_launches", "serving_replay_launches",
-                     "gradcam_launches")), train_launches=row["launches"])
+                     "gradcam_launches", "remat_train_launches")),
+                    train_launches=row["launches"])
             if name == "pool_max_bwd":
                 kernels[-1]["instances"] = train["max_bwd_routes"]
             if name == "ln_linear":
@@ -3684,9 +3802,9 @@ def main():
                        train_calls=train_details, test=test,
                        trainer=trainer, compiled=compiled, gradcam=gradcam,
                        demo=demo, nccl=nccl, overfit=overfit, tools=tools,
-                       kernels=kernels),
+                       remat=remat, kernels=kernels),
                   f, indent=1)
-    log(f"all fifteen phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"all sixteen phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

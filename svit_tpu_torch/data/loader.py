@@ -260,6 +260,16 @@ class Loader:
                 yield item
         finally:
             stop.set()
+            # an iterator left before its end (the image loader's, every
+            # epoch): a producer blocked on the full queue gets room, sees
+            # ``stop`` and shuts its pool down.  Its workers would outlive
+            # it otherwise, and a spawned process (a rank of launch_job)
+            # waits for its children at exit before the pool is told to end
+            while t.is_alive():
+                try:
+                    out_q.get(timeout=0.05)
+                except queue.Empty:
+                    pass
 
 
 def construct_loader(cfg, split: str, shard=(0, 1)):

@@ -26,6 +26,11 @@ signature into a ``torch.cuda.CUDAGraph`` and replayed:
   nothing: each graph keeps the counts taken while it was captured
   (``launches``) and its number of replays.
 
+A step with ``TPU.REMAT`` captures as it is: each block's recompute runs
+inside the captured backward, with the masks its forward drew and kept
+(``models/common.py:KeptDraws``), since a generator's state cannot be read
+or set while capturing.
+
 Python's cyclic garbage collector is held off during a capture: a dead
 cycle that holds another graph, collected mid-capture, destroys that
 graph's executable, which a capturing stream does not permit

@@ -25,6 +25,11 @@ once a step and the pool filters, their LN parameters and the object-token
 multipliers derived once, each use's gradient reaching the f32 master as
 the JAX package's per-use converts send it.
 
+With ``TPU.REMAT`` the model keeps only each block's inputs and runs the
+block again in the backward (``models/svit.py``), with the masks its
+forward drew: the step's loss, gradients, parameters and generator state
+are those without remat, bit for bit (``tests/test_torch_remat.py``).
+
 The step's device work (``train_step.device_step``) has no host effect: it
 reads the learning rate at the transform's device step counter and leaves
 ``state.step`` alone, so ``engine/graphs.py`` captures it in a CUDA graph

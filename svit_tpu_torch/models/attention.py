@@ -38,8 +38,8 @@ outputs and the MLP take dropout and the tail is unfused, as in JAX.
 Every op here is differentiable: the kernels' backward passes are K5 (the
 attention), K2 bare + K6 + K7 (the pools), the LN-linear uses' own
 backward and K3's ``pool_max_bwd`` (the max pool).  Under tensor
-parallelism (``Mlp.tp``, ``TPU.MESH_MODEL > 1``) the fused residual tail
-runs this rank's share of the MLP (``parallel/tensor.py``).
+parallelism (``Mlp.tp``, ``TPU.MESH_MODEL > 1``) the residual tail, fused
+or unfused, runs this rank's share of the MLP (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -322,12 +322,8 @@ class MultiScaleBlock(nn.Module):
                      keep_mask(B, keep, generator, grid.device))
         if drop is not None or (self.proj is not None
                                 and not self.dim_mul_in_att):
-            if self.mlp.tp is not None:
-                raise NotImplementedError(
-                    "TPU.MESH_MODEL > 1 shards the fused residual tail only "
-                    "(no MVIT.DROPOUT_RATE, MVIT.DIM_MUL_IN_ATT=True)")
             return self._unfused_tail(grid, extras, ag, ae, ln2, drop, masks,
-                                      keep, dtype)
+                                      keep, dtype, generator)
         if self.mlp.tp is not None:
             return self._sharded_tail(grid, extras, ag, ae, ln2, w1, w2,
                                       masks, keep, use_kernels)
@@ -363,23 +359,35 @@ class MultiScaleBlock(nn.Module):
         return out_g, ex + ye
 
     def _unfused_tail(self, grid, extras, ag, ae, ln2, drop, masks, keep,
-                      dtype):
+                      dtype, generator):
         """The residual tail in plain PyTorch (JAX's unfused path:
         ``_drop_path_pair`` around norm2 and a dense MLP), with the MLP's
         dropout (``drop``) and, under ``MVIT.DIM_MUL_IN_ATT=False`` at a
-        change of width, the residual's projection of the normed stream."""
+        change of width, the residual's projection of the normed stream.
+        Under tensor parallelism the MLP is this rank's share
+        (``tensor.dense_columns``, ``tensor.dense_rows``), its hidden
+        dropout this rank's columns of the whole width's mask."""
         if masks is not None:
             ag = ll.drop_path_scale(ag, masks[0], keep)
             ae = ll.drop_path_scale(ae, masks[0], keep)
         grid, extras = grid + ag, extras + ae
-        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-        if drop is None:
+        fc1, fc2, group = self.mlp.fc1, self.mlp.fc2, self.mlp.tp
+        dropping = drop is not None
+        if not dropping:
             def drop(t):
                 return t
 
         def mlp(t):
-            h = drop(torch.nn.functional.gelu(_dense(t, fc1, dtype)))
-            return drop(_dense(h, fc2, dtype))
+            gelu = torch.nn.functional.gelu
+            if group is None:
+                h = drop(gelu(_dense(t, fc1, dtype)))
+                return drop(_dense(h, fc2, dtype))
+            h = gelu(tensor.dense_columns(group, t.to(dtype), fc1.weight,
+                                          fc1.bias))
+            if dropping:
+                h = dropout(h, self.drop_rate, generator,
+                            tensor.columns(group))
+            return drop(tensor.dense_rows(group, h, fc2.weight, fc2.bias))
 
         g2, e2 = ll.layer_norm(grid, *ln2), ll.layer_norm(extras, *ln2)
         mg, me = mlp(g2), mlp(e2)

@@ -7,8 +7,10 @@ forward is exact-erf GELU between them and runs through the K1 epilogue
 
 ``keep_mask`` and ``dropout`` draw the train mode's random numbers from an
 explicit ``torch.Generator`` (or, under data parallelism, the global
-batch's draws of one, ``parallel/mesh.py:GlobalDraws``).  Their streams cannot match JAX's, so the
-tests feed both sides the same masks or run with the rates at 0.
+batch's draws of one, ``parallel/mesh.py:GlobalDraws``; under
+``TPU.REMAT``, a block's ``KeptDraws``).  Their streams cannot match
+JAX's, so the tests feed both sides the same masks or run with the rates
+at 0.
 
 ``StepCache`` holds what a train step derives from its parameters once and
 shares between its three forwards (``cast``, ``derived``).
@@ -26,16 +28,59 @@ from svit_tpu_torch.parallel.mesh import rand
 def keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
     """f32 0/1 mask, 1 with probability ``keep`` (``jax.random.bernoulli``:
     uniform < keep)."""
+    if isinstance(generator, KeptDraws):
+        return generator.keep_mask(shape, keep, device)
     u = rand(shape, generator, device)
     return (u < keep).float()
 
 
-def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
-    """flax ``nn.Dropout``: ``where(mask, x / keep, 0)`` in x's dtype."""
+def dropout(x: torch.Tensor, rate: float, generator,
+            columns=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(mask, x / keep, 0)`` in x's dtype.
+    ``columns`` (index, count): ``x`` holds share ``index`` of ``count``
+    equal runs of its last dim (a tensor-parallel shard of the MLP's hidden
+    width); the mask is drawn for the whole width and cut to the share, so
+    that it does not depend on the mesh."""
     keep = 1.0 - rate
-    mask = keep_mask(x.shape, keep, generator, x.device).bool()
+    if columns is None:
+        mask = keep_mask(x.shape, keep, generator, x.device).bool()
+    else:
+        index, count = columns
+        n = x.shape[-1]
+        mask = keep_mask((*x.shape[:-1], n * count), keep, generator,
+                         x.device).bool()[..., index * n:(index + 1) * n]
     return torch.where(mask, x / float(torch.tensor(keep, dtype=x.dtype)),
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class KeptDraws:
+    """One block's random draws under ``TPU.REMAT``, made once and handed
+    out again.  The block runs twice, its forward and then its recompute
+    in the backward (``models/svit.py``): the first run draws each mask
+    from ``generator`` (a ``torch.Generator`` or ``GlobalDraws``) and keeps
+    it, every later run gets the kept masks in the same order.  So both
+    runs see the same masks and the generator advances once, as with remat
+    off, and no generator state is set back (which a CUDA graph's capture
+    does not allow).  A mask is kept as bool: a byte an element."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.kept: list = []
+        self.runs, self.at = 0, 0
+
+    def start(self) -> None:
+        """Begin a run of the block."""
+        self.runs += 1
+        self.at = 0
+
+    def keep_mask(self, shape, keep: float, device) -> torch.Tensor:
+        if self.runs == 1:
+            mask = keep_mask(shape, keep, self.generator, device)
+            self.kept.append(mask.bool())
+            return mask
+        mask = self.kept[self.at]
+        self.at += 1
+        return mask.float()
 
 
 class _OneUse(torch.autograd.Function):
@@ -51,6 +96,10 @@ class _OneUse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad.to(ctx.dtype), None
+
+
+def _as_is(t):
+    return t
 
 
 class StepCache:
@@ -69,6 +118,9 @@ class StepCache:
       before its backward).  It is built with grad enabled even when the
       first use runs under ``no_grad``.
 
+    Under ``TPU.REMAT`` a block's recompute takes the same casts and
+    derived values (no second cast, and each use still its own node).
+
     One cache per step: it holds its tensors' autograd graph."""
 
     def __init__(self):
@@ -86,7 +138,11 @@ class StepCache:
     def derived(self, key, fn):
         v = self._derived.get(key)
         if v is None:
-            with torch.enable_grad():
+            # what fn saves for its backward is kept as it is, also inside
+            # a block that ``TPU.REMAT`` recomputes: the recompute takes the
+            # cached value and does not run fn again
+            with torch.enable_grad(), \
+                    torch.autograd.graph.saved_tensors_hooks(_as_is, _as_is):
                 v = self._derived[key] = fn()
         return v if torch.is_grad_enabled() else v.detach()
 

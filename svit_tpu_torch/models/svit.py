@@ -18,6 +18,16 @@ train=True, generator=g)`` (the default in train mode) is JAX's
 depth, dropout and head dropout draw from ``g``, and the head returns raw
 outputs (no softmax on the logits, no sigmoid on the presence logit, no
 softmax on the contact logits), which the losses take.
+
+``TPU.REMAT`` (``arch.remat``, flax ``nn.remat`` of each block in the JAX
+package) runs each block under ``torch.utils.checkpoint`` whenever a
+gradient is wanted: the forward keeps only the block's two input streams,
+and the backward runs the block again through the same kernels (K1 to K4,
+K3's argmax instance) before its backward kernels take the recomputed
+values.  The block's random draws are kept from its forward and handed to
+the recompute (``KeptDraws``), so the masks, the generator's state after
+the step, the loss and the gradients are those of the step without remat,
+bit for bit, eager and in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -29,9 +39,10 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from svit_tpu_torch.models.attention import MultiScaleBlock
-from svit_tpu_torch.models.common import LayerNorm, dropout
+from svit_tpu_torch.models.common import KeptDraws, LayerNorm, dropout
 from svit_tpu_torch.models.stem import PatchEmbed
 from svit_tpu_torch.ops import ln_linear as ll
 
@@ -97,6 +108,7 @@ class SViTArch:
     head_dropout_rate: float     # MODEL.DROPOUT_RATE
     head_act: str
     forward_video_frames: bool
+    remat: bool = False          # TPU.REMAT: recompute each block
 
     @classmethod
     def from_cfg(cls, cfg) -> "SViTArch":
@@ -227,6 +239,7 @@ class SViTArch:
             head_dropout_rate=cfg.MODEL.DROPOUT_RATE,
             head_act=cfg.MODEL.HEAD_ACT,
             forward_video_frames=cfg.TRAIN.FORWARD_VIDEO_FRAMES,
+            remat=cfg.TPU.REMAT,
         )
 
 
@@ -411,8 +424,8 @@ class SViT(nn.Module):
 
         points, acts = {}, {}
         for i, blk in enumerate(self.blocks):
-            grid, extras = blk(grid, extras, self.use_kernels, dt, train,
-                               generator, cache)
+            grid, extras = self._block(blk, grid, extras, train, generator,
+                                       cache)
             if capture_gradcam:
                 name = f"blocks_{i}_out"
                 acts[name] = grid
@@ -430,3 +443,19 @@ class SViT(nn.Module):
         if capture_gradcam:
             extra["perturbations"], extra["intermediates"] = points, acts
         return logits, extra
+
+    def _block(self, blk, grid, extras, train, generator, cache):
+        """One block; under ``arch.remat`` with a gradient wanted, its
+        checkpoint: the inputs kept, the rest recomputed in the backward
+        with the masks its forward drew."""
+        args = (self.use_kernels, self.dtype, train)
+        if not (self.arch.remat and torch.is_grad_enabled()):
+            return blk(grid, extras, *args, generator, cache)
+        draws = KeptDraws(generator)
+
+        def run(grid, extras):
+            draws.start()
+            return blk(grid, extras, *args, draws, cache)
+
+        return checkpoint(run, grid, extras, use_reentrant=False,
+                          preserve_rng_state=False)

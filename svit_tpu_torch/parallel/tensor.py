@@ -21,8 +21,19 @@ The conjugate collectives (Megatron's f and g): the all-reduce after fc2
 is the forward's (its backward is the identity), and the gradient of the
 LN'd input, which each rank computes from its own columns, is all-reduced
 in f32 before the LN's backward (the forward's identity).  The extras'
-FFN (plain products) splits the same way.  On one card, or at
-``MESH_MODEL`` 1, none of this runs.
+FFN (plain products) splits the same way.
+
+The unfused tail (``MVIT.DROPOUT_RATE > 0`` in train mode, or
+``MVIT.DIM_MUL_IN_ATT=False`` at a change of width: plain products in the
+JAX package too) splits its MLP alike: ``dense_columns`` gives fc1's
+columns of this rank, its input's gradient summed over the group in f32
+before its one rounding (f), and ``dense_rows`` sums fc2's f32 partials
+over the group before the rounding and the bias (g).  The hidden dropout
+draws the whole width's mask and keeps this rank's columns (``columns``);
+the rest of the tail (the attention's and the output's dropout, the
+residual's projection of the normed stream) is replicated, each rank of
+the group drawing alike.  On one card, or at ``MESH_MODEL`` 1, none of
+this runs.
 """
 
 from __future__ import annotations
@@ -118,6 +129,57 @@ def ffn_residual(group, x_res, a, ln_w, ln_b, w1, b1, w2, b2, ma=None,
                        x_add=ll._flat(a), ma=ma, keep=keep, rows=rows, op=op)
     return _tail(p, b2, x_res.dtype, my, keep, rows, s, group).view(
         *x_res.shape[:-1], w2.shape[0])
+
+
+def columns(group) -> tuple:
+    """(this rank's index, the ranks) of the model ``group``: the share of
+    a hidden width that ``mesh.shard_model`` gave this rank."""
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _columns_vjp(group):
+    """Backward of ``dense_columns``: ``ll._dense_vjp``'s arithmetic on
+    this rank's columns, the input's gradient summed over ``group`` in f32
+    and rounded once."""
+
+    def backward(tensors, static, grads, wanted):
+        x, w, b = tensors
+        gy = ll._flat(grads[0])
+        dx = dw = db = None
+        if wanted[0]:
+            dx = all_reduce(ll._mm(gy, w), group).to(x.dtype).view(x.shape)
+        if wanted[1]:
+            dw = ll._mm(gy.t(), ll._flat(x)).to(w.dtype)
+        if wanted[2]:
+            db = gy.sum(0).to(b.dtype)
+        return [dx, dw, db]
+
+    return backward
+
+
+def dense_columns(group, x, w, b):
+    """``ll.dense(x, w, b)`` on this rank's output columns (``fc1``'s
+    shard): the forward one card's on them, the gradient of ``x`` summed
+    over ``group``."""
+    return kernel_vjp(
+        lambda x, w, b: ll.ln_linear_mm(
+            ll._flat(x), w, b, round_then_bias=True).view(
+                *x.shape[:-1], w.shape[0]),
+        _columns_vjp(group), (x, w.to(x.dtype), b))
+
+
+def dense_rows(group, x, w, b):
+    """``ll.dense(x, w, b)`` with ``x`` and ``w`` holding this rank's share
+    of the input width (``fc2``'s shard): the f32 partial products summed
+    over ``group``, then rounded and ``+ b`` in the IO dtype as on one card;
+    the backward is one card's on this rank's share."""
+    def forward(x, ln_w, ln_b, w, b):
+        acc = all_reduce(ll._mm(ll._flat(x), w.t()), group)
+        return (acc.to(x.dtype) + b.to(x.dtype)).view(*x.shape[:-1],
+                                                      w.shape[0])
+
+    return kernel_vjp(forward, ll._dense_vjp,
+                      (x, None, None, w.to(x.dtype), b))
 
 
 def ffn(group, x, ln_w, ln_b, w1, b1, w2, b2):

@@ -37,13 +37,40 @@ import torch
 from svit_tpu_torch.data.transform import bilinear_resize
 
 
-def _colormap(name: str):
-    import matplotlib
+# the maps whose OpenCV table is matplotlib's rounded to bytes (within
+# 0.5 / 255); OpenCV's jet, hot, hsv and others are other maps
+OPENCV_MAPS = ("autumn", "cividis", "cool", "inferno", "magma", "plasma",
+               "spring", "summer", "turbo", "viridis", "winter")
 
+
+def _colormap(name: str):
+    """The colormap ``name``: matplotlib's, or where matplotlib is missing
+    (the card's machine) OpenCV's table of one of ``OPENCV_MAPS``, read as
+    matplotlib reads a float in [0, 1] (entry ``floor(256 x)``)."""
+    try:
+        import matplotlib
+    except ImportError:
+        return _opencv_colormap(name)
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
     return plt.get_cmap(name)
+
+
+def _opencv_colormap(name: str):
+    if name not in OPENCV_MAPS:
+        raise ValueError(f"colormap {name!r} needs matplotlib, which is not "
+                         f"installed; OpenCV has {OPENCV_MAPS}")
+    import cv2
+
+    table = cv2.applyColorMap(np.arange(256, dtype=np.uint8)[:, None],
+                              getattr(cv2, f"COLORMAP_{name.upper()}"))
+    rgb = table[:, 0, ::-1].astype(np.float32) / 255.0
+
+    def cmap(x):
+        return rgb[np.clip((np.asarray(x) * 256).astype(np.int64), 0, 255)]
+
+    return cmap
 
 
 class GradCAM:
@@ -61,7 +88,7 @@ class GradCAM:
         self.data_mean = np.asarray(data_mean, np.float32)
         self.data_std = np.asarray(data_std, np.float32)
         self.colormap_name = colormap
-        self._colormap = None   # matplotlib, at the first overlay
+        self._colormap = None   # made at the first overlay
 
     def layer_cam(self, clips: torch.Tensor,
                   labels: Optional[torch.Tensor] = None) -> dict:

@@ -39,6 +39,7 @@ def test_config_override_and_typo():
     (),
     ("DATA.TRAIN_CROP_SIZE", "56", "DATA.TEST_CROP_SIZE", "56",
      "DATA.NUM_FRAMES", "4"),
+    ("TPU.REMAT", "True"),
 ])
 def test_block_schedule_equals_jax(overrides):
     from svit_tpu.models.svit import SViTArch as JArch
@@ -49,6 +50,5 @@ def test_block_schedule_equals_jax(overrides):
     assert len(ta.blocks) == 16
     for jb, tb in zip(ja.blocks, ta.blocks):
         assert dataclasses.asdict(tb) == dataclasses.asdict(jb)
-    jd = dataclasses.asdict(ja)
-    jd.pop("remat")  # jax.checkpoint switch; the serving port has none
-    assert dataclasses.asdict(ta) == jd
+    assert dataclasses.asdict(ta) == dataclasses.asdict(ja)
+    assert ta.remat == ("TPU.REMAT" in overrides)

@@ -268,3 +268,25 @@ def test_gradcam_kernel_calls(monkeypatch, target):
     want = chip_smoke.expected_gradcam_launches(arch, target)
     assert dict(calls) == dict(want)
     assert "pool_conv_dk" not in calls
+
+
+@pytest.mark.parametrize("name", gradcam.OPENCV_MAPS)
+def test_overlay_colormap_without_matplotlib(monkeypatch, name):
+    """Where matplotlib is missing (the card's machine) the overlay takes
+    OpenCV's map of the same name, read as matplotlib reads a float: each
+    colour within 0.5 / 255 of matplotlib's; a map OpenCV has otherwise
+    (jet) or not at all is refused."""
+    import sys
+
+    x = np.random.RandomState(0).rand(2, 3, 5, 7).astype(np.float32)
+    x[0, 0, 0, :3] = (0.0, 1.0, 255 / 256)   # the table's ends
+    want = gradcam._colormap(name)(x)[..., :3]
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError):
+        import matplotlib  # noqa: F401
+    got = gradcam._colormap(name)(x)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=0.5 / 255 + 1e-6)
+    for other in ("jet", "Pastel2"):
+        with pytest.raises(ValueError, match="needs matplotlib"):
+            gradcam._colormap(other)

@@ -14,9 +14,16 @@ against the JAX package.
   rows of the global batch's masks, ``GlobalDraws``);
 - ``GlobalDraws``: the ranks' draws, concatenated, are one process's;
 - data 1 x model 2 (the MLPs sharded) against data 2 x model 1 (the
-  counterpart of ``test_tp2_train_step_matches_dp8``);
+  counterpart of ``test_tp2_train_step_matches_dp8``), with the fused
+  tail and with the unfused one (``MVIT.DROPOUT_RATE`` 0.1 beside
+  drop-path and head dropout; ``MVIT.DIM_MUL_IN_ATT=False``);
 - the model-2 forward against the JAX package's replicated forward at the
-  same weights (``test_tp2_forward_matches_replicated``);
+  same weights (``test_tp2_forward_matches_replicated``), and each
+  unfused tail's deterministic forward the same way;
+- the Trainer at data 1 x model 2 with ``TPU.REMAT=True`` through
+  ``launch_job``, two one-step epochs against one process without remat:
+  the logged losses, the first moments and the parameters of each
+  epoch's checkpoint;
 - a checkpoint written at model 2 loads at model 1 and holds the full
   tensors;
 - the multi-view test on 2 ranks gives the 1-rank run's video scores.
@@ -81,7 +88,8 @@ def one_process():
     torch.set_num_threads(1)
     cfg = worker.small_cfg()
     cases = [(cfg, b) for b in worker.batches(cfg)]
-    cases.append((worker.stochastic_cfg(), worker.batches(cfg)[0]))
+    cases += [(c, worker.batches(cfg)[0])
+              for c in (worker.stochastic_cfg(), worker.proj_tail_cfg())]
     return [worker.train_step(c, meshlib.Mesh(1, 1), v, i)[:3]
             for c, (v, i) in cases]
 
@@ -123,8 +131,9 @@ def _assert_step_equal(got, want, lr):
         assert bool(((p[k] - rp[k]).abs() <= bound).all()), k
 
 
-@pytest.mark.parametrize("case", [0, 1, 2],
-                         ids=["2+2", "3+3 padded", "2+2 drop-path"])
+@pytest.mark.parametrize("case", [0, 1, 2, 3],
+                         ids=["2+2", "3+3 padded", "2+2 drop-path",
+                              "2+2 proj tail"])
 def test_dp2_step_equals_one_process(dp2, one_process, case):
     lr = _lr(worker.small_cfg())
     for rank in dp2:
@@ -164,6 +173,48 @@ def test_tp2_step_equals_dp2(tp2, dp2):
     ranks, _ = tp2
     for rank in ranks:
         _assert_step_equal(rank[0], dp2[0][0], lr)
+
+
+@pytest.mark.parametrize("case", [1, 2], ids=["dropout", "proj tail"])
+def test_tp2_unfused_tail_step_equals_dp2(tp2, dp2, case):
+    """The unfused residual tail at data 1 x model 2 (fc1's columns and
+    fc2's rows of this rank, the f32 partials summed before the bias, the
+    hidden dropout this rank's columns of the whole mask) against data 2
+    x model 1 on the 2 + 2 batch: with ``stochastic_cfg`` (dropout 0.1,
+    drop-path 0.4, head dropout 0.5), and with ``proj_tail_cfg``."""
+    lr = _lr(worker.small_cfg())
+    ranks, _ = tp2
+    for rank in ranks:
+        _assert_step_equal(rank[case], dp2[0][case + 1], lr)
+
+
+@pytest.mark.parametrize("case", ["dropout", "proj tail"])
+def test_tp2_unfused_forward_equals_jax_replicated(tp2, case):
+    """Each unfused tail's deterministic forward at model 2 against the
+    JAX package's deterministic forward of the same weights, unsharded:
+    ``proj_tail_cfg`` in eval mode; ``dropout_cfg`` in train mode with
+    its dropout the identity (JAX's deterministic forward takes the
+    unfused path whenever the rate is set)."""
+    ranks, _ = tp2
+    make = {"dropout": worker.dropout_cfg,
+            "proj tail": worker.proj_tail_cfg}[case]
+    model, _ = build_model(make(), device="cpu")
+    params = torch_to_flax({k: v.detach().numpy().copy()
+                            for k, v in model.state_dict().items()})
+    jm, _ = jax_build(make(jax_get_cfg), use_pallas=False)
+    video, _ = worker.batches(worker.small_cfg())[0]
+    _, extra = jax.jit(lambda p, x: jm.apply(p, x, deterministic=True))(
+        params, jnp.asarray(video["clips"]))
+    for rank in ranks:
+        logits, desc = rank[f"forward {case}"]
+        np.testing.assert_allclose(logits.numpy(),
+                                   np.asarray(extra["raw_logits"]),
+                                   atol=5e-5, rtol=0)
+        np.testing.assert_allclose(desc.numpy(),
+                                   np.asarray(extra["obj_desc"]),
+                                   atol=5e-5, rtol=0)
+    assert torch.equal(ranks[0][f"forward {case}"][0],
+                       ranks[1][f"forward {case}"][0])
 
 
 def test_tp2_forward_equals_jax_replicated(tp2):
@@ -324,6 +375,132 @@ def test_multiview_test_on_two_ranks_equals_one(tmp_path):
     np.testing.assert_array_equal(got["video_labels"], want["video_labels"])
     np.testing.assert_allclose(got["video_preds"], want["video_preds"],
                                rtol=0, atol=1e-6)
+
+
+def _logged_losses(out):
+    """The per-step losses of the master's ``json_stats`` lines (every
+    step: ``LOG_PERIOD`` 1)."""
+    import json
+
+    with open(os.path.join(out, "stdout.log")) as f:
+        stats = [json.loads(line.split("json_stats: ", 1)[1]) for line in f
+                 if "json_stats: " in line]
+    return [s["loss"] for s in stats if s["_type"] == "train_iter"]
+
+
+def _adam_moments(blob, cfg):
+    """A checkpoint's AdamW state by parameter name, with its lr."""
+    from svit_tpu_torch.models.optimizer import construct_optimizer
+
+    model, _ = build_model(cfg, device="cpu", train=True)
+    tx, _ = construct_optimizer(cfg, model, 1)
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for g in tx.optimizer.param_groups
+             for p in g["params"]]
+    opt = blob["optimizer_state"]
+    lr = float(opt["param_groups"][0]["lr"])
+    return {order[int(i)]: st for i, st in opt["state"].items()}, lr
+
+
+def test_trainer_epoch_at_model_2_with_remat_equals_one_process(tmp_path):
+    """``engine/train.py:train`` through ``launch_job`` on two ranks at
+    data 1 x model 2 with ``TPU.REMAT=True`` (the sharded MLPs inside
+    recomputed blocks, their collectives run again in the backward) on
+    ``tests/test_torch_trainer.py``'s tiny config, two epochs of one step
+    (all 4 videos a step), against one process without remat.  Each
+    epoch's checkpoint by the master (full tensors) against one process's:
+
+    - the logged losses of both steps within 1e-6 relative;
+    - the first moments (``exp_avg``: (1 - beta1) times the first step's
+      clipped gradient, then a sum of both steps') at the gradient
+      tolerance above;
+    - the parameters within 1e-6 of their tensor's scale plus what the two
+      runs' own updates imply: after the first step ``lr1`` times the
+      difference of ``g / (|g| + eps)``, after the second the first step's
+      difference plus ``lr2`` times the difference of Adam's update
+      ``m_hat / (sqrt(v_hat) + eps)`` (the decay scales both alike)."""
+    from svit_tpu_torch.engine.train import train
+    from tests.test_torch_trainer import _tiny_cfg
+
+    root = str(tmp_path / "ssv2")
+    make_ssv2_fixture(root)
+    one, two = str(tmp_path / "one"), tmp_path / "two"
+    os.makedirs(two)
+    kw = {"TRAIN.BATCH_SIZE": 4, "SOLVER.MAX_EPOCH": 2}
+    one_cfg = _tiny_cfg(get_cfg, assert_and_infer_cfg, root, one, **kw)
+    train(one_cfg, device="cpu")
+    _spawn("trainer", two, _tiny_cfg(get_cfg, assert_and_infer_cfg, root,
+                                     str(two), **kw, **{"TPU.REMAT": True}))
+
+    want_losses = _logged_losses(one)
+    assert len(want_losses) == 2
+    np.testing.assert_allclose(_logged_losses(str(two)), want_losses,
+                               rtol=1e-6, atol=0)
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    start, _ = build_model(one_cfg, device="cpu", train=True)
+    last = {k: torch.zeros_like(v, dtype=torch.float64)
+            for k, v in start.named_parameters()}   # |p_got - p_want|
+    for epoch in (1, 2):
+        def blob(out):
+            return torch.load(os.path.join(cu.checkpoint_path(out, epoch),
+                                           cu.STATE_FILE), weights_only=False)
+
+        got, want = blob(str(two)), blob(one)
+        assert got["step"] == want["step"] == epoch
+        assert got["epoch"] == want["epoch"] == epoch - 1
+        (gm, _), (wm, lr) = (_adam_moments(b, one_cfg) for b in (got, want))
+        assert set(gm) == set(wm) == set(last)
+        floor = 1e-3 * max(float(st["exp_avg"].abs().max())
+                           for st in wm.values())
+        for k, w in wm.items():
+            scale = max(float(w["exp_avg"].abs().max()), floor)
+            np.testing.assert_allclose(gm[k]["exp_avg"].numpy(),
+                                       w["exp_avg"].numpy(), rtol=0,
+                                       atol=1e-5 * scale, err_msg=k)
+
+        def update(st):
+            m, v = st["exp_avg"].double(), st["exp_avg_sq"].double()
+            return ((m / (1 - b1 ** epoch))
+                    / ((v / (1 - b2 ** epoch)).sqrt() + eps))
+
+        for k, w in want["model_state"].items():
+            g = got["model_state"][k]
+            assert g.shape == w.shape, k
+            if k not in wm:
+                assert torch.equal(g, w), k
+                continue
+            bound = (1e-6 * float(w.abs().max()) + 1e-9 + last[k]
+                     + lr * (update(gm[k]) - update(wm[k])).abs())
+            diff = (g.double() - w.double()).abs()
+            assert bool((diff <= bound).all()), k
+            last[k] = diff
+    moved = [k for k, v in start.state_dict().items()
+             if not torch.equal(v, want["model_state"][k])]
+    assert moved
+
+
+def test_a_left_loader_lets_a_spawned_rank_exit():
+    """A spawned process (each rank of ``launch_job`` is one) that leaves a
+    process-pool loader's epoch before its end exits: the iterator's close
+    shuts the pool down, where the process used to wait at its exit for
+    workers that nothing told to end.  Run in a session of its own, killed
+    whole if it hangs."""
+    import signal
+    import subprocess
+    import sys
+
+    code = ("import torch.multiprocessing as mp\n"
+            "import tests.test_torch_parallel_worker as w\n"
+            "mp.spawn(w.abandon_loader, nprocs=1)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=worker.REPO,
+                            start_new_session=True)
+    try:
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
 
 
 def test_one_rank_group_step_equals_no_group(tmp_path):

@@ -8,11 +8,21 @@ Scenarios:
   batch of ``batches`` (a global batch of 2 videos + 2 images, and one of
   3 + 3 padded to 4 + 4, so that rank 1 alone holds a zero-weight pad),
   then on the first batch again with stochastic depth and dropout on
-  (``stochastic_cfg``);
+  (``stochastic_cfg``) and with the width changed in the residual
+  (``proj_tail_cfg``);
 - ``tp``: data 1 x model 2; the same step on the first global batch, an
-  eval forward of its clips, and a checkpoint written at model 2;
+  eval forward of its clips, and a checkpoint written at model 2; the
+  step again under ``stochastic_cfg`` and ``proj_tail_cfg`` (the unfused
+  tail, its MLP sharded), and the deterministic forward of each unfused
+  tail: ``proj_tail_cfg``'s eval forward, and the train-mode forward of
+  ``small_cfg`` with ``MVIT.DROPOUT_RATE`` 0.1 and dropout made the
+  identity (as JAX's deterministic forward takes the unfused path);
 - ``test``: data 2; the multi-view test (``engine/test.py:test``) over a
-  fixture tree, its video scores written by the master.
+  fixture tree, its video scores written by the master;
+- ``trainer``: data 1 x model 2; ``engine/train.py:train`` through
+  ``utils/misc.py:launch_job`` (the group is up, so it runs in this
+  process) on the config the test hands over, its checkpoint written by
+  the master.
 """
 
 from __future__ import annotations
@@ -59,6 +69,43 @@ def stochastic_cfg():
     cfg.MODEL.DROPOUT_RATE = 0.5
     cfg.MVIT.DROPOUT_RATE = 0.1
     return cfg
+
+
+def proj_tail_cfg(get=None):
+    """``small_cfg`` (of ``get``) with ``MVIT.DIM_MUL_IN_ATT=False``: block
+    0 widens in its residual, by a projection of the normed stream beside
+    the MLP, so its tail is unfused in every mode."""
+    cfg = small_cfg(get)
+    cfg.MVIT.DIM_MUL_IN_ATT = False
+    return cfg
+
+
+def dropout_cfg(get=None):
+    """``small_cfg`` (of ``get``) with dropout after every block's
+    attention and MLP (0.1) and no other random rate."""
+    cfg = small_cfg(get)
+    cfg.MVIT.DROPOUT_RATE = 0.1
+    return cfg
+
+
+def unfused_forward(cfg, mesh, clips, train):
+    """(raw logits, object descriptors) of a forward of the seeded model,
+    sharded over ``mesh``; in train mode with every dropout the identity,
+    so that it is deterministic."""
+    from svit_tpu_torch.models import attention, build_model, svit
+    from svit_tpu_torch.parallel import mesh as meshlib
+
+    model, _ = build_model(cfg, device="cpu")
+    meshlib.shard_model(model, mesh)
+    saved = attention.dropout, svit.dropout
+    if train:
+        attention.dropout = svit.dropout = lambda t, *a: t
+    try:
+        with torch.inference_mode():
+            _, extra = model(torch.as_tensor(clips), train=train)
+    finally:
+        attention.dropout, svit.dropout = saved
+    return extra["raw_logits"].clone(), extra["obj_desc"].clone()
 
 
 def batches(cfg):
@@ -119,24 +166,50 @@ def train_step(cfg, mesh, video, image):
     return ({k: float(v) for k, v in metrics.items()}, grads, params, state)
 
 
+class SlowItems:
+    """A dataset of numbered clips that take a moment each."""
+
+    def __len__(self):
+        return 40
+
+    def __getitem__(self, i):
+        import time
+
+        time.sleep(0.01)
+        return (np.full((1, 2, 2, 3), i, np.float32), i, i)
+
+
+def abandon_loader(rank):
+    """As the Trainer's image loader every epoch: a process-pool loader
+    read for one batch, then left.  The spawned process must still exit."""
+    from svit_tpu_torch.data.loader import Loader, collate_video
+
+    batches = Loader(SlowItems(), 2, shuffle=False, drop_last=True,
+                     num_workers=1, collate_fn=collate_video,
+                     use_processes=True).iter_batches()
+    next(batches)
+    del batches
+
+
 def main(rank, world, init_file, scenario, out_dir, extra=None):
     torch.set_num_threads(1)
     sys.path.insert(0, REPO)
     from svit_tpu_torch.parallel import dist as du
     from svit_tpu_torch.parallel import mesh as meshlib
 
-    cfg = small_cfg() if scenario != "test" else extra
+    cfg = small_cfg() if scenario not in ("test", "trainer") else extra
     cfg.NUM_SHARDS, cfg.SHARD_ID = 1, 0
     cfg.INIT_METHOD = "file://" + init_file
-    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL = ((1, 2) if scenario == "tp"
-                                             else (2, 1))
+    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL = (
+        (1, 2) if scenario in ("tp", "trainer") else (2, 1))
     du.init_distributed(cfg, rank, world, backend="gloo")
     try:
         mesh = meshlib.build_mesh(cfg)
         out = {}
         if scenario == "dp":
             cases = [(cfg, b) for b in batches(cfg)]
-            cases.append((stochastic_cfg(), batches(cfg)[0]))
+            cases += [(c, batches(cfg)[0])
+                      for c in (stochastic_cfg(), proj_tail_cfg())]
             for i, (case_cfg, (video, image)) in enumerate(cases):
                 m, g, p, _ = train_step(
                     case_cfg, mesh, share(video, mesh.data_index, mesh.data),
@@ -157,6 +230,17 @@ def main(rank, world, init_file, scenario, out_dir, extra=None):
                 logits, extra_out = model(torch.as_tensor(video["clips"]))
             out["forward"] = (logits.clone(),
                               extra_out["pred_bboxes"].clone())
+            for i, case_cfg in ((1, stochastic_cfg()), (2, proj_tail_cfg())):
+                out[i] = train_step(case_cfg, mesh, video, image)[:3]
+            out["forward proj tail"] = unfused_forward(
+                proj_tail_cfg(), mesh, video["clips"], train=False)
+            out["forward dropout"] = unfused_forward(
+                dropout_cfg(), mesh, video["clips"], train=True)
+        elif scenario == "trainer":
+            from svit_tpu_torch.engine.train import train
+            from svit_tpu_torch.utils.misc import launch_job
+
+            launch_job(cfg, func=train, device="cpu")
         else:
             from svit_tpu_torch.engine.test import test
 
