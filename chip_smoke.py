@@ -139,8 +139,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    replays timed in turns (the multi-card run needs more cards);
 14. learning proof: ``python -m svit_tpu_torch.tools.overfit_hw`` (the
    CLI on 4 solid-colour videos, bf16 kernels, captured step; SIGTERM
-   after 6 steps, then the auto-resume; the first ``loss_ce`` above 1.0,
-   the last below 0.1);
+   after 6 steps, then the auto-resume from the checkpoint it wrote,
+   mid-epoch or at an epoch's end; every step of the schedule logged once;
+   the first ``loss_ce`` above 1.0, the last below 0.1);
 15. tools: the measuring tools of ``svit_tpu_torch/tools`` at full size.
    ``check_kernels_hw.run_gate`` with the backward (batch 2: the four
    forward outputs, the video loss's gradient, the small train-mode
@@ -163,7 +164,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    after AdamW and the generator's state bit for bit, the capture's
    launches (the remat step's forward kernels as five forwards,
    its backward kernels as the step's), replays timed in turns and
-   ``torch.cuda.max_memory_allocated``.
+   ``torch.cuda.max_memory_allocated``;
+17. head widths: the kernels at the shapes past the shipped config's
+   (``HEAD_WIDTHS``): the JAX package's small schedules (EMBED_DIM 32,
+   head_dim 32) at their own sizes, and ``configs/ssv2.yaml`` with
+   NUM_HEADS 2 (head_dim 48) and with EMBED_DIM 144, NUM_HEADS 2 (head_dim
+   72, C 144 to 1152, K1's prologue pass at K = 1152) at 16 x 224, full
+   width, depth 4 with a stage transition at each of blocks 1, 2, 3.  Each
+   runs the serving forward at batch 8 and one train step (video 8 +
+   image 8 + the consistency forward) three ways, gated as phases 3 and
+   7, its launches the architecture's (no call took a twin); every call
+   of an instance new to these widths (K4 and K5 at HD = 32 or a padded
+   head, the general K2, K6 and K7, K1's prologue pass) is replayed
+   against its plain twin under the gate and timed beside its bound and
+   its library call (K1's pass beside its GEMM alone); first, K1's
+   prologue pass forced at K = 768 is held bit for bit to the panel (the
+   qkv, fc1 and its masked form); the new instances' ``ptxas`` registers
+   and spills are printed after the build.
 
 It prints the ``{"kernels": [...]}`` line (``launches`` of the forward
 kernels count the serving forward, those of the train step's new kernels
@@ -175,7 +192,9 @@ warm-ups and captures, and its eager eval steps' none: they replay too),
 10's train-step and batch-8 serving graphs, ``gradcam_launches`` phase
 11's batch-4 Grad-CAM call, ``remat_train_launches`` a replay of phase
 16's remat step at video 8 + image 8; K1, K4
-and K5 carry their uses), the card's name
+and K5 carry their uses; phase 17's rows, one per kernel and schedule,
+count the calls of its new instances in that schedule's forward or train
+step), the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Per-call details go to
 ``chiprun_out/chip_smoke_detail.json``.  Without a card it exits 2.
@@ -746,6 +765,17 @@ def use_of(name, args, kwargs):
     return "fused_pool_max"
 
 
+def prologue_passes(s):
+    """K1's prologue passes in one forward of block ``s``: its LN
+    prologues past the resident panel (the qkv and dense at K = dim, fc1 at
+    K = dim_out), each before its K1 launch (the shipped config has
+    none)."""
+    from svit_tpu_torch.ops.ln_linear import PANEL_K_MAX
+
+    return ((s.dim > PANEL_K_MAX) * (1 + (s.dim != s.dim_out))
+            + (s.dim_out > PANEL_K_MAX))
+
+
 def expected_launches(arch):
     n = collections.Counter()
     for s in arch.blocks:
@@ -753,6 +783,8 @@ def expected_launches(arch):
         n["pool_ln"] += 2
         n["pooled_attention"] += 2
         n["pool_max"] += int(np.prod(s.stride_q)) > 1
+        if prologue_passes(s):
+            n["ln_linear_prologue"] += prologue_passes(s)
     return n
 
 
@@ -829,6 +861,8 @@ def expected_train_launches(arch, forwards=3, backwards=2):
         for k in ("pool_conv", "pool_conv_dx", "pool_conv_dk",
                   "pooled_attention_bwd"):
             n[k] += backwards * (2 - dead)
+        if prologue_passes(s):
+            n["ln_linear_prologue"] += forwards * prologue_passes(s)
     return n
 
 
@@ -3318,7 +3352,8 @@ def run_nccl_phase(cfg, torch):
 def run_overfit_phase():
     """Phase 14: the learning proof through the port's CLI
     (``svit_tpu_torch/tools/overfit_hw.py``: SIGTERM after 6 steps, the
-    auto-resume, the first loss_ce above 1.0 and the last below 0.1)."""
+    auto-resume from its checkpoint, every step logged once, the first
+    loss_ce above 1.0 and the last below 0.1)."""
     out = os.path.join(REPO, "chiprun_out", "overfit_hw")
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "svit_tpu_torch.tools.overfit_hw",
@@ -3328,10 +3363,18 @@ def run_overfit_phase():
     lines = r.stdout.strip().splitlines()
     result = json.loads(lines[-1]) if lines else {}
     log(f"phase 14 learning proof ({wall:.1f} s): rc {r.returncode}, "
-        f"{ {k: result.get(k) for k in ('steps_phase1', 'preempt_checkpoint', 'steps_total', 'loss_first', 'loss_last', 'resumed', 'converged', 'phase1_s', 'phase2_s')} }")
+        f"{ {k: result.get(k) for k in ('steps_phase1', 'preempt_checkpoint', 'steps_total', 'loss_first', 'loss_last', 'resumed', 'steps_exact', 'converged', 'phase1_s', 'phase2_s')} }")
     if r.returncode != 0 or not result.get("ok"):
         log(r.stderr[-3000:])
-        raise SystemExit("phase 14: the learning proof failed")
+        failed = [k for k in ("sigterm_sent", "resumed", "steps_exact",
+                              "converged") if not result.get(k)]
+        raise SystemExit(
+            f"phase 14: the learning proof failed (rc {r.returncode}, "
+            f"phase rcs {result.get('phase1_rc')} / "
+            f"{result.get('phase2_rc')}, false: {failed}, preempt "
+            f"checkpoint {result.get('preempt_checkpoint')}, steps "
+            f"{result.get('steps_phase1')} + "
+            f"{(result.get('steps_total') or 0) - (result.get('steps_phase1') or 0)})")
     return dict(result, wall_s=wall)
 
 
@@ -3655,6 +3698,397 @@ def run_remat_phase(cfg, torch):
     return out
 
 
+# Phase 17: the head widths and channel counts past the shipped config's.
+# (name, label, base config file or None for the defaults, keys): (b) the
+# JAX package's small schedules (tests/test_pallas_attention.py:150-170,
+# tests/test_w8_carry.py:283-297; EMBED_DIM 32: head_dim 32, C 32 to 128) at
+# their own sizes; (c) configs/ssv2.yaml with NUM_HEADS 2 (head_dim 48) and
+# (d) with EMBED_DIM 144, NUM_HEADS 2 (MViTv2-L's widths: head_dim 72, C 144
+# to 1152, fc1 at K = 1152 past K1's panel), both at 16 x 224 and full
+# width, cut to depth 4 with every DIM_MUL / HEAD_MUL / POOL_Q_STRIDE
+# transition at blocks 1, 2, 3 (all four stages)
+_EMBED32 = {"MODEL.MODEL_NAME": "SViT", "MODEL.NUM_CLASSES": 5,
+            "MODEL.DROPOUT_RATE": 0.0, "DATA.NUM_FRAMES": 4,
+            "MVIT.EMBED_DIM": 32, "MVIT.PATCH_PADDING": [1, 3, 3],
+            "MVIT.POOL_KVQ_KERNEL": [3, 3, 3], "MVIT.REL_POS_SPATIAL": True,
+            "MVIT.REL_POS_TEMPORAL": True, "MVIT.USE_ABS_POS": False,
+            "MVIT.DROPPATH_RATE": 0.0, "MODEL.LOSS_FUNC": "video_image_loss"}
+_DEPTH4 = {"MVIT.DEPTH": 4, "MVIT.DIM_MUL": [[1, 2.0], [2, 2.0], [3, 2.0]],
+           "MVIT.HEAD_MUL": [[1, 2.0], [2, 2.0], [3, 2.0]],
+           "MVIT.POOL_Q_STRIDE": [[0, 1, 1, 1], [1, 1, 2, 2], [2, 1, 2, 2],
+                                  [3, 1, 2, 2]]}
+# the schedules whose new instances' calls are replayed and timed (the
+# 32 px one runs the same instances as the 56 px one)
+REPLAYED = ("b56", "c48", "d72")
+HEAD_WIDTHS = (
+    ("b32", "(b) EMBED_DIM 32, head_dim 32, 32 px", None, dict(_EMBED32, **{
+        "DATA.TRAIN_CROP_SIZE": 32, "DATA.TEST_CROP_SIZE": 32,
+        "MVIT.DEPTH": 2, "MVIT.POOL_KV_STRIDE_ADAPTIVE": [1, 2, 2],
+        "MVIT.POOL_Q_STRIDE": [[0, 1, 1, 1], [1, 1, 2, 2]],
+        "MVIT.DIM_MUL": [[1, 2.0]], "MVIT.HEAD_MUL": [[1, 2.0]]})),
+    ("b56", "(b) EMBED_DIM 32, head_dim 32, 56 px, depth 3", None,
+     dict(_EMBED32, **{
+         "DATA.TRAIN_CROP_SIZE": 56, "DATA.TEST_CROP_SIZE": 56,
+         "MVIT.DEPTH": 3, "MVIT.POOL_KV_STRIDE_ADAPTIVE": [1, 4, 4],
+         "MVIT.POOL_Q_STRIDE": [[0, 1, 1, 1], [1, 1, 2, 2], [2, 1, 2, 2]],
+         "MVIT.DIM_MUL": [[1, 2.0], [2, 2.0]],
+         "MVIT.HEAD_MUL": [[1, 2.0], [2, 2.0]]})),
+    ("c48", "(c) NUM_HEADS 2, head_dim 48", CFG,
+     dict(_DEPTH4, **{"MVIT.NUM_HEADS": 2})),
+    ("d72", "(d) EMBED_DIM 144, NUM_HEADS 2, head_dim 72", CFG,
+     dict(_DEPTH4, **{"MVIT.EMBED_DIM": 144, "MVIT.NUM_HEADS": 2})),
+)
+
+
+def head_width_cfg(base, keys):
+    from svit_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    if base:
+        cfg.merge_from_file(base)
+    for key, value in keys.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for part in path:
+            node = getattr(node, part)
+        setattr(node, leaf, value)
+    cfg.SVIT.CONSISTENCY_LOSS = "l1"
+    return cfg
+
+
+def new_instance(name, args, kwargs):
+    """Whether a recorded call runs an instance this phase is for: K4 and
+    K5 at a head width other than 64, 96 and 128; K2, K6 and K7 on the
+    general route; K1 with its prologue pass (K past the panel)."""
+    from svit_tpu_torch.ops import ln_linear as ll
+    from svit_tpu_torch.ops import pool
+
+    name = KIND.get(name, name)
+    if name in ("pooled_attention", "pooled_attention_bwd"):
+        C, heads = args[0].shape[-1], args[5 if name == "pooled_attention"
+                                              else 6]
+        return C // heads not in (64, 96, 128)
+    if name == "ln_linear":
+        K = args[0].shape[1]
+        prologue = (kwargs.get("ln") is not None
+                    or kwargs.get("x_add") is not None)
+        return prologue and K > ll.PANEL_K_MAX
+    if name in ("pool_ln", "pool_conv"):
+        x, w, stride = args[0], args[1], args[4 if name == "pool_ln" else 2]
+        hd = args[5] if name == "pool_ln" else None
+        kind, shape = "pool", tuple(x.shape)
+    elif name == "pool_conv_dx":
+        g, w, stride, shape = args
+        kind, hd, shape = "dx", None, tuple(shape)
+    elif name == "pool_conv_dk":
+        x, g, kernel, stride = args
+        return pool.pool_plan(tuple(x.shape), kernel, stride, "dk").route \
+            == "gen"
+    else:
+        return False
+    return pool.pool_plan(shape, tuple(w.shape[2:]), stride, kind,
+                          head_dim=hd).route == "gen"
+
+
+def _new_calls(rec):
+    """The recorder's calls of the new instances (a recorder of its own),
+    but the train step's forward kernels (the serving forward's rows time
+    those instances)."""
+    kept = Recorder()
+    kept.calls = collections.OrderedDict(
+        (k, c) for k, c in rec.calls.items()
+        if c["name"] not in (TRAIN_K4, TRAIN_K2)
+        and new_instance(c["name"], c["args"], c["kwargs"]))
+    return kept
+
+
+def prologue_pass_share(kept, torch, label):
+    """Each replayed K1 call with the prologue pass against its GEMM alone
+    (the streaming launch on rows of the same shape): the pass's share of
+    the call's device time."""
+    from svit_tpu_torch.ops import ln_linear as ll
+
+    out = []
+    for c in kept.calls.values():
+        if KIND.get(c["name"], c["name"]) != "ln_linear":
+            continue
+        args, kw = c["args"], c["kwargs"]
+        x, w = args[:2]
+        bias = args[2] if len(args) > 2 else kw.get("bias")
+        with torch.inference_mode():
+            whole = device_time_ms(lambda: ll.ln_linear(*args, **kw))
+            gemm = device_time_ms(lambda: ll.ln_linear(
+                x, w, bias, gelu=kw.get("gelu", False)))
+        log(f"phase 17 {label} K1 {tuple(x.shape)} x {tuple(w.shape)}: "
+            f"pass + GEMM {whole:.4f} ms, the GEMM alone {gemm:.4f} ms, the "
+            f"pass {whole - gemm:.4f} ms ({1 - gemm / whole:.2f} of the call)")
+        out.append({"shape": [tuple(x.shape), tuple(w.shape)],
+                    "ms": whole, "gemm_ms": gemm})
+    return out
+
+
+def prologue_pass_bit_gate(torch):
+    """K1's prologue pass forced where the resident panel takes the K (K =
+    768, the shipped config's last stage at batch 8: the qkv with its
+    split, fc1 with the sum and its drop-path form): every output and the
+    sum s bit-equal to the panel's."""
+    from svit_tpu_torch.ops import ln_linear as ll
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(shape, device="cuda",
+                                    generator=gen)).to(dtype)
+
+    M, K, rows = 3136, 768, 392
+    x, a = rnd(M, K), rnd(M, K)
+    ln = (1 + rnd(K, scale=0.1, dtype=torch.float32),
+          rnd(K, scale=0.1, dtype=torch.float32))
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0],
+                        device="cuda")
+    cases = {"qkv": (3 * K, dict(ln=ln, split=K)),
+             "fc1": (4 * K, dict(ln=ln, x_add=a, gelu=True)),
+             "fc1 masked": (4 * K, dict(ln=ln, x_add=a, gelu=True,
+                                        mask_add=mask, keep=0.6, rows=rows))}
+    out = {}
+    for use, (N, kw) in cases.items():
+        w, b = rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.1,
+                                               dtype=torch.float32)
+        with torch.inference_mode():
+            panel = ll.ln_linear(x, w, b, **kw)
+            passed = ll.ln_linear(x, w, b, force_pass=True, **kw)
+        torch.cuda.synchronize()
+        equal = bits_equal(panel, passed)
+        log(f"phase 17 K1 prologue pass against the panel, {use} [{M}, {K}] "
+            f"-> {N}: bit-equal {equal}")
+        if not equal:
+            raise SystemExit(f"phase 17: K1's prologue pass differs from the "
+                             f"panel ({use})")
+        out[use] = equal
+    return out
+
+
+def head_width_forward(cfg, torch, label):
+    """The serving forward at batch 8 three ways (kernels bf16, plain bf16
+    and f32), gated as phase 3; its launches against the architecture's;
+    its kernel calls recorded."""
+    from svit_tpu_torch.models import build_model
+    from svit_tpu_torch.ops import _lib
+    from svit_tpu_torch.tools import check_kernels_hw as gate_tool
+
+    model, arch = build_model(cfg, dtype=torch.bfloat16, use_kernels=True)
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn((BATCH, arch.num_frames, arch.crop_size, arch.crop_size,
+                     3), generator=gen).cuda()
+    rec = Recorder()
+    originals = rec.patch((mod, attr, name)
+                          for name, (mod, attr, _) in wrappers().items())
+    try:
+        _lib.reset_launch_counts()
+        with gate_tool.variant(model, torch.bfloat16, True):
+            ek = gate_tool.forward_outputs(model, x)
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+    finally:
+        Recorder.restore(originals)
+    with gate_tool.variant(model, torch.bfloat16, False):
+        e16 = gate_tool.forward_outputs(model, x)
+    with gate_tool.variant(model, torch.float32, False):
+        e32 = gate_tool.forward_outputs(model, x)
+    torch.cuda.synchronize()
+    report = {}
+    for key in ek:
+        if not bool(torch.isfinite(ek[key].float()).all()):
+            raise SystemExit(f"phase 17 {label}: non-finite {key}")
+        ok = gate_tool._gate_one(key, ek[key], e16[key], e32[key], report)
+        r = report[key]
+        log(f"phase 17 {label} forward gate {key}: err(kernels)="
+            f"{r['err_kernels_vs_f32']:.3e} err(plain bf16)="
+            f"{r['err_plain_bf16_vs_f32']:.3e} shape={tuple(ek[key].shape)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 17 {label}: the forward gate failed on "
+                             f"{key}")
+    want = {k: v for k, v in expected_launches(arch).items() if v}
+    log(f"phase 17 {label} forward (batch {BATCH}, {arch.num_frames} x "
+        f"{arch.crop_size}, depth {arch.depth}): launches {launches} "
+        f"(expected {want})")
+    if launches != want:
+        raise SystemExit(f"phase 17 {label}: forward launches differ")
+    del model, ek, e16, e32
+    return rec, launches, report
+
+
+def head_width_step(cfg, torch, label):
+    """One train step (video 8 + image 8 + the consistency forward,
+    drop-path and dropout as configured) three ways from one seed, gated on
+    the loss and the global gradient as phase 7; its launches against the
+    architecture's; its kernel calls recorded."""
+    from svit_tpu_torch.ops import _lib
+
+    video, image = train_batch(cfg, torch)
+    rec, losses, flat = Recorder(), {}, {}
+    for name, dtype, kernels in (("kernels", torch.bfloat16, True),
+                                 ("plain_bf16", torch.bfloat16, False),
+                                 ("plain_f32", torch.float32, False)):
+        state, step, arch = train_setup(cfg, torch, dtype, kernels)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        originals = (rec.patch((mod, attr, rname) for mod, attr, _, rname
+                               in train_wrappers().values())
+                     if kernels else [])
+        try:
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+            state, metrics = step(state, video, image, gen)
+            torch.cuda.synchronize()
+            if kernels:
+                launches = dict(_lib.LAUNCHES)
+        finally:
+            Recorder.restore(originals)
+        losses[name] = {k: float(v) for k, v in metrics.items()}
+        grads = raw_grads(state, metrics)
+        flat[name] = torch.cat([grads[k].flatten() for k in sorted(grads)])
+        del state, step, grads
+        torch.cuda.empty_cache()
+    gates = {}
+    for key, vals in (
+            ("loss", {n: torch.tensor(losses[n]["loss"], dtype=torch.float64)
+                      for n in losses}),
+            ("grads_global", flat)):
+        err_k = rel_err(vals["kernels"], vals["plain_f32"])
+        err_p = rel_err(vals["plain_bf16"], vals["plain_f32"])
+        ok = err_k <= TOL_RATIO * err_p + TOL_ABS
+        gates[key] = {"err_kernels": err_k, "err_plain_bf16": err_p}
+        log(f"phase 17 {label} train gate {key}: err(kernels)={err_k:.3e} "
+            f"err(plain bf16)={err_p:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 17 {label}: the train gate failed on "
+                             f"{key}")
+    # (the small schedules take no drop-path, and their strided last block
+    # no backward: counts of 0)
+    want = {k: v for k, v in expected_train_launches(arch).items() if v}
+    log(f"phase 17 {label} train step: loss {losses['kernels']['loss']:.6f}, "
+        f"launches {launches} (expected {want})")
+    if launches != want:
+        raise SystemExit(f"phase 17 {label}: train step launches differ")
+    return rec, launches, gates
+
+
+def run_head_widths_phase(torch):
+    """Phase 17: each schedule of ``HEAD_WIDTHS`` drives the serving
+    forward and one train step through the kernels, gated against the
+    plain twins and counted (no call took a twin); then every call of an
+    instance new to these widths (``new_instance``) is replayed against its
+    plain twin under the gate and timed beside its bound and its library
+    call.  Returns the phase's results and the kernel rows."""
+    t0 = time.perf_counter()
+    fwd_fns = {n: (getattr(mod, attr), plain)
+               for n, (mod, attr, plain) in wrappers().items()}
+    train_fns = {n: (getattr(mod, attr), plain)
+                 for n, (mod, attr, plain, _) in train_wrappers().items()}
+    out, rows = {"prologue_pass_bit_equal": prologue_pass_bit_gate(torch)}, []
+    for key, label, base, keys in HEAD_WIDTHS:
+        cfg = head_width_cfg(base, keys)
+        frec, flaunch, fgate = head_width_forward(cfg, torch, label)
+        torch.cuda.empty_cache()
+        trec, tlaunch, tgate = head_width_step(cfg, torch, label)
+        torch.cuda.empty_cache()
+        result = {"label": label, "forward_launches": flaunch,
+                  "forward_gate": fgate, "train_launches": tlaunch,
+                  "train_gate": tgate}
+        if key not in REPLAYED:
+            out[key] = result
+            continue
+        for rec, fns, unit, launches in (
+                (frec, fwd_fns, "forward", flaunch),
+                (trec, train_fns, "train step", tlaunch)):
+            kept = _new_calls(rec)
+            log(f"phase 17 {label}: {len(kept.calls)} of {len(rec.calls)} "
+                f"distinct {unit} calls run a new instance")
+            table, uses, details = run_kernel_phase(kept, torch, fns, unit)
+            result[unit] = {"uses": uses, "calls": details,
+                            "prologue_pass": prologue_pass_share(kept, torch,
+                                                                 label)}
+            for name, row in table.items():
+                if not row["launches"]:
+                    continue
+                base_name = KIND.get(name, name)
+                source, replaces = (KERNELS.get(base_name)
+                                    or TRAIN_KERNELS[base_name])
+                pass_ = "ln_linear" in name
+                rows.append({
+                    "name": f"{name} [{label}]" + (
+                        " (prologue pass, then the GEMM)" if pass_ else ""),
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": row["launches"],
+                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"]
+                    else "operations",
+                    "library_ms": row["library_ms"],
+                    "unit": f"per {unit}",
+                    "prologue_launches": (launches.get("ln_linear_prologue",
+                                                       0) if pass_ else None),
+                })
+            del kept
+        out[key] = result
+        del frec, trec
+        torch.cuda.empty_cache()
+    log(f"phase 17 head widths: wall {time.perf_counter() - t0:.1f} s")
+    return out, rows
+
+
+# the kernel instances new to phase 17's widths, by their mangled names in
+# the build log: K4 and K5 at HD = 32, the general K2 / K6 / K7 and K1's
+# prologue pass
+NEW_INSTANCES = ("attn_fwd_kernelILi32E", "attn_bwd_q_kernelILi32E",
+                 "attn_bwd_kv_kernelILi32E", "halo_gen_kernel",
+                 "dk_gen_kernel", "ln_rows_kernel")
+
+
+def new_instance_report(ptxas):
+    """Phase 17's ``ptxas`` lines (registers and spills) of the new
+    instances; each must be in the build."""
+    found = {fn: lines for fn, lines in ptxas.items()
+             if any(k in fn for k in NEW_INSTANCES)}
+    for k in NEW_INSTANCES:
+        if not any(k in fn for fn in found):
+            raise SystemExit(f"phase 17: the build log has no {k}")
+    for fn, lines in found.items():
+        log(f"phase 17 ptxas {fn}: " + "; ".join(lines))
+    return found
+
+
+def head_widths_main():
+    """Phase 17 alone (with the card line and the build): for iterating on
+    the card.  ``python -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.head_widths_main())"``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from svit_tpu_torch.ops import _lib
+
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    open(os.path.join(REPO, "chiprun_out", "chip_smoke.log"), "w").close()
+    log(f"card: {card_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _lib.build()
+    _lib.library()
+    log(f"build in {time.perf_counter() - t0:.1f} s")
+    new_instance_report(ptxas_report((_lib.BUILD / "build.log").read_text()))
+    out, rows = run_head_widths_phase(torch)
+    with open(os.path.join(REPO, "chiprun_out", "head_widths.json"),
+              "w") as f:
+        json.dump(dict(result=out, kernels=rows), f, indent=1)
+    log(json.dumps({"kernels": rows}))
+    return 0
+
+
 def main():
     import torch
 
@@ -3700,6 +4134,7 @@ def main():
                              f"{kernel} instances")
         if any(kernel in fn for fn in spills):
             raise SystemExit(f"{kernel} spills")
+    new_instance_report(ptxas)
 
     cfg = get_cfg()
     cfg.merge_from_file(CFG)
@@ -3743,6 +4178,8 @@ def main():
     torch.cuda.empty_cache()
     remat = run_remat_phase(cfg, torch)
     remat_launches = remat[REMAT_TAG]["remat"]["launches"]
+    torch.cuda.empty_cache()
+    head_widths, head_width_rows = run_head_widths_phase(torch)
     log(f"phase 9's profiled replay (video batch {TRAINER_VIDEO}): "
         f"hand-written kernel events {trainer['run_a']['profile']['families']}"
         f"; phase 10's eager step (video batch {TRAIN_VIDEO}): "
@@ -3792,6 +4229,7 @@ def main():
                     k.split(": ", 1)[1]: u for k, u in
                     (train_uses if names is TRAIN_KERNELS else uses).items()
                     if k.split(": ", 1)[0] == name}
+    kernels += head_width_rows   # phase 17's new instances
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_detail.json"), "w") as f:
@@ -3802,9 +4240,10 @@ def main():
                        train_calls=train_details, test=test,
                        trainer=trainer, compiled=compiled, gradcam=gradcam,
                        demo=demo, nccl=nccl, overfit=overfit, tools=tools,
-                       remat=remat, kernels=kernels),
+                       remat=remat, head_widths=head_widths,
+                       kernels=kernels),
                   f, indent=1)
-    log(f"all sixteen phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"all seventeen phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

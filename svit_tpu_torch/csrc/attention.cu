@@ -30,10 +30,11 @@
 // additions.  Keys >= Nk are masked to -inf by index in the last key tile.
 //
 // Design, both kernels (sm_90a): one producer warp (its lane 0) issues every
-// TMA load (3-D tensor maps over [B, N, C] and [B, Nk, 2C], so a tile never
-// reads the next clip's rows: they are zero-filled; 64-byte swizzled boxes
-// of 32 columns, head_dim 64, 96 or 128 being two to four of them) into a
-// ring of slots with a full and an empty mbarrier each; one consumer
+// TMA load (5-D tensor maps over [B, N, 1, heads, hd] and [B, Nk, 2, heads,
+// hd], so a tile never reads the next clip's rows or the next head's
+// columns: they are zero-filled; 64-byte swizzled boxes of 32 columns, HD / 32
+// of them a head) into a ring of slots with a full and an empty mbarrier
+// each; one consumer
 // warpgroup of 64 rows runs wgmma (A from shared memory or, for P and dS,
 // from registers, as FlashAttention-3 does) with the accumulators in
 // registers; a row's scores sit in the four threads of a quad, as with
@@ -41,7 +42,17 @@
 // 2R bytes each, no TMA box: the consumers write them once per block into
 // shared memory, the A operand of the bias product (the query side also
 // stores that tile for the key side, which takes it by bulk copy as the B
-// operand).  Every rounding of the plain twin is kept:
+// operand).
+//
+// Head widths.  The instances are compiled at HD = 32, 64, 96 and 128; a head
+// of width hd (a multiple of 8 up to 128: TMA's global strides are multiples
+// of 16 bytes, and the accumulators o, dq, dk, dv of HD / 2 floats a thread
+// are register-resident) runs in the instance HD = 32 ceil(hd / 32), 48 in
+// 64, 72 in 96.  The maps' innermost extent is hd, so TMA zero-fills columns
+// hd .. HD of every q, K, V and dO tile: they add zeros to Q K^T and dO V^T
+// and give zero columns of O, dq, dK and dV, which the stores mask to hd
+// columns (the TMA store of q * scale clips by itself).  The scale is the
+// caller's hd^-0.5.  Every rounding of the plain twin is kept:
 // q scaled in bf16 (the scale rounded first), P rounded before the PV
 // product, head outputs rounded then + q, dS rounded before dq and dK, dq
 // rounded after * scale then + dO.  Two consumer warpgroups per block (128
@@ -198,7 +209,7 @@ struct FwdParams {
   const bf16* bias;  // [B, heads, Nq, R] or null
   const bf16* mt;    // one-hot tiles [n_kt][RP / 8][BK][8] or null
   bf16* out;
-  int B, Nq, Nk, C, heads, R;
+  int B, Nq, Nk, C, heads, hd, R;
   float scale;
   int q_residual, stages, n_kt;
 };
@@ -235,17 +246,17 @@ __global__ void __launch_bounds__(160, 1)
     if (lane == 0) {
       mbar_expect_tx(q_bar, QT);
       for (int c = 0; c < HD / 32; ++c)
-        tma_load_3d(smem + c * 64 * 64, &tm_q, q_bar, h * HD + 32 * c, q0, b);
+        tma_load_5d(smem + c * 64 * 64, &tm_q, q_bar, 32 * c, h, 0, q0, b);
       for (int i = 0; i < p.n_kt; ++i) {
         const int s = i % p.stages;
         mbar_wait(&empty[s], ((i / p.stages) & 1) ^ 1);  // the slot is free
         uint8_t* dst = ring + s * SLOT;
         mbar_expect_tx(&full[s], SLOT);
         for (int c = 0; c < HD / 32; ++c) {
-          tma_load_3d(dst + c * BK * 64, &tm_kv, &full[s], h * HD + 32 * c,
+          tma_load_5d(dst + c * BK * 64, &tm_kv, &full[s], 32 * c, h, 0,
                       i * BK, b);
-          tma_load_3d(dst + KT + c * BK * 64, &tm_kv, &full[s],
-                      p.C + h * HD + 32 * c, i * BK, b);
+          tma_load_5d(dst + KT + c * BK * 64, &tm_kv, &full[s], 32 * c, h, 1,
+                      i * BK, b);
         }
         if (RK) bulk_load(dst + 2 * KT, p.mt + (size_t)i * BK * 16 * RK, MT,
                           &full[s]);
@@ -335,10 +346,11 @@ __global__ void __launch_bounds__(160, 1)
   for (int h2 = 0; h2 < 2; ++h2) {
     const int q = r0 + 8 * h2;
     if (q >= p.Nq) continue;
-    const size_t base = ((size_t)b * p.Nq + q) * p.C + h * HD;
+    const size_t base = ((size_t)b * p.Nq + q) * p.C + h * p.hd;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int d = 8 * j + 2 * t;
+      if (d >= p.hd) continue;  // a padded column (hd is even)
       float v0 = round_bf16(o[4 * j + 2 * h2] / l_run[h2]);
       float v1 = round_bf16(o[4 * j + 2 * h2 + 1] / l_run[h2]);
       if (p.q_residual) {
@@ -367,7 +379,7 @@ struct BwdParams {
   float* stats;      // [B, heads, nq_pad, 4]: row max, 1 / row sum, delta
   float* partial;    // [splits, B, Nk, 2C] (splits > 1)
   bf16* bias_tiles;  // [B, heads, q_tiles, RP / 8, 64, 8] or null
-  int B, Nq, Nk, C, heads, R;
+  int B, Nq, Nk, C, heads, hd, R;
   float scale;
   int q_residual, nq_pad, n_kt, q_stages, kv_stages, splits, tiles_per_split;
 };
@@ -413,9 +425,9 @@ __global__ void __launch_bounds__(160, 1)
     if (lane == 0) {
       mbar_expect_tx(q_bar, 2 * QT);
       for (int c = 0; c < HD / 32; ++c) {
-        tma_load_3d(smem + c * 64 * 64, &tm_q, q_bar, h * HD + 32 * c, q0, b);
-        tma_load_3d(smem + QT + c * 64 * 64, &tm_do, q_bar, h * HD + 32 * c,
-                    q0, b);
+        tma_load_5d(smem + c * 64 * 64, &tm_q, q_bar, 32 * c, h, 0, q0, b);
+        tma_load_5d(smem + QT + c * 64 * 64, &tm_do, q_bar, 32 * c, h, 0, q0,
+                    b);
       }
       for (int i = 0; i < loads; ++i) {
         const int s = i % stages, kt = i % p.n_kt;
@@ -423,10 +435,10 @@ __global__ void __launch_bounds__(160, 1)
         uint8_t* dst = ring + s * SLOT;
         mbar_expect_tx(&full[s], SLOT);
         for (int c = 0; c < HD / 32; ++c) {
-          tma_load_3d(dst + c * BK * 64, &tm_kv, &full[s], h * HD + 32 * c,
+          tma_load_5d(dst + c * BK * 64, &tm_kv, &full[s], 32 * c, h, 0,
                       kt * BK, b);
-          tma_load_3d(dst + KT + c * BK * 64, &tm_kv, &full[s],
-                      p.C + h * HD + 32 * c, kt * BK, b);
+          tma_load_5d(dst + KT + c * BK * 64, &tm_kv, &full[s], 32 * c, h, 1,
+                      kt * BK, b);
         }
         if (RK) bulk_load(dst + 2 * KT, p.mt + (size_t)kt * BK * RP, MT,
                           &full[s]);
@@ -447,7 +459,7 @@ __global__ void __launch_bounds__(160, 1)
   bar_sync<2, 128>();
   if (tid == 0) {  // q * scale and the bias tile leave once, for the key side
     for (int c = 0; c < HD / 32; ++c)
-      tma_store_3d(&tm_qs, smem + c * 64 * 64, h * HD + 32 * c, q0, b);
+      tma_store_5d(&tm_qs, smem + c * 64 * 64, 32 * c, h, 0, q0, b);
     if (RK)
       bulk_store(p.bias_tiles +
                      (((size_t)b * p.heads + h) * p.nq_pad + q0) * RP,
@@ -591,10 +603,11 @@ __global__ void __launch_bounds__(160, 1)
   for (int h2 = 0; h2 < 2; ++h2) {
     const int q = r0 + 8 * h2;
     if (q >= p.Nq) continue;
-    const size_t base = ((size_t)b * p.Nq + q) * p.C + h * HD;
+    const size_t base = ((size_t)b * p.Nq + q) * p.C + h * p.hd;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int d = 8 * j + 2 * t;
+      if (d >= p.hd) continue;
       float v0 = round_bf16(dqa[4 * j + 2 * h2] * p.scale);
       float v1 = round_bf16(dqa[4 * j + 2 * h2 + 1] * p.scale);
       if (p.q_residual) {
@@ -675,10 +688,9 @@ __global__ void __launch_bounds__(160, 1)
     if (lane == 0) {
       mbar_expect_tx(res_bar, RES);
       for (int c = 0; c < HD / 32; ++c) {
-        tma_load_3d(smem + c * BK * 64, &tm_kv, res_bar, h * HD + 32 * c, k0,
+        tma_load_5d(smem + c * BK * 64, &tm_kv, res_bar, 32 * c, h, 0, k0, b);
+        tma_load_5d(smem + KT + c * BK * 64, &tm_kv, res_bar, 32 * c, h, 1, k0,
                     b);
-        tma_load_3d(smem + KT + c * BK * 64, &tm_kv, res_bar,
-                    p.C + h * HD + 32 * c, k0, b);
       }
       if (RK) bulk_load(smem + 2 * KT, p.mt + (size_t)blockIdx.x * BK * RP, MT,
                         res_bar);
@@ -688,10 +700,10 @@ __global__ void __launch_bounds__(160, 1)
         uint8_t* dst = ring + s * SLOT;
         mbar_expect_tx(&full[s], SLOT);
         for (int c = 0; c < HD / 32; ++c) {
-          tma_load_3d(dst + c * 64 * 64, &tm_qs, &full[s], h * HD + 32 * c,
+          tma_load_5d(dst + c * 64 * 64, &tm_qs, &full[s], 32 * c, h, 0, q0,
+                      b);
+          tma_load_5d(dst + QT + c * 64 * 64, &tm_do, &full[s], 32 * c, h, 0,
                       q0, b);
-          tma_load_3d(dst + QT + c * 64 * 64, &tm_do, &full[s],
-                      h * HD + 32 * c, q0, b);
         }
         const size_t row = ((size_t)b * p.heads + h) * p.nq_pad + q0;
         bulk_load(dst + 2 * QT, p.stats + row * 4, ST, &full[s]);
@@ -771,7 +783,8 @@ __global__ void __launch_bounds__(160, 1)
     if (j >= p.Nk) continue;
 #pragma unroll
     for (int x = 0; x < HD / 8; ++x) {
-      const int d = h * HD + 8 * x + 2 * t, i = 4 * x + 2 * h2;
+      if (8 * x + 2 * t >= p.hd) continue;  // a padded column
+      const int d = h * p.hd + 8 * x + 2 * t, i = 4 * x + 2 * h2;
       if (p.splits == 1) {
         bf16* base = p.dkv + ((size_t)b * p.Nk + j) * row;
         *reinterpret_cast<uint32_t*>(base + d) = pack_bf16(dk[i], dk[i + 1]);
@@ -853,7 +866,7 @@ int fwd_rk(const FwdParams& p, int rk, const CUtensorMap& tq,
     case RK_WIDE: return launch_fwd<HD, RK_WIDE>(p, tq, tkv, stream);
     case RK_CHUNKED: return launch_fwd<HD, RK_CHUNKED>(p, tq, tkv, stream);
   }
-  if constexpr (HD == 96) {  // other head widths pad R to 48 (or 128)
+  if constexpr (HD == 96) {  // other instances pad R to 48 (or 128)
     switch (rk) {
       case 1: return launch_fwd<HD, 1>(p, tq, tkv, stream);
       case 2: return launch_fwd<HD, 2>(p, tq, tkv, stream);
@@ -906,12 +919,21 @@ int bwd_rk(const BwdParams& p, int rk, const CUtensorMap (&maps)[4],
   return ERR_PLAN;
 }
 
-// a [batch, rows, cols] bf16 tensor in 64-byte swizzled boxes of 32 columns
-// by box_rows rows
-int map3(CUtensorMap* map, const void* ptr, int batch, int rows, int cols,
-         int box_rows) {
-  const long dims[3] = {cols, rows, batch};
-  return encode_map(map, ptr, 3, dims, 32, box_rows, 64);
+// a [batch, rows, parts * heads * hd] bf16 tensor as the 5-D map (hd, heads,
+// parts, rows, batch), in 64-byte swizzled boxes of 32 columns of one head
+// and part by box_rows rows: columns past hd land as zeros
+int map_heads(CUtensorMap* map, const void* ptr, int batch, int rows,
+              int parts, int heads, int hd, int box_rows) {
+  const long dims[5] = {hd, heads, parts, rows, batch};
+  const int box[5] = {32, 1, 1, box_rows, 1};
+  const int step[5] = {1, 1, 1, 1, 1};
+  return encode_map_5d(map, ptr, dims, box, step, 2, 64);
+}
+
+// the compiled instance of a head width hd (0 if none): 32 ceil(hd / 32) for
+// hd a multiple of 8 up to 128
+int instance_of(int hd) {
+  return hd > 0 && hd <= 128 && hd % 8 == 0 ? 32 * ((hd + 31) / 32) : 0;
 }
 
 }  // namespace
@@ -927,15 +949,16 @@ extern "C" int svit_pooled_attention(const bf16* q, const bf16* kv,
                                      cudaStream_t stream) {
   const int hd = C / heads;
   if ((bias == nullptr) != (rk == 0) || 16 * rk < R || stages < 1 ||
-      C % heads)
+      C % heads || !instance_of(hd))
     return ERR_PLAN;
-  FwdParams p{q, bias, mt, out, B, Nq, Nk, C, heads, R, scale, q_residual,
-              stages, (Nk + BK - 1) / BK};
+  FwdParams p{q, bias, mt, out, B, Nq, Nk, C, heads, hd, R, scale,
+              q_residual, stages, (Nk + BK - 1) / BK};
   CUtensorMap tq, tkv;
-  int rc = map3(&tq, q, B, Nq, C, 64);
-  if (!rc) rc = map3(&tkv, kv, B, Nk, 2 * C, BK);
+  int rc = map_heads(&tq, q, B, Nq, 1, heads, hd, 64);
+  if (!rc) rc = map_heads(&tkv, kv, B, Nk, 2, heads, hd, BK);
   if (rc) return rc;
-  switch (hd) {
+  switch (instance_of(hd)) {
+    case 32: return fwd_rk<32>(p, rk, tq, tkv, stream);
     case 64: return fwd_rk<64>(p, rk, tq, tkv, stream);
     case 96: return fwd_rk<96>(p, rk, tq, tkv, stream);
     case 128: return fwd_rk<128>(p, rk, tq, tkv, stream);
@@ -959,19 +982,21 @@ extern "C" int svit_pooled_attention_bwd(
   const int q_tiles = (Nq + 63) / 64;
   if ((bias == nullptr) != (rk == 0) || 16 * rk < R || q_stages < 1 ||
       kv_stages < 1 || splits < 1 || splits > q_tiles || C % heads ||
-      (splits > 1 && partial == nullptr) || (rk && bias_tiles == nullptr))
+      !instance_of(hd) || (splits > 1 && partial == nullptr) ||
+      (rk && bias_tiles == nullptr))
     return ERR_PLAN;
   BwdParams p{q, bias, dout, mt, dq, dkv, dbias, stats, partial, bias_tiles,
-              B, Nq, Nk, C, heads, R, scale, q_residual, q_tiles * 64,
+              B, Nq, Nk, C, heads, hd, R, scale, q_residual, q_tiles * 64,
               (Nk + BK - 1) / BK, q_stages, kv_stages, splits,
               (q_tiles + splits - 1) / splits};
   CUtensorMap maps[4];
-  int rc = map3(&maps[0], q, B, Nq, C, 64);
-  if (!rc) rc = map3(&maps[1], dout, B, Nq, C, 64);
-  if (!rc) rc = map3(&maps[2], kv, B, Nk, 2 * C, BK);
-  if (!rc) rc = map3(&maps[3], qs, B, Nq, C, 64);
+  int rc = map_heads(&maps[0], q, B, Nq, 1, heads, hd, 64);
+  if (!rc) rc = map_heads(&maps[1], dout, B, Nq, 1, heads, hd, 64);
+  if (!rc) rc = map_heads(&maps[2], kv, B, Nk, 2, heads, hd, BK);
+  if (!rc) rc = map_heads(&maps[3], qs, B, Nq, 1, heads, hd, 64);
   if (rc) return rc;
-  switch (hd) {
+  switch (instance_of(hd)) {
+    case 32: return bwd_rk<32>(p, rk, maps, stream);
     case 64: return bwd_rk<64>(p, rk, maps, stream);
     case 96: return bwd_rk<96>(p, rk, maps, stream);
     case 128: return bwd_rk<128>(p, rk, maps, stream);

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives shared by the hand-written kernels: mbarriers,
-// TMA loads and stores through tensor maps (2-D, 3-D, and 5-D halo boxes
-// with zero fill and traversal strides), 1-D bulk copies, proxy fences,
+// TMA loads and stores through tensor maps (2-D and 5-D boxes with zero
+// fill and traversal strides), 1-D bulk copies, proxy fences,
 // named barriers, wgmma descriptors and the wgmma products themselves (A
 // from shared memory or from registers, B from shared memory, f32
 // accumulators), and the host-side encoding of tensor maps through libcuda's
@@ -132,20 +132,8 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// a box of a 3-D map (column, row, batch): rows past the batch entry's
-// last are zero-filled, never read from the next entry
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int col, int row,
-                                            int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-
-// a box of a 5-D map (channel, w, h, t, batch), from signed coordinates:
+// a box of a 5-D map (innermost first: channel, w, h, t, batch of a grid;
+// or a head's column, head, part, row, batch), from signed coordinates:
 // every element outside the tensor lands as zero.  With traversal strides
 // the box takes every s-th element of its extent along that dimension.
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
@@ -170,13 +158,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
-                                             const void* src, int col, int row,
-                                             int batch) {
+// shared -> global through a 5-D map: the box is clipped at the tensor's
+// edges (columns past a head's width, rows past the batch entry's last)
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
+                                             const void* src, int c, int w,
+                                             int h, int t, int b) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(batch)
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c), "r"(w), "r"(h), "r"(t), "r"(b)
       : "memory");
 }
 
@@ -542,15 +533,16 @@ static inline int encode_map(CUtensorMap* map, const void* ptr, int rank,
   return r == CUDA_SUCCESS ? 0 : ERR_TMAP;
 }
 
-// a channels-last grid [B, T, H, W, C] of bf16 (``elem`` 2) or uint8
-// (``elem`` 1) as a 5-D map, innermost first (``dims``: C, W, H, T, B), no
-// swizzle.  ``box`` is the extent a load traverses along each dimension and
-// ``step`` the traversal stride (1 to 8): a load lands ceil(box / step)
-// elements per dimension, and elements outside the tensor (negative
-// coordinates included) land as zero.
+// a packed 5-D tensor of bf16 (``elem`` 2) or uint8 (``elem`` 1),
+// innermost first (``dims``; a channels-last grid [B, T, H, W, C] is C, W,
+// H, T, B), swizzled by ``swizzle_bytes`` (0 or 64).  ``box`` is the extent
+// a load traverses along each dimension and ``step`` the traversal stride
+// (1 to 8): a load lands ceil(box / step) elements per dimension, and
+// elements outside the tensor (negative coordinates included) land as zero.
 static inline int encode_map_5d(CUtensorMap* map, const void* ptr,
                                 const long (&dims)[5], const int (&box)[5],
-                                const int (&step)[5], int elem = 2) {
+                                const int (&step)[5], int elem = 2,
+                                int swizzle_bytes = 0) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return ERR_ENTRY;
   cuuint64_t d[5], strides[4];
@@ -567,7 +559,9 @@ static inline int encode_map_5d(CUtensorMap* map, const void* ptr,
                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                   5,
                   const_cast<void*>(ptr), d, strides, bx, el,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                      : CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TMAP;

@@ -47,6 +47,10 @@
 //    The padding columns past K stay zero.
 //  * GEMM (no prologue: fc2 at K up to 3072, the out-projection): A and W
 //    tiles both stream through the ring.
+//  * A prologue past the panel (K > 1024: MViTv2-L's last stage, C = 1152):
+//    a pass of its own (ln_rows_kernel, below) writes the rows prologue(x)
+//    to device memory first, then the GEMM path takes them; s, where the use
+//    adds it as the residual, is the pass's.
 // Block shapes (the host's plan, ops/ln_linear.py, picks one per call):
 // 64 rows and one consumer warpgroup, up to three blocks an SM, for the
 // GEMM path and panels of K <= 192, where one block's prologue and
@@ -601,6 +605,125 @@ int dispatch(const Params& p, const CUtensorMap (&maps)[6], int ncw,
                   : launch<1, false, GELU>(p, maps, smem, stream);
 }
 
+// K1's prologue pass, for an LN or x_add prologue past the resident panel
+// (K > 1024; ops/ln_linear.py:ln_linear_plan picks it).  It replaces no TPU
+// kernel of its own: it is the prologue of the same ones, the panel's rows
+// written to device memory for the GEMM path.  Per row: s = round(x +
+// round(round(x_add / keep) * ma)) (written where x_add is given, as the
+// panel's s), then with the LN xn = round((s - mean) rstd g + b) with the
+// statistics in f32 in the panel's own order, so that the two agree bit for
+// bit wherever both apply: thread (r, h) of the block's R rows sums the
+// 8-column groups h per .. (h + 1) per - 1 of row r in order, and the PARTS
+// partial sums (the panel's consumer threads over its rows) meet in part
+// order, as layer_norm_panel adds them.  A row reduction, bound by bytes: x
+// (and x_add) read once, s and xn written once, coalesced.  The block's
+// rows are staged in shared memory, each padded to an odd number of 16-byte
+// units so that a quarter warp's eight rows fall on distinct banks.
+struct RowsParams {
+  const bf16* x;
+  const bf16* x_add;      // or null
+  const float* mask_add;  // [M / rows] 0/1, or null
+  float keep;
+  int rows;
+  const float* ln_g;      // or null: s alone
+  const float* ln_b;
+  float eps;
+  bf16* s_out;            // [M, K] where x_add is given
+  bf16* xn;               // [M, K] with the LN
+  int M, K, parts, R, stride;  // R rows a block; stride: a staged row's bytes
+};
+
+__global__ void __launch_bounds__(128) ln_rows_kernel(RowsParams p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* red = reinterpret_cast<float*>(smem + p.R * p.stride);  // [parts][R]
+  float* stat = red + p.parts * p.R;                             // [R][2]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int m0 = blockIdx.x * p.R, G = p.K / 8, total = p.R * G;
+  for (int gi = tid; gi < total; gi += nt) {  // s, staged
+    const int r = gi / G, j = gi - r * G, m = m0 + r;
+    uint4 v4 = make_uint4(0, 0, 0, 0);
+    if (m < p.M) {
+      v4 = __ldg(reinterpret_cast<const uint4*>(p.x + (size_t)m * p.K) + j);
+      if (p.x_add) {
+        float v[8], a[8];
+        unpack8(v4, v);
+        unpack8(__ldg(reinterpret_cast<const uint4*>(p.x_add +
+                                                     (size_t)m * p.K) + j),
+                a);
+        if (p.mask_add) {  // a / keep * ma: two bf16 ops (the mask is exact)
+          const float ma = __ldg(p.mask_add + m / p.rows);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i] / p.keep) * ma;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = v[i] + a[i];
+        v4 = pack8(v);
+        if (p.s_out)
+          reinterpret_cast<uint4*>(p.s_out + (size_t)m * p.K)[j] = v4;
+      }
+    }
+    *reinterpret_cast<uint4*>(smem + r * p.stride + 16 * j) = v4;
+  }
+  if (!p.ln_g) return;  // no LN: the GEMM takes s
+  __syncthreads();
+  // the statistics, as layer_norm_panel takes them
+  const int r = tid % p.R, h = tid / p.R, per = (G + p.parts - 1) / p.parts;
+  const int j0 = h * per, j1 = min(G, j0 + per);
+  const uint8_t* row = smem + r * p.stride;
+  float v[8], sum = 0.f, sq = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    unpack8(*reinterpret_cast<const uint4*>(row + 16 * j), v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += v[i];
+  }
+  red[h * p.R + r] = sum;
+  __syncthreads();
+  sum = 0.f;
+  for (int q = 0; q < p.parts; ++q) sum += red[q * p.R + r];
+  const float mean = sum / p.K;
+  for (int j = j0; j < j1; ++j) {
+    unpack8(*reinterpret_cast<const uint4*>(row + 16 * j), v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sq += (v[i] - mean) * (v[i] - mean);
+  }
+  __syncthreads();  // every part has read the sums
+  red[h * p.R + r] = sq;
+  __syncthreads();
+  sq = 0.f;
+  for (int q = 0; q < p.parts; ++q) sq += red[q * p.R + r];
+  if (h == 0) {
+    stat[2 * r] = mean;
+    stat[2 * r + 1] = rsqrtf(sq / p.K + p.eps);
+  }
+  __syncthreads();
+  for (int gi = tid; gi < total; gi += nt) {  // normalise, round, store
+    const int rr = gi / G, j = gi - rr * G, m = m0 + rr;
+    if (m >= p.M) continue;
+    const float mu = stat[2 * rr], rstd = stat[2 * rr + 1];
+    unpack8(*reinterpret_cast<const uint4*>(smem + rr * p.stride + 16 * j), v);
+    const float4* g4 = reinterpret_cast<const float4*>(p.ln_g + 8 * j);
+    const float4* b4 = reinterpret_cast<const float4*>(p.ln_b + 8 * j);
+    const float4 g0 = __ldg(g4), g1 = __ldg(g4 + 1);
+    const float4 b0 = __ldg(b4), b1 = __ldg(b4 + 1);
+    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = (v[i] - mu) * rstd * g[i] + b[i];
+    reinterpret_cast<uint4*>(p.xn + (size_t)m * p.K)[j] = pack8(v);
+  }
+}
+
+// bytes of a staged row and of a block's shared memory, as
+// ops/ln_linear.py:rows_pass_smem counts them
+int rows_stride(int K) {
+  const int units = K / 8;
+  return 16 * (units % 2 ? units : units + 1);
+}
+
+int rows_smem(int K, int R, int parts) {
+  return R * rows_stride(K) + 4 * (parts * R + 2 * R);
+}
+
 }  // namespace
 
 extern "C" const char* svit_error_string(int err) {
@@ -670,4 +793,33 @@ extern "C" int svit_ln_linear(const bf16* x, const bf16* x_add, bf16* s_out,
                     : launch<1, false, false, true>(p, maps, L.total, stream);
   return gelu ? dispatch<true>(p, maps, ncw, panel, L.total, stream)
               : dispatch<false>(p, maps, ncw, panel, L.total, stream);
+}
+
+// K1's prologue pass (ln_rows_kernel): parts, R: the plan of
+// ops/ln_linear.py:ln_linear_plan (the panel's parts a row, R rows a block)
+extern "C" int svit_ln_rows(const bf16* x, const bf16* x_add,
+                            const float* mask_add, float keep, int rows,
+                            const float* ln_g, const float* ln_b, float eps,
+                            bf16* s_out, bf16* xn, int M, int K, int parts,
+                            int R, int smem, cudaStream_t stream) {
+  if (K % 8 || parts < 1 || R < 1 || R * parts > 128 ||
+      (ln_g != nullptr) != (xn != nullptr) || (x_add != nullptr) != (s_out != nullptr) ||
+      (!x_add && !ln_g) || (mask_add && !x_add) || rows < 1 ||
+      smem != rows_smem(K, R, parts) || smem > SMEM_BLOCK_MAX)
+    return ERR_PLAN;
+  static bool granted[64] = {};  // the shared-memory grant, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !granted[dev]) {
+    e = cudaFuncSetAttribute(ln_rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BLOCK_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) granted[dev] = true;
+  }
+  const RowsParams p{x, x_add, mask_add, keep, rows, ln_g, ln_b, eps,
+                     s_out, xn, M, K, parts, R, rows_stride(K)};
+  ln_rows_kernel<<<(unsigned)((M + R - 1) / R), R * parts, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -31,9 +31,10 @@
 // Two instances of the halo tile.  The tuned one takes the main path's
 // shapes: (1|3) x 3 x 3 kernels at T stride 1 on 96-channel slabs (K2's LN
 // on 96-channel heads).  The general one takes kernels (1|3, 3|5, 3|5), T
-// stride 1 or 2 (K7: 1), spatial strides 1 to 8 (K7: sH = sW) and slabs of
-// 64, 96 or 128 channels (K2's LN: one head); ops/pool.py:pool_plan picks
-// the instance by shape and raises outside both.
+// stride 1 or 2 (K7: 1), spatial strides 1 to 8 (K7: sH = sW) and a slab of
+// any multiple of 8 channels up to 128 that divides C (K2's LN: one head);
+// ops/pool.py:pool_plan picks the instance and the slab by shape and raises
+// outside both.
 //
 // What bounds them on the H100.  By bytes: K2 reads the input rows that
 // some window touches (all of x at stride <= 3, 9/16 of it at stride 4,
@@ -1042,9 +1043,13 @@ __global__ void __launch_bounds__(MB_THREADS) pool_max_bwd_tile_kernel(
 // ---- the general instance: K2 and K6 (halo_gen_kernel), K7 (dk_gen_kernel)
 //
 // Any kernel (1|3, 3|5, 3|5), T stride 1 or 2, spatial strides 1 to 8 (sH
-// and sW apart), a slab of S = 64, 96 or 128 channels (K2's LN: head_dim).
-// The tile, the ring and the producer are the tuned instances'; a frame is
-// always one dense halo box.  The filter slab sits in shared memory (75
+// and sW apart), a slab of S channels, S a multiple of 8 (TMA's boxes are
+// whole 16-byte units) up to 128, given at run time (K2's LN: head_dim, so
+// the LN reduces over exactly one head).  A K2 or K6 lane holds the bf16
+// pairs 64 i + 2 l, + 1 of the slab for i < NP (the instance: NP = 1 up to
+// 64 channels, 2 up to 128), those past S masked.  K7's threads take one
+// pair each, S / 2 a group of taps.  The tile, the ring and the producer
+// are the tuned instances'; a frame is always one dense halo box.  The filter slab sits in shared memory (75
 // taps x S channels do not fit registers) and the taps come from a table
 // built per block: for each class of output (one for K2; K6's parity
 // classes, kT s_T x s_H x s_W of them) its entries, each an input frame,
@@ -1053,15 +1058,6 @@ __global__ void __launch_bounds__(MB_THREADS) pool_max_bwd_tile_kernel(
 // small sums with fixed taps: at stride 2 and k = 3 these are 1, 2, 2 and 4
 // spatial taps, times those of T, and at strides 4 and 8 the classes that
 // touch no tap write zeros with no loads.
-
-// the bf16 pairs a lane holds (channels 64 i + 2 l, + 1) and, at S = 96,
-// channel 64 + l
-template <int S>
-struct Lanes {
-  static constexpr int NP = S / 64;
-  static constexpr bool ONE = S % 64 != 0;
-  static constexpr int NV = 2 * NP + (ONE ? 1 : 0);
-};
 
 // one tap of a class: its input frame (0 .. spT - 1), its byte offset in a
 // frame slot from the base position's corner, its filter row's byte offset
@@ -1116,15 +1112,15 @@ __device__ __forceinline__ int pick3(const int (&v)[3], int i) {
 }
 
 // K2 (any mode) and K6: a consumer warp per base row of the tile, and one
-// producer warp
-template <int S>
+// producer warp; lane l holds the pairs 64 i + 2 l of the slab, i < NP
+template <int NP>
 __global__ void __launch_bounds__(160) halo_gen_kernel(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ PoolArgs a,
     const __grid_constant__ Geo g) {
-  using L = Lanes<S>;
+  constexpr int NV = 2 * NP;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c0 = blockIdx.y * S;
+  const int S = g.S, c0 = blockIdx.y * S;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.bar_off);
   uint64_t* empty = full + g.ring;
   const unsigned char* filt = smem + g.filt_off;
@@ -1148,19 +1144,19 @@ __global__ void __launch_bounds__(160) halo_gen_kernel(
     return;
   }
 
-  float lg[L::NV], lb[L::NV];
+  bool on[NP];  // the pair lies in the slab (S is even: both channels do)
+  float lg[NV], lb[NV];
 #pragma unroll
-  for (int i = 0; i < L::NP; ++i) {
+  for (int i = 0; i < NP; ++i) {
     const int ch = c0 + 64 * i + 2 * lane;
-    lg[2 * i] = a.apply_ln ? a.ln_g[ch] : 0.f;
-    lg[2 * i + 1] = a.apply_ln ? a.ln_g[ch + 1] : 0.f;
-    lb[2 * i] = a.apply_ln ? a.ln_b[ch] : 0.f;
-    lb[2 * i + 1] = a.apply_ln ? a.ln_b[ch + 1] : 0.f;
+    on[i] = 64 * i + 2 * lane < S;
+    const bool ln = a.apply_ln && on[i];
+    lg[2 * i] = ln ? a.ln_g[ch] : 0.f;
+    lg[2 * i + 1] = ln ? a.ln_g[ch + 1] : 0.f;
+    lb[2 * i] = ln ? a.ln_b[ch] : 0.f;
+    lb[2 * i + 1] = ln ? a.ln_b[ch + 1] : 0.f;
   }
-  if constexpr (L::ONE) {
-    lg[L::NV - 1] = a.apply_ln ? a.ln_g[c0 + 64 + lane] : 0.f;
-    lb[L::NV - 1] = a.apply_ln ? a.ln_b[c0 + 64 + lane] : 0.f;
-  }
+  const float inv_s = 1.f / S;
   const int RH = g.dx ? g.sH : 1, RW = g.dx ? g.sW : 1;
   const int ncls = (g.dx ? g.sT : 1) * RH * RW;
   uint32_t xi = 0;
@@ -1183,52 +1179,47 @@ __global__ void __launch_bounds__(160) halo_gen_kernel(
         const int oh = qh * RH + rh, ow = (it.w0 + o) * RW + rw;
         if (ot >= g.Tout || oh >= g.Hout || ow >= g.Wout) continue;
         const int base = 2 * S * (warp * g.qsH * g.bw + o * g.qsW);
-        float acc[L::NV];
+        float acc[NV];
 #pragma unroll
-        for (int i = 0; i < L::NV; ++i) acc[i] = 0.f;
+        for (int i = 0; i < NV; ++i) acc[i] = 0.f;
         for (int e = cls[c]; e < cls[c + 1]; ++e) {
           const Entry en = ent[e];
           const int so = pick3(slot, en.dt);
           if (so < 0) continue;
           const int off = so + base + en.off;
 #pragma unroll
-          for (int i = 0; i < L::NP; ++i) {
+          for (int i = 0; i < NP; ++i) {
+            if (!on[i]) continue;
             const float2 v = lds2(smem, off + 128 * i + 4 * lane);
             const float2 w = *reinterpret_cast<const float2*>(
                 filt + en.woff + 256 * i + 8 * lane);
             acc[2 * i] = fmaf(v.x, w.x, acc[2 * i]);
             acc[2 * i + 1] = fmaf(v.y, w.y, acc[2 * i + 1]);
           }
-          if constexpr (L::ONE) {
-            const float v = lds1(smem, off + 128 + 2 * lane);
-            const float w = *reinterpret_cast<const float*>(
-                filt + en.woff + 256 + 4 * lane);
-            acc[L::NV - 1] = fmaf(v, w, acc[L::NV - 1]);
-          }
         }
-        if (a.apply_ln) {
+        if (a.apply_ln) {  // over the S channels of the slab (one head)
           float m = 0.f;
 #pragma unroll
-          for (int i = 0; i < L::NV; ++i) m += acc[i];
-          m = warp_sum(m) * (1.f / S);
+          for (int i = 0; i < NV; ++i) m += acc[i];
+          m = warp_sum(m) * inv_s;
           float v2 = 0.f;
 #pragma unroll
-          for (int i = 0; i < L::NV; ++i) {
-            acc[i] -= m;
+          for (int i = 0; i < NV; ++i) {
+            acc[i] = on[i / 2] ? acc[i] - m : 0.f;
             v2 += acc[i] * acc[i];
           }
-          const float rstd = rsqrtf(warp_sum(v2) * (1.f / S) + a.eps);
+          const float rstd = rsqrtf(warp_sum(v2) * inv_s + a.eps);
 #pragma unroll
-          for (int i = 0; i < L::NV; ++i) acc[i] = acc[i] * rstd * lg[i] + lb[i];
+          for (int i = 0; i < NV; ++i) acc[i] = acc[i] * rstd * lg[i] + lb[i];
         }
         bf16* dst = a.out +
             ((((size_t)it.b * g.Tout + ot) * g.Hout + oh) * g.Wout + ow) * g.C +
             c0;
 #pragma unroll
-        for (int i = 0; i < L::NP; ++i)
-          *reinterpret_cast<uint32_t*>(dst + 64 * i + 2 * lane) =
-              pack_bf16(acc[2 * i], acc[2 * i + 1]);
-        if constexpr (L::ONE) dst[64 + lane] = __float2bfloat16(acc[L::NV - 1]);
+        for (int i = 0; i < NP; ++i)
+          if (on[i])
+            *reinterpret_cast<uint32_t*>(dst + 64 * i + 2 * lane) =
+                pack_bf16(acc[2 * i], acc[2 * i + 1]);
       }
       release(g, it, to, xi, rel, empty);
     }
@@ -1360,12 +1351,11 @@ __global__ void __launch_bounds__(160) dx_kernel(
 // each) sums taps 27 q .. 27 q + 26 over every base position of the tile;
 // one f32 partial [taps, slab] per block, written by the thread that owns
 // it.  Its ring is the tuned K7's: x frames and the g tile of each frame.
-template <int S>
 __global__ void __launch_bounds__(224) dk_gen_kernel(
     const __grid_constant__ CUtensorMap tx,
     const __grid_constant__ CUtensorMap tg, float* partial,
     const __grid_constant__ Geo g) {
-  constexpr int COL = 2 * S;
+  const int S = g.S, COL = 2 * S;
   extern __shared__ __align__(128) unsigned char smem[];
   const int c0 = blockIdx.y * S;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.bar_off);
@@ -1641,24 +1631,22 @@ int pool_mode(const Geo& g, const CUtensorMap& tx, const PoolArgs& a, int grid,
   }
 }
 
-template <int S>
+template <int NP>
 int launch_gen(const Geo& g, const CUtensorMap& tx, const PoolArgs& a,
                int grid, int smem, cudaStream_t stream) {
-  const int rc = grant<halo_gen_kernel<S>>();
+  const int rc = grant<halo_gen_kernel<NP>>();
   if (rc) return rc;
-  halo_gen_kernel<S><<<dim3(grid, g.C / S), g.consumers + 32, smem, stream>>>(
-      tx, a, g);
+  halo_gen_kernel<NP><<<dim3(grid, g.C / g.S), g.consumers + 32, smem,
+                        stream>>>(tx, a, g);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the general instance of the slab's width: one bf16 pair a lane up to 64
+// channels, two up to 128
 int gen_slab(const Geo& g, const CUtensorMap& tx, const PoolArgs& a, int grid,
              int smem, cudaStream_t stream) {
-  switch (g.S) {
-    case 64: return launch_gen<64>(g, tx, a, grid, smem, stream);
-    case 96: return launch_gen<96>(g, tx, a, grid, smem, stream);
-    case 128: return launch_gen<128>(g, tx, a, grid, smem, stream);
-    default: return ERR_PLAN;
-  }
+  return g.S <= 64 ? launch_gen<1>(g, tx, a, grid, smem, stream)
+                   : launch_gen<2>(g, tx, a, grid, smem, stream);
 }
 
 template <int KT, int SS>
@@ -1706,12 +1694,11 @@ int dk_mode(const Geo& g, const CUtensorMap& tx, const CUtensorMap& tg,
   }
 }
 
-template <int S>
 int launch_dk_gen(const Geo& g, const CUtensorMap& tx, const CUtensorMap& tg,
                   float* partial, int grid, int smem, cudaStream_t stream) {
-  const int rc = grant<dk_gen_kernel<S>>();
+  const int rc = grant<dk_gen_kernel>();
   if (rc) return rc;
-  dk_gen_kernel<S><<<dim3(grid, g.C / S), g.consumers + 32, smem, stream>>>(
+  dk_gen_kernel<<<dim3(grid, g.C / g.S), g.consumers + 32, smem, stream>>>(
       tx, tg, partial, g);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1722,9 +1709,10 @@ bool tuned_shape(int C, int kT, int kH, int kW, int sT) {
   return kH == 3 && kW == 3 && (kT == 1 || kT == 3) && sT == 1 && C % SLAB == 0;
 }
 
-// the shapes the general instance takes
+// the shapes the general instance takes (the slab S: a multiple of 8 up to
+// 128, whole 16-byte TMA units and at most two bf16 pairs a lane)
 bool gen_shape(int S, int kT, int kH, int kW, int sT, int sH, int sW) {
-  return (S == 64 || S == 96 || S == 128) && (kT == 1 || kT == 3) &&
+  return S % 8 == 0 && S >= 8 && S <= 128 && (kT == 1 || kT == 3) &&
          (kH == 3 || kH == 5) && (kW == 3 || kW == 5) && (sT == 1 || sT == 2) &&
          sH >= 1 && sH <= 8 && sW >= 1 && sW <= 8;
 }
@@ -1735,7 +1723,8 @@ bool gen_shape(int S, int kT, int kH, int kW, int sT, int sH, int sW) {
 // ops/pool.py:pool_plan's.  The tuned route takes kernels (1|3, 3, 3) at T
 // stride 1 with C a multiple of 96 and, with the LN, head_dim 96; the
 // general route kernels (1|3, 3|5, 3|5), T stride 1 or 2, spatial strides
-// 1 to 8, a slab of 64, 96 or 128 channels (with the LN, head_dim).
+// 1 to 8, a slab of a multiple of 8 channels up to 128 that divides C (with
+// the LN, head_dim).
 extern "C" int svit_pool_ln(const bf16* x, const float* w, const float* g,
                             const float* b, bf16* out, int B, int T, int H,
                             int W, int C, int kT, int kH, int kW, int sT,
@@ -1870,11 +1859,7 @@ extern "C" int svit_conv_dk(const bf16* x, const bf16* g, float* partial,
   rc = encode_map_5d(&tg, g, gdims, gbox, step);
   if (rc) return rc;
   if (gen) {
-    switch (slab) {
-      case 64: rc = launch_dk_gen<64>(geo, tx, tg, partial, grid, smem, stream); break;
-      case 96: rc = launch_dk_gen<96>(geo, tx, tg, partial, grid, smem, stream); break;
-      default: rc = launch_dk_gen<128>(geo, tx, tg, partial, grid, smem, stream);
-    }
+    rc = launch_dk_gen(geo, tx, tg, partial, grid, smem, stream);
   } else {
     rc = kT == 3 ? dk_mode<3>(geo, tx, tg, partial, grid, smem, stream)
                  : dk_mode<1>(geo, tx, tg, partial, grid, smem, stream);

@@ -51,6 +51,11 @@ _SIGNATURES = {
         _P, _P, _F, _I,                    # mask_add, mask_out, keep, rows
         _I, _I, _I, _I, _P,                # bm, ncw, stages, splits, stream
     ],
+    "svit_ln_rows": [
+        _P, _P, _P, _F, _I,                # x, x_add, mask_add, keep, rows
+        _P, _P, _F, _P, _P,                # ln_g, ln_b, eps, s_out, xn
+        _I, _I, _I, _I, _I, _P,            # M, K, parts, R, smem, stream
+    ],
     "svit_pool_ln": [
         _P, _P, _P, _P, _P,                # x, w, ln_g, ln_b, out
         _I, _I, _I, _I, _I,                # B, T, H, W, C

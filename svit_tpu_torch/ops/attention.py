@@ -208,9 +208,34 @@ PARTIAL_BYTES_MAX = 1 << 28   # f32 dK | dV partials of K5's query splits
 BLOCKS_BY_REGS = {"fwd": 2, "bwd_q": 2, "bwd_kv": 1}
 
 
+HD_MAX = 128       # o, dq, dk, dv: HD / 2 f32 accumulators a thread, in registers
+
+
+def head_instance(C: int, heads: int) -> Tuple[int, int]:
+    """(hd, HD): a head's width and the compiled instance that runs it,
+    ``HD = 32 ceil(hd / 32)`` (48 runs in 64, 72 in 96), or a ValueError
+    naming the card's rule the shape breaks."""
+    if heads < 1 or C % heads:
+        raise ValueError(f"pooled attention needs C divisible by heads "
+                         f"(C={C}, heads={heads})")
+    hd = C // heads
+    if hd % 8:
+        raise ValueError(
+            f"pooled attention takes head_dim a multiple of 8: TMA reads "
+            f"each head through a tensor map whose strides are multiples of "
+            f"16 bytes (head_dim={hd}, C={C}, heads={heads})")
+    if hd > HD_MAX:
+        raise ValueError(
+            f"pooled attention takes head_dim up to {HD_MAX}: the output "
+            f"and gradient accumulators (head_dim / 2 f32 a thread) live in "
+            f"registers (head_dim={hd}, C={C}, heads={heads})")
+    return hd, 32 * _cdiv(hd, 32)
+
+
 def attention_smem(kind: str, hd: int, rk: int, stages: int) -> int:
     """Dynamic shared memory of one block of ``kind`` ("fwd", "bwd_q",
-    "bwd_kv"), as ``csrc/attention.cu`` lays it out (``fwd_smem``,
+    "bwd_kv") of the instance ``hd`` (HD: a multiple of 32), as
+    ``csrc/attention.cu`` lays it out (``fwd_smem``,
     ``bwd_q_smem``, ``bwd_kv_smem``): the resident tiles (the 64-row q tile
     and bias rows, with the dO tile on the query side; or the key side's K |
     V | one-hot tiles), the ring's slots (K | V | one-hot tiles of 64 keys;
@@ -276,37 +301,38 @@ def attention_plan(B: int, Nq: int, Nk: int, C: int, heads: int, R: int, *,
     ``kT + kH + kW``, 0 without a bias.
 
     A block is one consumer warpgroup of 64 rows (queries; or keys on K5's
-    key side) and the producer warp; keys come in tiles of 64.  The bias
-    product takes ``rk = ceil(R / 16)`` k-steps at head_dim 96 (the
-    compiled instances); other head widths pad R to 48 (``rk`` 3).  A key
-    grid past 48 (a block without k|v pooling) pads R to 128 (``RK_WIDE``)
-    at every head width, and a grid past 128 (256 px or more) pads it to
-    256 (``RK_CHUNKED``): the scores take all 16 k-steps, and K5's query
-    side takes dbias in two 128-column chunks, one more pass over the key
-    tiles for the second (``chunks``).  Past 256 the plan raises.  The
+    key side) and the producer warp; keys come in tiles of 64.  A head of
+    width hd (a multiple of 8 up to 128) runs in the instance ``HD = 32
+    ceil(hd / 32)`` (``head_instance``), whose tiles TMA zero-fills past
+    hd.  The bias product takes ``rk = ceil(R / 16)`` k-steps in the HD =
+    96 instances (the compiled ones); the others pad R to 48 (``rk`` 3).  A
+    key grid past 48 (a block without k|v pooling) pads R to 128
+    (``RK_WIDE``) in every instance, and a grid past 128 (256 px or more)
+    pads it to 256 (``RK_CHUNKED``): the scores take all 16 k-steps, and
+    K5's query side takes dbias in two 128-column chunks, one more pass
+    over the key tiles for the second (``chunks``).  Past 256 the plan
+    raises.  The
     ring takes the most stages (up to ``STAGES_MAX``, and no more than it
     carries) that keep the blocks an SM that the registers allow.  K5's key
     side splits the query tiles until its blocks fill the card twice,
     within ``PARTIAL_BYTES_MAX`` of f32 partials."""
-    if C % heads or C // heads not in (64, 96, 128):
-        raise ValueError(f"pooled attention takes head_dim 64, 96 or 128 "
-                         f"(C={C}, heads={heads})")
-    hd = C // heads
+    _, inst = head_instance(C, heads)
     if R > 16 * RK_CHUNKED:
-        raise ValueError(f"the rel-pos bias takes kT + kH + kW <= "
-                         f"{16 * RK_CHUNKED}, two 128-column chunks of the "
-                         f"compiled instances (R={R})")
+        raise ValueError(
+            f"the rel-pos bias takes kT + kH + kW <= {16 * RK_CHUNKED}: K5's "
+            f"query side keeps its dbias rows in registers, two 128-column "
+            f"chunks at most (R={R})")
     if R > 16 * RK_WIDE:
         rk = RK_CHUNKED
     elif R > 48:
         rk = RK_WIDE
     else:
-        rk = 0 if R == 0 else (_cdiv(R, 16) if hd == 96 else 3)
+        rk = 0 if R == 0 else (_cdiv(R, 16) if inst == 96 else 3)
     n_kt, q_tiles = _cdiv(Nk, BQ), _cdiv(Nq, BQ)
     kind = "bwd_q" if backward else "fwd"
-    stages = _stages(kind, hd, rk,
+    stages = _stages(kind, inst, rk,
                      (1 + chunks(rk)) * n_kt if backward else n_kt)
-    smem = attention_smem(kind, hd, rk, stages)
+    smem = attention_smem(kind, inst, rk, stages)
     blocks = q_tiles * heads * B
     if not backward:
         return AttnPlan(stages, rk, blocks, smem, _per_sm(kind, smem))
@@ -316,8 +342,8 @@ def attention_plan(B: int, Nq: int, Nk: int, C: int, heads: int, R: int, *,
         splits -= 1
     per = _cdiv(q_tiles, splits)
     splits = _cdiv(q_tiles, per)          # no split without a tile
-    kv_stages = _stages("bwd_kv", hd, rk, per)
-    kv_smem = attention_smem("bwd_kv", hd, rk, kv_stages)
+    kv_stages = _stages("bwd_kv", inst, rk, per)
+    kv_smem = attention_smem("bwd_kv", inst, rk, kv_stages)
     return AttnPlan(stages, rk, blocks, smem, _per_sm(kind, smem), kv_stages,
                     splits, per, key_blocks * splits, kv_smem)
 
@@ -357,7 +383,7 @@ def pooled_attention_reference(q, kv, bias_src, k_shape: Triple, scale: float,
     return out + q if q_residual else out
 
 
-def _checked(q, kv, bias_src, k_shape, heads, what):
+def _checked(q, kv, bias_src, k_shape, heads):
     """Validate a kernel call; returns R = kT + kH + kW, 0 without a
     bias."""
     B, Nq, C = q.shape
@@ -365,10 +391,7 @@ def _checked(q, kv, bias_src, k_shape, heads, what):
     dt = torch.bfloat16
     _lib.check(q, "q", dt)
     _lib.check(kv, "kv", dt, (B, Nk, 2 * C), q.device)
-    hd = C // heads
-    if C % heads or hd not in (64, 96, 128):
-        raise ValueError(f"{what} takes head_dim 64, 96 or 128 "
-                         f"(C={C}, heads={heads})")
+    head_instance(C, heads)
     if bias_src is None:
         return 0
     k_t, k_h, k_w = k_shape
@@ -395,7 +418,7 @@ def pooled_attention_fwd(q, kv, bias_src, k_shape: Triple, scale: float,
                                                    scale, heads, q_residual))
     B, Nq, C = q.shape
     Nk = kv.shape[1]
-    R = _checked(q, kv, bias_src, k_shape, heads, "pooled_attention")
+    R = _checked(q, kv, bias_src, k_shape, heads)
     out = torch.empty_like(q)
     if q.numel():
         plan = attention_plan(B, Nq, Nk, C, heads, R,
@@ -473,7 +496,7 @@ def pooled_attention_bwd(q, kv, bias_src, do, k_shape: Triple, scale: float,
                                               scale, heads, q_residual)
     B, Nq, C = q.shape
     Nk = kv.shape[1]
-    R = _checked(q, kv, bias_src, k_shape, heads, "pooled_attention_bwd")
+    R = _checked(q, kv, bias_src, k_shape, heads)
     _lib.check(do, "do", torch.bfloat16, (B, Nq, C), q.device)
     dq = torch.empty_like(q)
     dkv = torch.empty_like(kv)

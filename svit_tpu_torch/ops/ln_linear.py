@@ -19,7 +19,11 @@ Weights keep the PyTorch ``[out, in]`` layout.  On a CPU tensor the wrapper
 runs the plain version ``ln_linear_reference``; on a CUDA tensor it launches
 the kernel or raises.  ``ln_linear_plan`` picks the launch (path, rows per
 block, consumer warpgroups, ring stages, blocks per row panel) from the
-shapes alone.  The uses
+shapes alone.  A prologue past the resident panel (K > ``PANEL_K_MAX``:
+MViTv2-L's last stage) runs as a pass of its own first (``ln_rows_kernel``,
+counted as ``ln_linear_prologue``), which writes ``s`` and the LN'd rows
+bit for bit as the panel forms them; the GEMM path then takes those rows.
+The uses
 below are the JAX package's fused kernels: ``fused_ln_qkv``,
 ``fused_ln_dense``, ``fused_ffn_residual`` (two launches: the hidden
 activation goes through device memory) and its drop-path form
@@ -119,10 +123,55 @@ class Plan:
     n_tiles: int
     smem: int            # dynamic shared memory per block, bytes
     blocks_per_sm: int   # what the shared memory and registers admit
+    rows_pass: Optional["RowsPass"] = None   # the prologue's own pass first
 
     @property
     def blocks(self) -> int:
         return self.m_tiles * self.splits
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsPass:
+    """K1's prologue pass (``csrc/ln_linear.cu:ln_rows_kernel``): the
+    panel's partial sums a row (``parts``, in the panel's order), rows a
+    block (``rows``: ``parts * rows`` threads) and its shared memory."""
+    parts: int
+    rows: int
+    smem: int
+
+
+PASS_PARTS = 4      # a row's partial sums where no panel takes the K
+
+
+def rows_pass_smem(K: int, rows: int, parts: int) -> int:
+    """Shared memory of a prologue-pass block, as ``csrc/ln_linear.cu:
+    rows_smem`` counts it: the staged rows (each an odd number of 16-byte
+    units), the partial sums and each row's mean and rstd in f32."""
+    units = K // 8
+    return rows * 16 * (units if units % 2 else units + 1) + 4 * (
+        parts * rows + 2 * rows)
+
+
+def rows_pass_plan(M: int, N: int, K: int, split: Optional[int] = None,
+                   sms: int = 132) -> RowsPass:
+    """The prologue pass of an ``[M, K]`` LN or ``x_add`` prologue: the
+    sums in the order of the panel that ``ln_linear_plan`` would launch at
+    this K (``ncw * 128 / bm`` parts a row), or ``PASS_PARTS`` past it;
+    ``128 / parts`` rows a block, halved while they do not fit."""
+    kc = _cdiv(K, BK)
+    if kc * BK <= PANEL_K_MAX:
+        panel = ln_linear_plan(M, N, K, prologue=True, split=split, sms=sms)
+        parts = panel.ncw * 128 // panel.bm
+    else:
+        parts = PASS_PARTS
+    rows = 128 // parts
+    while rows > 1 and rows_pass_smem(K, rows, parts) > SMEM_BLOCK:
+        rows //= 2
+    smem = rows_pass_smem(K, rows, parts)
+    if smem > SMEM_BLOCK:
+        raise ValueError(f"ln_linear's prologue pass: a row of K={K} does "
+                         f"not fit shared memory")
+    return RowsPass(parts, rows, smem)
 
 
 # the most blocks an SM holds by their registers (launch bounds of
@@ -134,11 +183,15 @@ STAGES_MAX = 6
 
 @functools.lru_cache(maxsize=None)
 def ln_linear_plan(M: int, N: int, K: int, *, prologue: bool,
-                   split: Optional[int] = None, sms: int = 132) -> Plan:
+                   split: Optional[int] = None, sms: int = 132,
+                   force_pass: bool = False) -> Plan:
     """The launch of K1 for an ``[M, K] @ [N, K].T`` call.
 
     With a prologue (LN or ``x_add``) a block keeps ``bm`` rows of all of K
     resident (K up to ``PANEL_K_MAX``); without one, A streams with W.
+    Past ``PANEL_K_MAX`` (or with ``force_pass``, to hold the two against
+    each other) the prologue is a pass of its own (``rows_pass_plan``) and
+    this is the streaming launch on its rows (``Plan.rows_pass``).
     The streaming GEMM and panels of K <= 192 take 64-row blocks of one
     consumer warpgroup, up to three an SM, so that one block's prologue and
     epilogue run under another's products.  Wider panels take one block an
@@ -156,9 +209,10 @@ def ln_linear_plan(M: int, N: int, K: int, *, prologue: bool,
     if split is not None and (split % 8 or not 0 < split <= N):
         raise ValueError(f"split {split} must be a multiple of 8 in (0, {N}]")
     kc = _cdiv(K, BK)
-    if prologue and kc * BK > PANEL_K_MAX:
-        raise ValueError(f"ln_linear's LN panel holds K <= {PANEL_K_MAX} "
-                         f"(K={K})")
+    if prologue and (force_pass or kc * BK > PANEL_K_MAX):
+        return dataclasses.replace(
+            ln_linear_plan(M, N, K, prologue=False, split=split, sms=sms),
+            rows_pass=rows_pass_plan(M, N, K, split, sms))
     n_tiles = _cdiv(N, BN)
 
     def per_sm(bm, ncw, stages):   # blocks an SM holds
@@ -268,11 +322,14 @@ def ln_linear_mm(x, w, bias=None, *, ln=None, gelu=False,
 
 def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
               round_then_bias=False, residual=None, split=None,
-              mask_add=None, mask_out=None, keep=1.0, rows=1, out_f32=False):
+              mask_add=None, mask_out=None, keep=1.0, rows=1, out_f32=False,
+              force_pass=False):
     """Kernel K1 (``csrc/ln_linear.cu``); same contract as
     ``ln_linear_reference``.  Takes bf16 activations and weights, f32 LN
-    parameters and bias; with ``ln`` or ``x_add``, K up to ``PANEL_K_MAX``.
-    A launch with a mask counts as ``ln_linear_masked``."""
+    parameters and bias.  With ``ln`` or ``x_add`` past ``PANEL_K_MAX``
+    (or with ``force_pass``) the prologue pass runs first (counted as
+    ``ln_linear_prologue``).  A launch with a mask counts as
+    ``ln_linear_masked``."""
     if x.device.type == "cpu":
         return ln_linear_reference(
             x, w, bias, ln=ln, x_add=x_add, gelu=gelu,
@@ -291,7 +348,8 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
     _lib.check(x, "x", dt)
     _lib.check(w, "w", dt, (N, K), x.device)
     plan = ln_linear_plan(M, N, K, prologue=ln is not None or x_add is not None,
-                          split=split, sms=_lib.sm_count(x.device))
+                          split=split, sms=_lib.sm_count(x.device),
+                          force_pass=force_pass)
     if x_add is not None:
         _lib.check(x_add, "x_add", dt, (M, K), x.device)
     if residual is not None:
@@ -308,7 +366,7 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
             if f32 is None else None)
     out1 = (torch.empty((M, N - n_split), dtype=dt, device=x.device)
             if n_split < N else None)
-    s = torch.empty_like(x) if x_add is not None else None
+    s = s_ret = torch.empty_like(x) if x_add is not None else None
     masks = [m for m in (mask_add, mask_out) if m is not None]
     if mask_add is not None and x_add is None:
         raise ValueError("mask_add scales x_add, which is missing")
@@ -318,9 +376,23 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
         _lib.check(m, "mask", torch.float32, (M // rows,), x.device)
     mode = (_BIAS_NONE if bias is None
             else _BIAS_IO if round_then_bias else _BIAS_F32)
+    counter = "ln_linear_masked" if masks else "ln_linear"
+    if plan.rows_pass is not None:   # the prologue's rows, then the GEMM
+        xn = (torch.empty_like(x) if ln is not None else None)
+        if M:
+            rp = plan.rows_pass
+            _lib.launch(
+                "svit_ln_rows", "ln_linear_prologue", _lib.ptr(x),
+                _lib.ptr(x_add), _lib.ptr(mask_add), _round_bf16(keep),
+                int(rows), _lib.ptr(ln[0]) if ln else None,
+                _lib.ptr(ln[1]) if ln else None, EPS, _lib.ptr(s),
+                _lib.ptr(xn), M, K, rp.parts, rp.rows, rp.smem,
+                _lib.stream())
+        x = xn if xn is not None else s
+        ln = x_add = s = mask_add = None
     if M:
         _lib.launch(
-            "svit_ln_linear", "ln_linear_masked" if masks else "ln_linear",
+            "svit_ln_linear", counter,
             _lib.ptr(x), _lib.ptr(x_add), _lib.ptr(s),
             _lib.ptr(ln[0]) if ln else None, _lib.ptr(ln[1]) if ln else None,
             EPS, _lib.ptr(w), _lib.ptr(bias), mode, int(gelu),
@@ -330,7 +402,7 @@ def ln_linear(x, w, bias=None, *, ln=None, x_add=None, gelu=False,
             _round_bf16(keep), int(rows),
             plan.bm, plan.ncw, plan.stages, plan.splits, _lib.stream())
     y = f32 if out_f32 else out0 if split is None else (out0, out1)
-    return y if x_add is None else (y, s)
+    return y if s_ret is None else (y, s_ret)
 
 
 # ---------------------------------------------------------------------------

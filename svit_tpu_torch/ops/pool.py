@@ -28,8 +28,10 @@
   tuned instance takes the main path's shapes ((1|3) x 3 x 3 kernels at T
   stride 1, 96-channel slabs; K6 at stride 1 as K2's bare loop on the
   flipped filter); the general one kernels (1|3, 3|5, 3|5), T stride 1 or
-  2, spatial strides 1 to 8 and head widths 64, 96 and 128 (K7: T stride
-  1, sH = sW).  Other shapes raise.
+  2, spatial strides 1 to 8 (K7: T stride 1, sH = sW) and a slab of any
+  multiple of 8 channels up to 128 that divides C: K2's LN over one head
+  of that width, the other calls the widest such slab.  Other shapes
+  raise.
 
 ``fused_pool_ln`` is differentiable.  Its backward follows JAX ``_fpl_bwd``
 -> ``_pool_ln_recompute``: the conv is recomputed by K2's bare mode and
@@ -61,7 +63,7 @@ EPS = 1e-6
 
 # The launch plans of K2, K6 and K7 (``csrc/pool.cu``: ``Geo``, ``make_geo``)
 SLAB = 96                  # channels a block of the tuned instances owns
-SLABS = (64, 96, 128)      # a general instance's slab: one head group
+SLAB_MAX = 128             # a general slab's widest: two bf16 pairs a lane
 SMEM_BLOCK_MAX = 232448    # shared memory one block may take
 SMEM_SM = 233472           # shared memory of one SM; each block also
 SMEM_RESERVED = 1024       # takes this much for the system
@@ -268,7 +270,10 @@ def dk_takes(shape, kernel: Triple, stride: Triple) -> bool:
 
 
 def _route(shape, kernel, stride, kind, head_dim):
-    """(route, slab) of a call, or a ValueError naming the limit."""
+    """(route, slab) of a call, or a ValueError naming the card's rule that
+    the call breaks.  The general instance's slab: the head (K2's LN), else
+    96, 128 or 64 channels where one divides C, else the widest multiple
+    of 8 up to ``SLAB_MAX`` that does."""
     C = shape[-1]
     kT, kH, kW = kernel
     sT, sH, sW = stride
@@ -285,15 +290,24 @@ def _route(shape, kernel, stride, kind, head_dim):
         raise ValueError(
             f"K2, K6 and K7 take kernels (1|3, 3|5, 3|5), T stride 1 or 2 "
             f"and spatial strides 1 to 8 (kernel {kernel}, stride {stride})")
+    if C % 8:
+        raise ValueError(f"K2, K6 and K7 take C a multiple of 8: TMA loads "
+                         f"a slab of channels as whole 16-byte units (C={C})")
     if head_dim is not None:
-        if head_dim not in SLABS or C % head_dim:
-            raise ValueError(f"K2's LN takes head_dim 64, 96 or 128 dividing "
-                             f"C (head_dim {head_dim}, C={C})")
+        if head_dim % 8 or C % head_dim:
+            raise ValueError(
+                f"K2's LN takes head_dim a multiple of 8 that divides C: the "
+                f"slab is one head, loaded by TMA in 16-byte units "
+                f"(head_dim={head_dim}, C={C})")
+        if head_dim > SLAB_MAX:
+            raise ValueError(
+                f"K2's LN takes head_dim up to {SLAB_MAX}: one warp reduces "
+                f"a head, two bf16 pairs a lane (head_dim={head_dim}, C={C})")
         return "gen", head_dim
     for slab in (96, 128, 64):
         if C % slab == 0:
             return "gen", slab
-    raise ValueError(f"K2, K6 and K7 take C a multiple of 64 or 96 (C={C})")
+    return "gen", max(s for s in range(8, SLAB_MAX + 1, 8) if C % s == 0)
 
 
 def pool_plan(shape, kernel: Triple, stride: Triple, kind: str = "pool", *,

@@ -12,7 +12,13 @@ through a preemption and an auto-resume.
 3. phase 2: the same command again auto-resumes from that checkpoint and
    trains to the end;
 4. from the ``json_stats`` train log: the first ``loss_ce`` must be above
-   1.0 and the last below 0.1 (``tools/overfit_hw.py``'s bar).
+   1.0 and the last below 0.1 (``tools/overfit_hw.py``'s bar), and the two
+   phases together must log every (epoch, iter) of the schedule once.
+
+A step takes milliseconds here, so the SIGTERM meets the trainer at no
+fixed point: mid-epoch (a ``_step_`` checkpoint) or between two epochs,
+where the loop saves the finished epoch.  Either is the preemption
+checkpoint; phase 2 must auto-resume from that one (``verdict``).
 
 The recipe (``overfit_cfg``) is ``tests/test_overfit.py``'s at the main
 path's head width (96, one head, so that every kernel takes it) and depth
@@ -40,6 +46,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 COLORS = [(255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0)]
 PREEMPT_AFTER = 6   # logged steps before the SIGTERM
+RESUMED = re.compile(r"Auto-resumed from (.+) \(epoch \d+, iter \d+\)$")
 
 
 def build_fixture(root, frames=12, size=(80, 64)):
@@ -156,6 +163,37 @@ def parse_losses(log_path):
     return out
 
 
+def resumed_from(log_path):
+    """The checkpoints that the runs logged in ``log_path`` auto-resumed
+    from, in order."""
+    with open(log_path, errors="replace") as f:
+        return [m.group(1) for m in
+                (RESUMED.search(line.rstrip("\n")) for line in f) if m]
+
+
+def verdict(log_path, ckpt, n_phase1, n_steps):
+    """The learning proof's findings from the log of both phases: ``ckpt``
+    is the newest checkpoint after phase 1 (None if there is none),
+    ``n_phase1`` the steps phase 1 logged, ``n_steps`` the schedule's.
+    ``resumed``: phase 2 auto-resumed from ``ckpt`` and trained on;
+    ``steps_exact``: every (epoch, iter) was logged once, none lost or
+    repeated across the preemption."""
+    losses = parse_losses(log_path)
+    first, last = losses[0][2], losses[-1][2]
+    resumes = [os.path.basename(p) for p in resumed_from(log_path)]
+    return {
+        "steps_phase1": n_phase1,
+        "preempt_checkpoint": os.path.basename(ckpt) if ckpt else None,
+        "preempt_mid_epoch": bool(ckpt) and "_step_" in ckpt,
+        "steps_total": len(losses), "loss_first": first, "loss_last": last,
+        "resumed": bool(ckpt) and resumes == [os.path.basename(ckpt)]
+        and len(losses) > n_phase1,
+        "steps_exact": len(losses) == n_steps
+        and len({(e, i) for e, i, _ in losses}) == n_steps,
+        "converged": first > 1.0 and last < 0.1,
+    }
+
+
 def launch(cfg_path, log_path):
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     with open(log_path, "ab") as log:
@@ -172,8 +210,10 @@ def run(out):
     root, out_dir = os.path.join(work, "data"), os.path.join(work, "out")
     build_fixture(root)
     cfg_path = os.path.join(work, "overfit.yaml")
+    cfg = overfit_cfg(root, out_dir)
     with open(cfg_path, "w") as f:
-        f.write(overfit_cfg(root, out_dir).dump())
+        f.write(cfg.dump())
+    n_steps = (len(COLORS) // cfg.TRAIN.BATCH_SIZE) * cfg.SOLVER.MAX_EPOCH
     log_path = os.path.join(work, "train.log")
 
     t0 = time.time()
@@ -192,21 +232,14 @@ def run(out):
 
     t1 = time.time()
     rc2 = launch(cfg_path, log_path).wait(timeout=900)
-    losses = parse_losses(log_path)
-    first, last = losses[0][2], losses[-1][2]
     result = {
         "on_card": True, "kernels": True, "mixed_precision": True,
         "phase1_rc": rc1, "phase2_rc": rc2, "sigterm_sent": fired,
-        "steps_phase1": n_phase1,
-        "preempt_checkpoint": os.path.basename(ckpts[-1]) if ckpts else None,
-        "steps_total": len(losses), "loss_first": first, "loss_last": last,
-        "resumed": bool(ckpts) and "_step_" in ckpts[-1]
-        and len(losses) > n_phase1,
-        "converged": first > 1.0 and last < 0.1,
+        **verdict(log_path, ckpts[-1] if ckpts else None, n_phase1, n_steps),
         "phase1_s": phase1_s, "phase2_s": time.time() - t1, "log": log_path,
     }
     result["ok"] = (fired and rc1 == 0 and rc2 == 0 and result["resumed"]
-                    and result["converged"])
+                    and result["steps_exact"] and result["converged"])
     shutil.rmtree(os.path.join(out_dir, "checkpoints"), ignore_errors=True)
     return result
 

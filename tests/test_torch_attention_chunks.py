@@ -133,3 +133,96 @@ def test_chunked_bias_product_and_gradient(k_shape):
     want = ta._bias_grad(ds, k_shape)
     assert float((dbias[..., :R] - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+# ---- head widths past 64, 96 and 128 --------------------------------------
+
+def _cu_instances():
+    """The ``HD`` instances ``svit_pooled_attention`` and
+    ``svit_pooled_attention_bwd`` dispatch to."""
+    src = open(CU).read()
+    out = []
+    for fn in ("svit_pooled_attention(", "svit_pooled_attention_bwd("):
+        body = src[src.index('extern "C" int ' + fn):]
+        body = body[:body.index("\n}\n")]
+        out.append(sorted(int(c) for c in re.findall(r"case (\d+):", body)))
+    return out
+
+
+@pytest.mark.parametrize("hd", [8, 24, 32, 40, 48, 72, 80, 104, 128])
+@pytest.mark.parametrize("R", [0, 15, 22, 120, 136])
+@pytest.mark.parametrize("backward", [False, True])
+def test_a_head_runs_in_its_instance(hd, R, backward):
+    """A head of width hd (a multiple of 8 up to 128) runs in the instance
+    HD = 32 ceil(hd / 32), which the ``.cu`` compiles; the plan's shared
+    memory is that instance's by the ``.cu``'s own sums, and fits; the bias
+    product takes ceil(R / 16) k-steps in the HD = 96 instances, else 3
+    (past 48: 8, past 128: 16)."""
+    cu = _cu_smem()
+    HD = 32 * -(-hd // 32)
+    assert ta.head_instance(2 * hd, 2) == (hd, HD)
+    assert all(HD in inst for inst in _cu_instances())
+    for B, Nq, Nk in ((1, 392, 457), (8, 1568, 1633), (2, 65, 54)):
+        p = ta.attention_plan(B, Nq, Nk, 2 * hd, 2, R, backward=backward,
+                              sms=132)
+        what = f"hd={hd} HD={HD} R={R} B={B} Nq={Nq}: {p}"
+        small = -(-R // 16) if HD == 96 else 3
+        want = (0 if R == 0 else ta.RK_CHUNKED if R > 128 else ta.RK_WIDE
+                if R > 48 else small)
+        assert p.rk == want, what
+        kind = "bwd_q" if backward else "fwd"
+        assert p.smem == cu[kind](HD, p.rk, p.stages) <= ta.SMEM_BLOCK, what
+        assert p.blocks_per_sm * (p.smem + ta.SMEM_RESERVED) <= ta.SMEM_SM
+        if backward:
+            assert p.kv_smem == cu["bwd_kv"](HD, p.rk, p.kv_stages), what
+            assert p.kv_smem + ta.SMEM_RESERVED <= ta.SMEM_SM, what
+
+
+def _pad_heads(t, heads, hd, HD):
+    """[B, N, parts * heads * hd] -> the same with each head's columns
+    zero-padded to HD, as the kernels' tiles land them."""
+    B, N, C = t.shape
+    parts = C // (heads * hd)
+    x = t.view(B, N, parts * heads, hd)
+    return torch.nn.functional.pad(x, (0, HD - hd)).view(B, N, -1)
+
+
+def _strip_heads(t, heads, hd, HD):
+    B, N, C = t.shape
+    return t.view(B, N, C // HD, HD)[..., :hd].reshape(B, N, -1)
+
+
+@pytest.mark.parametrize("hd", [32, 48, 72])
+def test_padded_columns_leave_the_head(hd):
+    """The kernels' arithmetic at a padded width, in f32: heads of width hd
+    zero-padded to HD (what TMA lands), with the caller's scale hd^-0.5,
+    give the hd-wide head's output and gradients in their first hd columns
+    and zeros past them, forward and backward, the bias rows as they
+    are."""
+    HD = 32 * -(-hd // 32)
+    heads, k_shape, extras = 2, (2, 3, 3), 5
+    Nq, Nk = 30, 2 * 3 * 3 + extras
+    g = torch.Generator().manual_seed(hd)
+    q = torch.randn(2, Nq, heads * hd, generator=g)
+    kv = torch.randn(2, Nk, 2 * heads * hd, generator=g)
+    bias = torch.randn(2, heads, Nq, sum(k_shape), generator=g)
+    do = torch.randn(2, Nq, heads * hd, generator=g)
+    scale = hd ** -0.5
+    want = ta.pooled_attention_reference(q, kv, bias, k_shape, scale, heads,
+                                         True)
+    qp, kvp, dop = (_pad_heads(t, heads, hd, HD) for t in (q, kv, do))
+    got = ta.pooled_attention_reference(qp, kvp, bias, k_shape, scale, heads,
+                                        True)
+    torch.testing.assert_close(_strip_heads(got, heads, hd, HD), want)
+    assert not _pad_heads(_strip_heads(got, heads, hd, HD), heads, hd,
+                          HD).ne(got).any()
+    wdq, wdkv, wdb = ta.pooled_attention_bwd_reference(
+        q, kv, bias, do, k_shape, scale, heads, True)
+    dq, dkv, db = ta.pooled_attention_bwd_reference(
+        qp, kvp, bias, dop, k_shape, scale, heads, True)
+    torch.testing.assert_close(_strip_heads(dq, heads, hd, HD), wdq)
+    torch.testing.assert_close(_strip_heads(dkv, heads, hd, HD), wdkv)
+    torch.testing.assert_close(db, wdb)
+    for full in (dq, dkv):
+        stripped = _strip_heads(full, heads, hd, HD)
+        assert torch.equal(_pad_heads(stripped, heads, hd, HD), full)

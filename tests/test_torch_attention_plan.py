@@ -113,8 +113,13 @@ def test_plan_fits_and_covers(forward, backward):
 
 
 def test_plan_refuses_what_the_kernels_cannot_take():
-    with pytest.raises(ValueError, match="head_dim"):
-        ta.attention_plan(8, 64, 64, 80 * 2, 2, 15)
+    # head widths past 128 or not a multiple of 8; 80 runs in the 96
+    # instance (its bias product at ceil(15 / 16) k-steps)
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        ta.attention_plan(8, 64, 64, 136 * 2, 2, 15)
+    with pytest.raises(ValueError, match="head_dim a multiple of 8"):
+        ta.attention_plan(8, 64, 64, 12 * 2, 2, 15)
+    assert ta.attention_plan(8, 64, 64, 80 * 2, 2, 15).rk == 1
     with pytest.raises(ValueError, match="kT"):
         ta.attention_plan(8, 64, 64, 96, 1, 16 * ta.RK_CHUNKED + 1)
     # other head widths pad R to 48: one bias instance each

@@ -560,7 +560,7 @@ def test_pool_raises_outside_the_set(gen):
     ls = torch.ones(96, device="cuda")
     for kernel, stride, hd, what in (((3, 7, 7), (1, 1, 1), 96, "kernels"),
                                      ((3, 3, 3), (3, 1, 1), 96, "T stride"),
-                                     ((3, 3, 3), (1, 1, 1), 32, "head_dim")):
+                                     ((3, 3, 3), (1, 1, 1), 40, "head_dim")):
         w = torch.zeros(96, 1, *kernel, device="cuda")
         with pytest.raises(ValueError, match=what):
             tp.fused_pool_ln(x, w, ls, ls, stride, hd)
@@ -877,3 +877,108 @@ def test_wrapper_rejects_f32_on_the_card(gen):
     w = _randn(gen, 96, 96, dtype=torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
         tl.ln_linear(x, w)
+
+
+# ---- head widths and channel counts past the shipped config's -----------
+# (the JAX package's small schedules: EMBED_DIM 32, head_dim 32; NUM_HEADS
+# 2: head_dim 48; EMBED_DIM 144 NUM_HEADS 2: head_dim 72, C 144 to 1152)
+
+# (k_shape, extras, with bias): R 0 (the extras' queries), R 22 and R 120
+# (a key grid past 48: the wide instance)
+HEAD_WIDTH_KEYS = [((8, 7, 7), 65, False), ((8, 7, 7), 65, True),
+                   ((8, 56, 56), 9, True)]
+
+
+@pytest.mark.parametrize("keys", HEAD_WIDTH_KEYS)
+@pytest.mark.parametrize("hd,heads", [(32, 1), (48, 2), (72, 2)])
+def test_pooled_attention_head_widths(gen, hd, heads, keys):
+    """K4 and K5 at head widths 32, 48 and 72: each in its instance (HD =
+    32, 64, 96), the columns past hd zero-filled by TMA and masked in the
+    stores; the neighbouring heads' columns untouched."""
+    k_shape, extras, bias = keys
+    q, kv, b = _attention_inputs(gen, 2, 700, k_shape, extras, heads, hd,
+                                 bias)
+    before = _lib.LAUNCHES.copy()
+    _gate(ta.pooled_attention, ta.pooled_attention_reference, q, kv, b,
+          k_shape, hd ** -0.5, heads, True)
+    do = _randn(gen, *q.shape)
+    _gate(ta.pooled_attention_bwd, ta.pooled_attention_bwd_reference, q, kv,
+          b, do, k_shape, hd ** -0.5, heads, True)
+    launched = _lib.LAUNCHES - before
+    assert launched["pooled_attention"] >= 1
+    assert launched["pooled_attention_bwd"] >= 1
+
+
+# (C, head_dim): the q pools and the fused k|v pools of the new widths
+POOL_WIDTHS = [(32, 32), (64, 32), (96, 48), (144, 72), (288, 72)]
+
+
+@pytest.mark.parametrize("stride", [(1, 1, 1), (1, 2, 2), (1, 4, 4),
+                                    (1, 8, 8)])
+@pytest.mark.parametrize("C,hd", POOL_WIDTHS)
+def test_pool_head_widths(gen, C, hd, stride):
+    """K2 with the LN over one head of 32, 48 or 72 channels and in bare
+    mode, K6 and K7 at C = 32 and 144 (and the k|v widths): the general
+    instance where no tuned one takes the call, at the slab the plan
+    picks."""
+    shape = (2, 4, 17, 15, C)
+    x, w, ls, lb, g = _wide_inputs(gen, shape, (3, 3, 3), stride)
+    plan = tp.pool_plan(shape, (3, 3, 3), stride, "pool", head_dim=hd)
+    assert plan.slab == (96 if plan.route == "tuned" else hd)
+    before = _lib.LAUNCHES.copy()
+    _gate(tp.fused_pool_ln, tp.pool_ln_reference, x, w, ls, lb, stride, hd)
+    _gate(lambda x, w: tp.depthwise_conv(x, w, stride, hd),
+          lambda x, w: tp.depthwise_conv_reference(x, w, stride), x, w)
+    _gate(tp.depthwise_conv_dx, tp.depthwise_conv_dx_reference, g, w, stride,
+          shape)
+    _gate(tp.depthwise_conv_dk, tp.depthwise_conv_dk_reference, x, g,
+          (3, 3, 3), stride)
+    launched = _lib.LAUNCHES - before
+    for name in ("pool_ln", "pool_conv", "pool_conv_dx", "pool_conv_dk"):
+        assert launched[name] >= 1, name
+
+
+def _prologue_uses(gen, M, C):
+    """K1's uses with a prologue at width C (and ``fused_ffn``)."""
+    uses = _ln_linear_uses(gen, M, C)
+    return {k: uses[k] for k in ("ln_qkv", "ln_dense", "ffn_residual",
+                                 "ffn_residual_masked", "ffn")}
+
+
+@pytest.mark.parametrize("use", ["ln_qkv", "ln_dense", "ffn_residual",
+                                 "ffn_residual_masked", "ffn"])
+def test_ln_linear_prologue_pass(gen, use):
+    """Each K1 use with an LN prologue at K = 1152 (MViTv2-L's last stage):
+    the prologue pass, then the GEMM path, under the gate."""
+    kernel, plain, inputs, _ = _prologue_uses(gen, 392, 1152)[use]
+    before = _lib.LAUNCHES["ln_linear_prologue"]
+    _gate(kernel, plain, *inputs)
+    assert _lib.LAUNCHES["ln_linear_prologue"] == before + 1
+
+
+@pytest.mark.parametrize("M,N", [(3137, 768), (3137, 2304), (1000, 3072),
+                                 (333, 96)])
+@pytest.mark.parametrize("mode", ["ln", "x_add", "masked"])
+def test_ln_linear_prologue_pass_is_the_panel(gen, M, N, mode):
+    """At K = 768, where the resident panel takes the prologue too, the
+    pass and its GEMM agree with the panel bit for bit: the rows, the sum
+    s and the output (each plan's order of the LN's partial sums)."""
+    K = 768
+    x, a = _randn(gen, M, K), _randn(gen, M, K)
+    w = _randn(gen, N, K, scale=K ** -0.5)
+    b = _randn(gen, N, scale=0.1, dtype=torch.float32)
+    kw = dict(ln=_ln(gen, K), gelu=True)
+    if mode != "ln":
+        kw["x_add"] = a
+    if mode == "masked":
+        kw.update(mask_add=(torch.arange(M // 1, device="cuda") % 3 > 0
+                            ).float(), keep=0.7)
+    panel = tl.ln_linear(x, w, b, **kw)
+    before = _lib.LAUNCHES["ln_linear_prologue"]
+    passed = tl.ln_linear(x, w, b, force_pass=True, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["ln_linear_prologue"] == before + 1
+    panel = panel if isinstance(panel, tuple) else (panel,)
+    passed = passed if isinstance(passed, tuple) else (passed,)
+    for p_, q_ in zip(panel, passed):
+        assert torch.equal(p_.view(torch.int16), q_.view(torch.int16))

@@ -117,11 +117,11 @@ def test_dk_plan_fits_and_covers(forward):
 
 
 def test_plan_rejects_what_the_kernels_do_not_take():
-    """Outside the stated set: C no multiple of 64 or 96, a kernel side of
-    7 or an even one, a T stride of 3, a spatial stride past 8, an LN head
-    width other than 64, 96 and 128, and K7 at a T stride of 2 or sH != sW
-    off the tuned instance's shapes."""
-    with pytest.raises(ValueError, match="multiple"):
+    """Outside the stated set: C no multiple of 8, a kernel side of 7 or an
+    even one, a T stride of 3, a spatial stride past 8, an LN head width
+    past 128, not a multiple of 8 or not dividing C, and K7 at a T stride
+    of 2 or sH != sW off the tuned instance's shapes."""
+    with pytest.raises(ValueError, match="multiple of 8"):
         tp.pool_plan((2, 4, 8, 8, 100), (3, 3, 3), (1, 1, 1))   # C
     with pytest.raises(ValueError, match="kernels"):
         tp.pool_plan((2, 4, 8, 8, 96), (3, 7, 7), (1, 1, 1))    # kernel
@@ -131,9 +131,11 @@ def test_plan_rejects_what_the_kernels_do_not_take():
         tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (3, 1, 1))    # T stride
     with pytest.raises(ValueError, match="strides 1 to 8"):
         tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (1, 9, 9))    # > 8
-    with pytest.raises(ValueError, match="head_dim"):
-        tp.pool_plan((2, 4, 8, 8, 96), (3, 3, 3), (1, 1, 1),
-                     head_dim=32)
+    for C, hd, rule in ((272, 136, "up to 128"), (96, 12, "multiple of 8"),
+                        (96, 40, "divides C")):
+        with pytest.raises(ValueError, match=rule):
+            tp.pool_plan((2, 4, 8, 8, C), (3, 3, 3), (1, 1, 1),
+                         head_dim=hd)
     for stride in ((2, 2, 2), (1, 2, 1)):
         with pytest.raises(ValueError, match="_dk_pallas"):
             tp.pool_plan((2, 4, 8, 8, 128), (3, 5, 5), stride, "dk")
@@ -508,7 +510,18 @@ GEN_POOL = [((2, 3, 9, 11, 128), (3, 3, 3), (1, 1, 1), 64),
             ((1, 5, 9, 10, 128), (3, 3, 3), (2, 2, 2), 128),
             ((1, 5, 8, 9, 192), (1, 5, 3), (2, 1, 3), 96),
             ((1, 2, 17, 13, 128), (3, 5, 5), (1, 4, 4), None),
-            ((2, 1, 19, 17, 64), (3, 3, 5), (1, 8, 8), None)]
+            ((2, 1, 19, 17, 64), (3, 3, 5), (1, 8, 8), None),
+            # the widths past 64, 96 and 128: the LN over one head of 32,
+            # 48 or 72 channels (q and k|v pools), bare mode at C = 32 and
+            # 144 (slabs 32 and 72)
+            ((2, 3, 9, 11, 32), (3, 3, 3), (1, 2, 2), 32),
+            ((1, 3, 9, 10, 64), (3, 3, 3), (1, 1, 1), 32),
+            ((2, 3, 9, 11, 96), (3, 3, 3), (1, 2, 2), 48),
+            ((1, 3, 10, 9, 192), (3, 3, 3), (1, 4, 4), 48),
+            ((2, 3, 9, 11, 144), (3, 3, 3), (1, 2, 2), 72),
+            ((1, 3, 17, 13, 288), (3, 3, 3), (1, 8, 8), 72),
+            ((2, 3, 9, 11, 32), (3, 3, 3), (1, 1, 1), None),
+            ((1, 3, 9, 11, 144), (3, 3, 3), (1, 4, 4), None)]
 
 
 @pytest.mark.parametrize("shape,kernel,stride,hd", GEN_POOL)
@@ -547,7 +560,10 @@ DX_CASES = [((2, 3, 13, 17, 192), (3, 3, 3), (1, 2, 2)),
             ((2, 1, 9, 10, 96), (3, 3, 3), (1, 2, 2)),
             ((1, 5, 9, 10, 128), (3, 5, 5), (2, 2, 1)),
             ((1, 4, 8, 9, 64), (1, 3, 5), (2, 3, 2)),
-            ((1, 3, 9, 8, 128), (3, 5, 3), (1, 1, 1))]
+            ((1, 3, 9, 8, 128), (3, 5, 3), (1, 1, 1)),
+            ((2, 3, 13, 11, 32), (3, 3, 3), (1, 2, 2)),
+            ((1, 3, 17, 19, 144), (3, 3, 3), (1, 4, 4)),
+            ((1, 3, 9, 10, 144), (3, 3, 3), (1, 1, 1))]
 
 
 @pytest.mark.parametrize("shape,kernel,stride", DX_CASES)
@@ -587,7 +603,10 @@ def test_dx_parity_classes_at_the_main_strides():
 
 GEN_DK = [((2, 3, 9, 11, 128), (3, 5, 5), (1, 2, 2)),
           ((1, 3, 13, 10, 64), (3, 3, 3), (1, 1, 1)),
-          ((1, 2, 17, 19, 128), (1, 5, 5), (1, 4, 4))]
+          ((1, 2, 17, 19, 128), (1, 5, 5), (1, 4, 4)),
+          ((2, 3, 9, 11, 32), (3, 3, 3), (1, 2, 2)),
+          ((1, 3, 17, 13, 144), (3, 3, 3), (1, 8, 8)),
+          ((1, 3, 9, 10, 144), (3, 3, 3), (1, 1, 1))]
 
 
 @pytest.mark.parametrize("shape,kernel,stride", GEN_DK)
@@ -597,3 +616,27 @@ def test_emulated_general_dk_matches_the_twin(shape, kernel, stride):
     x, _, _, _, g = _inputs(shape, kernel, stride)
     _close(emulate_gen_dk(x, g, kernel, stride),
            tp.depthwise_conv_dk_reference(x, g, kernel, stride))
+
+
+@pytest.mark.parametrize("C,hd,slab", [(32, None, 32), (144, None, 72),
+                                       (48, None, 48), (40, None, 40),
+                                       (288, 72, 72), (96, 48, 48),
+                                       (64, 32, 32), (256, 128, 128)])
+def test_general_slab_and_lanes(C, hd, slab):
+    """The general instance's slab: the head with the LN, else 96, 128 or
+    64 where one divides C, else the widest multiple of 8 up to 128 that
+    does.  ``csrc/pool.cu:halo_gen_kernel<NP>`` (NP = 1 up to 64 channels,
+    2 up to 128): lane l holds the pairs 64 i + 2 l, + 1 for i < NP that
+    lie in the slab, so its lanes hold each channel once; K7's groups take
+    S / 2 threads, one pair each, within its 224 threads."""
+    kernel, stride = (3, 3, 5), (1, 2, 2)     # no tuned instance
+    plan = tp.pool_plan((1, 3, 9, 11, C), kernel, stride, head_dim=hd)
+    assert (plan.route, plan.slab) == ("gen", slab if hd is None else hd)
+    S = plan.slab
+    NP = 1 if S <= 64 else 2
+    held = [64 * i + 2 * lane + e for i in range(NP) for lane in range(32)
+            for e in (0, 1) if 64 * i + 2 * lane < S]
+    assert sorted(held) == list(range(S))
+    dk = tp.pool_plan((1, 3, 9, 11, C), (3, 3, 3), (1, 2, 2), "dk")
+    if dk.route == "gen":
+        assert dk.threads - 32 >= dk.slab // 2 and dk.threads <= 224
