@@ -79,12 +79,24 @@ gloo rank runs ``run_net.main`` with its group up, so ``launch_job``
 calls the entry point in that process).  The mode prints one JSON line
 (details in ``chiprun_out/entry_probe.json``, each run's output in
 ``chiprun_out/entry_<run>.log``) and exits non-zero on a failed gate.
+
+Every run (each of runs 1 to 5, the default mode's ranks) is a process
+group of its own with a time limit (``LIMITS``, about 1.5 times its wall
+on four cards).  A run past its limit has each rank's Python stack dumped
+into its log, then its whole group (a process a card, their loader
+workers) killed; a run past its limit or exiting non-zero prints its
+name, its log's last lines, each rank's last stage and stack, and the
+probe exits 1 with ``{"ok": false, "failed_run": ...}``.  The kernel
+library is built before any rank starts.
 """
 
 import argparse
 import json
 import os
 import pickle
+import re
+import resource
+import signal
 import socket
 import statistics
 import subprocess
@@ -203,11 +215,224 @@ def rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+# ---------------------------------------------------------------------------
+# Bounded runs: every run of the probe is a process group of its own with a
+# time limit, so that a stalled collective ends the run, not the call
+# ---------------------------------------------------------------------------
+
+# a run's limit in seconds, (card, CPU): about 1.5 times its wall on four
+# NVIDIA H100 80GB HBM3 at 700 W on the slower of two hosts (runs 1 to 4:
+# 140.0, 155.3, 132.7, 81.4 s; the faster host's 90.5, 102.1, 95.5, 57.7);
+# the timed pass's four ranks took 44.1 s there and were still capturing
+# at 75 s on the slower host (PERF.md); a wide margin on the CPU
+LIMITS = {"1_data": (210, 240), "2_remat": (240, 240),
+          "3_resume": (200, 240), "4_test_gradcam": (120, 240),
+          "5_timed_data": (180, 180), "5_timed_one": (120, 120),
+          "default": (90, 120)}
+TAIL = 30               # lines of a failed run's log printed
+STAGE = re.compile(r"rank (\d+) of \d+: (.*)$")
+
+
+class RunFailed(Exception):
+    """A bounded run that exited non-zero or passed its limit (its report
+    is printed already)."""
+
+
+def stager(label, rank, procs):
+    """``say(what)``: where this rank is, on stderr, with its seconds since
+    the call; a stalled run's report names each rank's last stage."""
+    t_start = time.perf_counter()
+
+    def say(what):   # one write, so that ranks' lines do not interleave
+        sys.stderr.write(f"{label}, rank {rank} of {procs}: {what} "
+                         f"({time.perf_counter() - t_start:.1f} s)\n")
+        sys.stderr.flush()
+    return say
+
+
+def _stat(pid):
+    """(state, parent, process group, start time) of ``pid``, or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            st = f.read()
+    except OSError:
+        return None
+    fields = st[st.rindex(")") + 2:].split()
+    return fields[0], int(fields[1]), int(fields[2]), int(fields[19])
+
+
+def group_processes(pgid):
+    """The live (not zombie) processes of process group ``pgid``:
+    {pid: (parent, start time)}."""
+    out = {}
+    for d in os.listdir("/proc"):
+        st = _stat(d) if d.isdigit() else None
+        if st and st[2] == pgid and st[0] not in "ZX":
+            out[int(d)] = st[1], st[3]
+    return out
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def main_stack(dump):
+    """The innermost frames of the main thread in a ``faulthandler`` dump
+    (the thread block that ends at ``<module>``), else of the first."""
+    blocks, cur = [], None
+    for line in dump.splitlines():
+        if line.startswith(("Thread 0x", "Current thread 0x")):
+            cur = []
+            blocks.append(cur)
+        elif cur is not None and line.strip().startswith("File "):
+            cur.append(line.strip())
+    main = [b for b in blocks if b and b[-1].endswith("in <module>")]
+    return (main or blocks or [[]])[0][:8]
+
+
+def dump_stacks(pgid, log_path):
+    """Each rank's Python stack, for a stalled run: the group is stopped,
+    then each rank (the leader's children that ``multiprocessing``
+    spawned, in start order; else the leader) is sent SIGABRT and let run
+    alone, so its ``faulthandler`` dump (``PYTHONFAULTHANDLER``) lands in
+    the log by itself.  Returns [(label, innermost frames)]."""
+    procs = group_processes(pgid)
+    ranks = sorted((start, pid) for pid, (parent, start) in procs.items()
+                   if parent == pgid and "spawn_main" in _cmdline(pid))
+    labelled = [(f"rank {i}", pid) for i, (_, pid) in enumerate(ranks)]
+    if not labelled and pgid in procs:
+        labelled = [(f"process {pgid}", pgid)]
+    try:
+        os.killpg(pgid, signal.SIGSTOP)
+    except ProcessLookupError:
+        return []
+    stacks = []
+    for label, pid in labelled:
+        start = os.path.getsize(log_path)
+        try:
+            os.kill(pid, signal.SIGABRT)
+            os.kill(pid, signal.SIGCONT)
+        except ProcessLookupError:
+            continue
+        deadline = time.monotonic() + 3
+        while time.monotonic() < deadline and (_stat(pid) or "Z")[0] not in \
+                "ZX":
+            time.sleep(0.05)
+        with open(log_path, errors="replace") as f:
+            f.seek(start)
+            stacks.append((label, main_stack(f.read())))
+    return stacks
+
+
+def kill_group(pgid, wait=10.0):
+    """SIGKILL every process of group ``pgid`` and wait until none is
+    left (or ``wait`` seconds)."""
+    deadline = time.monotonic() + wait
+    while True:
+        try:
+            os.killpg(pgid, signal.SIGKILL)
+        except ProcessLookupError:
+            return
+        if not group_processes(pgid) or time.monotonic() > deadline:
+            return
+        time.sleep(0.05)
+
+
+def report(name, limit, rc, log_path, lines, stacks):
+    """Print what a failed or stalled run left: its name, its limit, its
+    log's last lines, each rank's last stage and stack."""
+    how = (f"stopped at its limit of {limit} s" if rc is None
+           else f"exited {rc}")
+    print(f"parallel_probe: run {name} {how}; the last {TAIL} lines of "
+          f"{os.path.relpath(log_path, REPO)}:", flush=True)
+    for line in lines[-TAIL:]:
+        print(f"  | {line}")
+    stages = {}
+    for line in lines:
+        m = STAGE.search(line)
+        if m:
+            stages[int(m.group(1))] = m.group(2)
+    for rank in sorted(stages):
+        print(f"  rank {rank}, last stage: {stages[rank]}")
+    for label, frames in stacks:
+        print(f"  {label}, stack (innermost first):")
+        for frame in frames:
+            print(f"    {frame}")
+    sys.stdout.flush()
+
+
+def bounded(name, cmd, limit, log_path):
+    """Run ``cmd`` from the repo as a process group of its own, its output
+    in ``log_path``, for at most ``limit`` seconds.  On expiry every rank's
+    stack is dumped and the whole group (a process a card, their loader
+    workers) killed; on expiry or a non-zero exit the report is printed
+    and ``RunFailed`` raised.  Any process of the group left after a
+    clean exit is killed too."""
+    env = dict(os.environ, PYTHONFAULTHANDLER="1")
+    soft, hard = resource.getrlimit(resource.RLIMIT_CORE)
+    resource.setrlimit(resource.RLIMIT_CORE, (0, hard))   # no core files
+    try:
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                                    stderr=subprocess.STDOUT, env=env,
+                                    start_new_session=True)
+    finally:
+        resource.setrlimit(resource.RLIMIT_CORE, (soft, hard))
+    stacks = []
+    try:
+        rc = proc.wait(timeout=limit)
+    except subprocess.TimeoutExpired:
+        rc = None
+        with open(log_path, errors="replace") as f:
+            lines = f.read().splitlines()
+        stacks = dump_stacks(proc.pid, log_path)
+    finally:
+        kill_group(proc.pid)
+        proc.wait()
+    if rc == 0:
+        return
+    if rc is not None:
+        with open(log_path, errors="replace") as f:
+            lines = f.read().splitlines()
+    report(name, limit, rc, log_path, lines, stacks)
+    raise RunFailed(name)
+
+
+def limit_of(name, cpu):
+    return LIMITS[name][1 if cpu else 0]
+
+
+def spawn_cmd(kind, procs, *args):
+    """The command that runs ``torch.multiprocessing.spawn`` of this
+    file's ``RANK_FNS[kind]`` on ``procs`` ranks with ``args``."""
+    return [sys.executable, os.path.abspath(__file__), "--ranks", kind,
+            json.dumps({"procs": procs, "args": list(args)})]
+
+
+def prebuild(cpu):
+    """Build the kernel library before any rank starts (else the first rank
+    to launch a kernel builds it while the others wait in their first
+    step); returns its seconds (None on the CPU)."""
+    if cpu:
+        return None
+    from svit_tpu_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.build()
+    return time.perf_counter() - t0
+
+
 def rank_main(rank, procs, init, cpu, out_path):
     import torch.distributed as dist
 
+    from svit_tpu_torch.parallel import dist as du
     from svit_tpu_torch.parallel import mesh as meshlib
 
+    say = stager("default mode", rank, procs)
     torch.set_num_threads(1)
     device = torch.device("cpu" if cpu else f"cuda:{rank}")
     if not cpu:
@@ -227,15 +452,18 @@ def rank_main(rank, procs, init, cpu, out_path):
                 plain[name] = step_once(cfg, one, on(video, device),
                                         on(image, device), device,
                                         dtype=dtype, use_kernels=False)
+        say("one-process steps done")
     dist.init_process_group("gloo" if cpu else "nccl",
                             init_method=f"file://{init}", world_size=procs,
                             rank=rank)
+    say("group up")
     try:
         dp = meshlib.build_mesh(data=procs, model=1)
         lo, hi = rank, rank + 1
         d_loss, d_g, d_p, again = step_once(
             cfg, dp, on(video, device, lo, hi), on(image, device, lo, hi),
             device, twice=True)
+        say(f"data {procs}: steps done")
         # every rank holds the same parameters after the step
         sums = torch.stack([p.double().sum() for p in d_p.values()]).to(
             device)
@@ -249,8 +477,10 @@ def rank_main(rank, procs, init, cpu, out_path):
         t_loss, t_g, t_p, _ = step_once(
             cfg, tp, on(video, device, lo, hi), on(image, device, lo, hi),
             device)
+        say(f"data {procs // 2} x model 2: step done")
     finally:
-        dist.destroy_process_group()
+        say("leaving the group")
+        du.destroy_process_group()
     if rank == 0:
         r_loss, r_g, r_p, _ = ref
         out = {"procs": procs, "device": "cpu" if cpu else
@@ -318,18 +548,14 @@ def free_port() -> int:
 
 
 def run_net(name, argv, cpu, procs):
-    """``run_net`` as a user runs it: on the card a process of its own
-    (its ``launch_job`` spawning a process a card), its output in
-    ``chiprun_out/entry_<name>.log``; on the CPU ``procs`` gloo processes,
-    each running ``run_net.main`` with its group up."""
-    if not cpu:
-        with open(os.path.join(OUT, f"entry_{name}.log"), "w") as log:
-            subprocess.run([sys.executable, "-m",
-                            "svit_tpu_torch.tools.run_net", *argv],
-                           cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-                           check=True)
-        return
-    torch.multiprocessing.spawn(cpu_rank, args=(procs, argv), nprocs=procs)
+    """``run_net`` as a user runs it, bounded: on the card a process of its
+    own (its ``launch_job`` spawning a process a card); on the CPU
+    ``procs`` gloo processes, each running ``run_net.main`` with its group
+    up.  Its output goes to ``chiprun_out/entry_<name>.log``."""
+    cmd = (spawn_cmd("run_net", procs, procs, argv) if cpu else
+           [sys.executable, "-m", "svit_tpu_torch.tools.run_net", *argv])
+    bounded(name, cmd, limit_of(name, cpu),
+            os.path.join(OUT, f"entry_{name}.log"))
 
 
 def cpu_rank(rank, procs, argv):
@@ -343,7 +569,7 @@ def cpu_rank(rank, procs, argv):
     try:
         rn.main(argv, device="cpu")
     finally:
-        torch.distributed.destroy_process_group()
+        du.destroy_process_group()
 
 
 def logged(out):
@@ -389,15 +615,10 @@ def rank_timed(rank, procs, init, argv, cpu, out_dir):
     from svit_tpu_torch.config import assert_and_infer_cfg, load_config, \
         parse_args
     from svit_tpu_torch.engine import graphs
+    from svit_tpu_torch.parallel import dist as du
     from svit_tpu_torch.parallel import mesh as meshlib
 
-    t_start = time.perf_counter()
-
-    def say(what):   # where a rank is, should the pass stall
-        print(f"timed pass, rank {rank} of {procs}: {what} "
-              f"({time.perf_counter() - t_start:.1f} s)", file=sys.stderr,
-              flush=True)
-
+    say = stager("timed pass", rank, procs)
     torch.set_num_threads(1)
     device = torch.device("cpu" if cpu else f"cuda:{rank}")
     if not cpu:
@@ -456,16 +677,20 @@ def rank_timed(rank, procs, init, argv, cpu, out_dir):
             if not cpu:
                 torch.cuda.empty_cache()
     finally:
-        dist.destroy_process_group()
+        say("leaving the group")
+        du.destroy_process_group()
     with open(os.path.join(out_dir, f"timed_rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def timed_pass(argv, cpu, procs, tmp):
-    """``rank_timed`` on ``procs`` ranks; returns every rank's figures."""
+def timed_pass(name, argv, cpu, procs, tmp):
+    """``rank_timed`` on ``procs`` ranks, bounded as run ``name`` (its
+    output in ``chiprun_out/entry_<name>.log``); returns every rank's
+    figures."""
     out = tempfile.mkdtemp(dir=tmp)
-    torch.multiprocessing.spawn(rank_timed, args=(
-        procs, os.path.join(out, "init"), argv, cpu, out), nprocs=procs)
+    bounded(name, spawn_cmd("timed", procs, procs, os.path.join(out, "init"),
+                            argv, cpu, out),
+            limit_of(name, cpu), os.path.join(OUT, f"entry_{name}.log"))
     ranks = []
     for r in range(procs):
         with open(os.path.join(out, f"timed_rank{r}.json")) as f:
@@ -478,8 +703,14 @@ def timed_figures(cpu, procs, tmp):
     replay's median against one card's, and the all-reduce's stand-in."""
     base = entry_opts(cpu, os.path.join(tmp, "ssv2"),
                       os.path.join(tmp, "timed"), procs, procs, 1)
-    out = {"data": summarize_timed(timed_pass(base, cpu, procs, tmp)),
-           "one_card": summarize_timed(timed_pass(base, cpu, 1, tmp))}
+    out, walls = {}, {}
+    for key, name, n in (("data", "5_timed_data", procs),
+                         ("one_card", "5_timed_one", 1)):
+        t0 = time.perf_counter()
+        out[key] = summarize_timed(timed_pass(name, base, cpu, n, tmp))
+        walls[key] = time.perf_counter() - t0
+        print(f"entry_probe: {name} {walls[key]:.1f} s", flush=True)
+    out["walls_s"] = walls
     step_ms = statistics.median(out["data"]["no_remat"]["replay_ms"])
     reduce_ms = out["data"]["all_reduce_alone_ms"]
     out["replay_over_one_card"] = (
@@ -492,11 +723,11 @@ def timed_figures(cpu, procs, tmp):
 
 def timed_main(cpu, procs):
     """``--entry --timed``: run 5 alone, one JSON line."""
-    import chip_smoke
-
+    os.makedirs(OUT, exist_ok=True)
+    build_s = prebuild(cpu)
     out = timed_figures(cpu, procs, tempfile.mkdtemp())
-    out.update(procs=procs, cpu_count=os.cpu_count(),
-               card=None if cpu else chip_smoke.card_line())
+    out.update(procs=procs, cpu_count=os.cpu_count(), build_s=build_s,
+               cards=None if cpu else card_lines())
     print(json.dumps(out), flush=True)
     return 0 if out["all_reduce_timed"] else 1
 
@@ -583,19 +814,19 @@ def event_files(out):
 
 
 def entry_main(cpu, procs):
-    import chip_smoke
     from svit_tpu_torch.utils import checkpoint as cu
 
     t_start = time.perf_counter()
     os.makedirs(OUT, exist_ok=True)
+    build_s = prebuild(cpu)
     tmp = tempfile.mkdtemp()
     root = os.path.join(tmp, "ssv2")
     t0 = time.perf_counter()
     tree = write_tree(root, cpu)
     steps = tree[0] * tree[2] // (VIDEO_PER_RANK * procs)
-    res = {"procs": procs, "cpu_count": os.cpu_count(),
+    res = {"procs": procs, "cpu_count": os.cpu_count(), "build_s": build_s,
            "device": "cpu" if cpu else torch.cuda.get_device_name(0),
-           "card": None if cpu else chip_smoke.card_line(),
+           "cards": None if cpu else card_lines(),
            "tree": dict(zip(("videos", "frames", "listed", "val_videos"),
                             tree), seconds=time.perf_counter() - t0),
            "per_rank_batch": [VIDEO_PER_RANK, IMAGE_PER_RANK],
@@ -691,7 +922,7 @@ def entry_main(cpu, procs):
     res["gates"], res["ok"] = gates, all(gates.values())
     with open(os.path.join(OUT, "entry_probe.json"), "w") as f:
         json.dump(res, f, indent=1)
-    brief = {k: res[k] for k in ("procs", "device", "card", "cpu_count",
+    brief = {k: res[k] for k in ("procs", "device", "cards", "cpu_count",
                                  "gates", "ok", "resume", "timed",
                                  "walls_s")}
     brief["test"] = {k: res["test"][k] for k in (
@@ -702,6 +933,45 @@ def entry_main(cpu, procs):
     return 0 if res["ok"] else 1
 
 
+def card_lines():
+    """Each card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()
+
+
+def default_main(cpu, procs):
+    """The default mode, bounded: the captured step at data ``procs`` and
+    at data ``procs / 2`` x model 2 against one process; one JSON line."""
+    os.makedirs(OUT, exist_ok=True)
+    build_s = prebuild(cpu)
+    tmp = tempfile.mkdtemp()
+    out_path = os.path.join(tmp, "result.json")
+    t0 = time.perf_counter()
+    bounded("default", spawn_cmd("default", procs, procs,
+                                 os.path.join(tmp, "init"), cpu, out_path),
+            limit_of("default", cpu), os.path.join(OUT, "default_probe.log"))
+    wall_s = time.perf_counter() - t0
+    with open(out_path) as f:
+        out = json.load(f)
+    gates = ({"loss": 1e-6, "grads": 1e-4, "params": 1e-6} if cpu else
+             {"loss": 1e-4, "grads": 2e-2, "params": 1e-3})
+    held = ("dp_vs_one", "tp_vs_dp") if cpu else ("dp_vs_one",)
+    ok = (out["dp_replay_bit_equal"] and out["dp_ranks_equal"]
+          and all(out[c][k] <= v for c in held for k, v in gates.items())
+          and all(g["err_model2"] <= g["limit"]
+                  for g in out.get("bf16_gate", {}).values()))
+    out.update(gates=gates, ok=ok, build_s=build_s, wall_s=wall_s,
+               cards=None if cpu else card_lines())
+    print(json.dumps(out), flush=True)
+    return 0 if ok else 1
+
+
+# what ``--ranks KIND`` spawns
+RANK_FNS = {"run_net": cpu_rank, "timed": rank_timed, "default": rank_main}
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--cpu", action="store_true")
@@ -710,8 +980,16 @@ def main():
                    help="the entry points through run_net")
     p.add_argument("--timed", action="store_true",
                    help="with --entry: its timed pass (run 5) alone")
+    p.add_argument("--ranks", nargs=2, metavar=("KIND", "JSON"),
+                   help="(a bounded run's own command) spawn the ranks of "
+                   "KIND with the JSON's procs and args")
     args = p.parse_args()
     sys.path.insert(0, REPO)
+    if args.ranks:
+        kind, payload = args.ranks[0], json.loads(args.ranks[1])
+        torch.multiprocessing.spawn(RANK_FNS[kind], args=tuple(
+            payload["args"]), nprocs=payload["procs"])
+        return 0
     if not args.cpu and not torch.cuda.is_available():
         print("parallel_probe: no CUDA device (pass --cpu)", file=sys.stderr)
         return 2
@@ -720,28 +998,13 @@ def main():
         print(f"parallel_probe: needs an even number of processes, not "
               f"{procs}", file=sys.stderr)
         return 2
-    if args.entry:
-        return (timed_main if args.timed else entry_main)(args.cpu, procs)
-    tmp = tempfile.mkdtemp()
-    out_path = os.path.join(tmp, "result.json")
-    torch.multiprocessing.spawn(rank_main, args=(
-        procs, os.path.join(tmp, "init"), args.cpu, out_path), nprocs=procs)
-    with open(out_path) as f:
-        out = json.load(f)
-    gates = ({"loss": 1e-6, "grads": 1e-4, "params": 1e-6} if args.cpu else
-             {"loss": 1e-4, "grads": 2e-2, "params": 1e-3})
-    held = ("dp_vs_one", "tp_vs_dp") if args.cpu else ("dp_vs_one",)
-    ok = (out["dp_replay_bit_equal"] and out["dp_ranks_equal"]
-          and all(out[c][k] <= v for c in held for k, v in gates.items())
-          and all(g["err_model2"] <= g["limit"]
-                  for g in out.get("bf16_gate", {}).values()))
-    out["gates"], out["ok"] = gates, ok
-    if not args.cpu:
-        import chip_smoke
-
-        out["card"] = chip_smoke.card_line()
-    print(json.dumps(out), flush=True)
-    return 0 if ok else 1
+    run = (timed_main if args.timed else entry_main) if args.entry else \
+        default_main
+    try:
+        return run(args.cpu, procs)
+    except RunFailed as e:
+        print(json.dumps({"ok": False, "failed_run": str(e)}), flush=True)
+        return 1
 
 
 if __name__ == "__main__":

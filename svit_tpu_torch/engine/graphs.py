@@ -51,6 +51,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import weakref
 from typing import Any, Callable, Optional
 
 import torch
@@ -60,6 +61,10 @@ from svit_tpu_torch.ops import _lib
 # warm-up calls before a capture: the first builds and caches, the second
 # runs as the capture will
 WARMUP = 2
+
+
+# every captured graph still alive, for ``release_all``
+_LIVE: "weakref.WeakSet[CudaGraph]" = weakref.WeakSet()
 
 
 class CudaGraph:
@@ -74,11 +79,30 @@ class CudaGraph:
         outputs).  ``generator`` is a CUDA generator ``fn`` draws from."""
         if generator is not None:
             self.graph.register_generator_state(generator)
+        _LIVE.add(self)
         with no_collection(), torch.cuda.graph(self.graph):
             return fn()
 
     def replay(self) -> None:
         self.graph.replay()
+
+    def release(self) -> None:
+        """Destroy the captured graph (a later replay raises)."""
+        self.graph.reset()
+
+
+def release_all() -> None:
+    """Destroy every captured graph of this process that is still alive,
+    whoever still refers to it.  NCCL destroys a communicator only once no
+    graph that captured one of its collectives is left (``ncclCommDestroy``
+    waits for them without end), so a process group's teardown
+    (``parallel/dist.py:destroy_process_group``) calls this first."""
+    live = list(_LIVE)
+    if live:
+        torch.cuda.synchronize()
+    for graph in live:
+        graph.release()
+    _LIVE.clear()
 
 
 @contextlib.contextmanager

@@ -36,6 +36,14 @@ class Timer:
     def pause(self):
         self._paused = time.perf_counter()
 
+    def resume(self):
+        """Count again after ``pause``, keeping the seconds counted so
+        far."""
+        if self._paused is not None:
+            self._total += self._paused - self._start
+            self._start = time.perf_counter()
+            self._paused = None
+
     def seconds(self) -> float:
         end = self._paused if self._paused is not None else time.perf_counter()
         return end - self._start + self._total
@@ -124,6 +132,11 @@ class TrainMeter:
     def data_toc(self):
         self.data_timer.pause()
         self.net_timer.reset()
+
+    def data_resume(self):
+        """Count a wait for data inside the step's window (the next batch,
+        fetched while the step runs) until the next ``data_toc``."""
+        self.data_timer.resume()
 
     def update_stats(self, lr: float, mb_size: int, dloss: Dict[str, float]):
         self.lr = lr

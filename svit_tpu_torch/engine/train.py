@@ -448,7 +448,11 @@ def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
                              + cur_iter / trainer.steps_per_epoch)
         # the graph's output is overwritten by the next replay
         pending.append((cur_iter, lr, n_videos, metrics.clone()))
-        nxt = fetch()   # the next batch's wait and copies overlap the step
+        # the next batch's wait and copies overlap the step; its wait is
+        # this window's data time (``dt_data``, as JAX's loop counts it)
+        train_meter.data_resume()
+        nxt = fetch()
+        train_meter.data_toc()
         train_meter.iter_toc()
         at_log = (cur_iter + 1) % cfg.LOG_PERIOD == 0
         if at_log:

@@ -51,6 +51,20 @@ def init_distributed(cfg, local_rank: int = 0, local_world=None,
                 world, backend, cfg.INIT_METHOD)
 
 
+def destroy_process_group() -> None:
+    """Leave the job's process group (a no-op with none up), after
+    destroying every CUDA graph this process captured: a graph that
+    captured an NCCL collective keeps its communicator, and
+    ``ncclCommDestroy`` waits for it without end (four ranks of the timed
+    pass stalled so, their all-reduce's graph alive)."""
+    from svit_tpu_torch.engine import graphs
+
+    if not dist.is_initialized():
+        return
+    graphs.release_all()
+    dist.destroy_process_group()
+
+
 def is_master_proc() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 

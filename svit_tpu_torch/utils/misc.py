@@ -58,7 +58,7 @@ def _run_job(local_rank, procs, func, cfg, device):
     try:
         _call(func, cfg, device)
     finally:
-        torch.distributed.destroy_process_group()
+        du.destroy_process_group()
 
 
 def launch_job(cfg, init_method=None, func=None, daemon=False, device=None):

@@ -116,3 +116,71 @@ def test_one_rank_nccl_captured_step_equals_no_group(group):
     assert n1 == n2
     assert issued[0] == 0 and issued[1] > 0
     assert c2["nodes"] > c1["nodes"]
+
+
+# Two NCCL ranks: an all-reduce run once, then captured in a graph that is
+# still referenced when the rank leaves the group, by the port's teardown
+# (``port``) or by torch's alone (``torch``, what ``launch_job``'s ranks
+# did before).
+TEARDOWN = r'''
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[5])
+from svit_tpu_torch.engine import graphs
+from svit_tpu_torch.parallel import dist as du
+
+rank, world, init, mode = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=init, world_size=world,
+                        rank=rank)
+x = torch.ones(1 << 20, device="cuda")
+dist.all_reduce(x)
+graph = graphs.CudaGraph()
+graph.capture(lambda: dist.all_reduce(x))
+graph.replay()
+torch.cuda.synchronize()
+(du.destroy_process_group if mode == "port" else dist.destroy_process_group)()
+print("left the group", float(x[0]), flush=True)
+'''
+
+
+def run_teardown(tmp, mode, limit):
+    """``TEARDOWN`` on two cards; returns each rank's (exit code, or None
+    if it was still running after ``limit`` seconds, and its output)."""
+    import signal
+    import subprocess
+    import time
+
+    script = os.path.join(tmp, "teardown.py")
+    with open(script, "w") as f:
+        f.write(TEARDOWN)
+    init = f"file://{os.path.join(tmp, 'init')}"
+    procs = [subprocess.Popen(
+        [sys.executable, script, str(r), "2", init, mode, REPO],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for r in range(2)]
+    deadline = time.monotonic() + limit
+    out = []
+    for p in procs:
+        try:
+            text, _ = p.communicate(timeout=max(deadline - time.monotonic(),
+                                                1))
+            out.append((p.returncode, text))
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            out.append((None, p.communicate()[0]))
+    return out
+
+
+def test_leaving_the_group_releases_captured_collectives(tmp_path):
+    """The port's teardown leaves the group with a graph that captured an
+    NCCL all-reduce still referenced (torch's alone waits for that graph
+    without end in ``ncclCommDestroy``); needs two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    for rc, text in run_teardown(str(tmp_path), "port", 120):
+        assert rc == 0, text[-3000:]
+        # the eager sum (2), then the replay's (4)
+        assert "left the group 4.0" in text, text[-3000:]
