@@ -1,0 +1,11 @@
+"""``mfu.test``: the test step's share of the card's bf16 peak, in %: the
+eval forward's FLOPs a batch of views times the batches of the traced
+window, over the window's length times the peak and the chips."""
+
+
+def read(ctx):
+    s = ctx["summary"]
+    if ctx["kind"] != "test" or not s["units"] or s["window_s"] <= 0:
+        return None
+    return (100.0 * ctx["flops_per_unit"] * s["units"]
+            / (s["window_s"] * ctx["peak_flops"] * ctx["chips"]))
