@@ -34,15 +34,14 @@ def f32_builder(q_grid, num_heads, q_shape, k_shape, *, rel_pos_h, rel_pos_w,
                 rel_pos_t):
     """The builder before the repair: f32 einsums of upcast operands."""
     import torch
-    from torch.profiler import record_function
 
-    from svit_tpu_torch.ops import attention as ta
     from svit_tpu_torch.ops import rel_pos as rp
+    from svit_tpu_torch.utils import tracing
 
     B, Tq, Hq, Wq, C = q_grid.shape
     k_t, k_h, k_w = k_shape
     dt = q_grid.dtype
-    with record_function(ta.BIAS_TAG):
+    with tracing.owner("bias"):
         rq = q_grid.reshape(B, Tq, Hq, Wq, num_heads, C // num_heads).float()
 
         def term(eq, table):

@@ -1127,16 +1127,14 @@ def top_rows(summary, n):
             for k, ms, c in summary["ops"][:n]]
 
 
-def tagged_rows(trace, tags):
-    """[kernel name, device ms, launches] of the kernels launched inside
-    the profiler ranges named ``tags`` (``record_function`` on the host:
-    every op below such a range, with the kernels each launched), busiest
-    first: ``trace_attrib``'s walk from each kernel's launching op."""
-    from svit_tpu_torch.tools import trace_attrib as ta
-
+def owned_rows(trace, owned):
+    """[kernel name, device ms, launches] of the kernels whose owner
+    (``trace_attrib``'s: the program's owner range around the launching
+    op, or for a backward node its forward op's) ``owned`` accepts,
+    busiest first."""
     acc = collections.defaultdict(lambda: [0.0, 0])
     for k in trace.kernels:
-        if ta.within(k.op, tags):
+        if owned(trace.kernel_owner(k)):
             acc[k.name][0] += k.dur / 1e3
             acc[k.name][1] += 1
     return sorted(([n, ms, c] for n, (ms, c) in acc.items()),
@@ -1144,11 +1142,11 @@ def tagged_rows(trace, tags):
 
 
 def bias_rows(trace):
-    """The rel-pos bias builder's kernels in a profile (forward and the
-    backward of its products), with their GEMM rows by operand type."""
-    from svit_tpu_torch.ops import attention as ta
+    """The rel-pos bias builder's kernels in a profile (its owner ``bias``,
+    forward and backward), with their GEMM rows by operand type."""
+    from svit_tpu_torch.utils import tracing
 
-    rows = tagged_rows(trace, (ta.BIAS_TAG, ta.BIAS_BWD_TAG))
+    rows = owned_rows(trace, lambda o: tracing.parts(o)[-1] == "bias")
     by_type = collections.Counter()
     for g in gemm_rows(rows):
         by_type[g["dtype"]] += g["ms"]
@@ -2110,8 +2108,9 @@ class TrainerSpy:
     metric vector (the graph's output is overwritten by the next replay),
     and at ``profile_at`` a profile of the step; the first step's inputs
     with ``capture``; a SIGTERM to this process after step
-    ``sigterm_after``; the epochs' (cur_epoch, start_iter), the eval stats
-    and the resumed state."""
+    ``sigterm_after``; the epochs' (cur_epoch, start_iter), each
+    iteration's data wait as the train meter counts it (``dt_data``), the
+    eval stats and the resumed state."""
 
     def __init__(self, torch, profile_at=None, capture=False,
                  sigterm_after=None, on_resume=None):
@@ -2119,6 +2118,7 @@ class TrainerSpy:
         self.profile_at, self.capture = profile_at, capture
         self.sigterm_after, self.on_resume = sigterm_after, on_resume
         self.trainers, self.steps, self.epochs, self.evals = [], [], [], []
+        self.data_waits = []
         self.first, self.profile = None, None
 
     def __enter__(self):
@@ -2132,8 +2132,10 @@ class TrainerSpy:
                        (ttrain, "train_epoch", ttrain.train_epoch),
                        (ttrain, "eval_epoch", ttrain.eval_epoch),
                        (ttrain.cu, "load_train_state",
-                        ttrain.cu.load_train_state)]
-        base_trainer, base_step, epoch_fn, eval_fn, load_fn = (
+                        ttrain.cu.load_train_state),
+                       (ttrain.meters_lib, "TrainMeter",
+                        ttrain.meters_lib.TrainMeter)]
+        base_trainer, base_step, epoch_fn, eval_fn, load_fn, base_meter = (
             o for _, _, o in self._saved)
 
         class Trainer(base_trainer):
@@ -2186,8 +2188,13 @@ class TrainerSpy:
                 spy.on_resume(path, state)
             return out
 
+        class Meter(base_meter):
+            def iter_toc(self):
+                super().iter_toc()
+                spy.data_waits.append(self.data_timer.seconds())
+
         for (mod, attr, _), new in zip(self._saved, (Trainer, Captured, epoch,
-                                                     evaluate, load)):
+                                                     evaluate, load, Meter)):
             setattr(mod, attr, new)
         return self
 
@@ -2482,9 +2489,12 @@ def run_trainer_phase(torch):
                  for i in range(len(starts) - 1)]
         steady = [w for i, w in enumerate(walls) if i % spe not in
                   (0, spe - 1) and not a.steps[i]["profiled"]]
-        # the data wait before each step but an epoch's first
-        data_ms = [d * 1e3 for d in trainer.data_seconds]
-        steady_data = [d for i, d in enumerate(data_ms) if i % spe]
+        # each step's data wait (``dt_data``: the next batch's, fetched
+        # while the step runs; an epoch's first step waits for its own too,
+        # its last for none)
+        data_ms = [d * 1e3 for d in a.data_waits]
+        steady_data = [d for i, d in enumerate(data_ms)
+                       if i % spe not in (0, spe - 1)]
         wall_q = statistics.quantiles(steady, n=4)
         data_q = statistics.quantiles(steady_data, n=4)
         wall_ms = wall_q[1]
@@ -2560,12 +2570,11 @@ def run_trainer_phase(torch):
             state_e = ttrain.train(cfge)
         torch.cuda.synchronize()
         wall_e = time.perf_counter() - t0
-        trainer_e = e.trainers[0]
         metrics = torch.stack([st["metrics"] for st in e.steps]).cpu()
         starts = [st["t0"] for st in e.steps]
         walls = [(starts[i + 1] - starts[i]) * 1e3
                  for i in range(len(starts) - 1)]
-        data_ms = [d * 1e3 for d in trainer_e.data_seconds]
+        data_ms = [d * 1e3 for d in e.data_waits]
         log(f"phase 9 run E (TPU.DEVICE_AUG, raw {cfge.TPU.RAW_SIZE} px): "
             f"train() {wall_e:.1f} s, {len(e.steps)} steps, losses "
             f"{[round(v, 4) for v in metrics[:, names.index('loss')].tolist()]}"
@@ -2583,7 +2592,7 @@ def run_trainer_phase(torch):
                                 "device_ms": e.profile["device_ms"],
                                 "losses": metrics[:, names.index(
                                     "loss")].tolist()}
-        del e, trainer_e, state_e
+        del e, state_e
     torch.cuda.empty_cache()
     return result, launches
 
@@ -2608,11 +2617,11 @@ def time_calls(fn, torch, n):
     return times
 
 
-def profile_call(fn, torch, model=None):
+def profile_call(fn, torch):
     """One call traced by ``trace_forward.profile_calls`` (no call before
-    it; ``model``'s module scopes if given) and summarized by
-    ``trace_attrib``: its device time, by kernel, family and owner, and
-    the hand-written kernels' launch events by family."""
+    it; an eager call's kernels owned by the program's owner ranges) and
+    summarized by ``trace_attrib``: its device time, by kernel, family and
+    owner, and the hand-written kernels' launch events by family."""
     import tempfile
 
     from svit_tpu_torch.tools import trace_forward as tf
@@ -2620,7 +2629,7 @@ def profile_call(fn, torch, model=None):
     with tempfile.TemporaryDirectory() as tmp:
         s = summary_of(tf.profile_calls(
             fn, 1, torch.device("cuda"), os.path.join(tmp, "call.json"),
-            model, warmup=0))
+            warmup=0))
     return {"device_ms": s["device_ms"], "kernels_ms": s["kernels_ms"],
             "events": int(sum(n for _, _, n in s["ops"])),
             "families": s["hand_written"], "top": top_rows(s, 12),
@@ -2688,11 +2697,11 @@ def check_nodes(what, nodes, launches):
 
 
 def eager_and_graph(what, eager_fn, graph_fn, torch, graph, launches,
-                    model, n=TIMED):
+                    n=TIMED):
     """Timed and profiled eager calls and replays of one path in turns
     (eager, graph, graph, eager); the medians, device times and idle
     shares, and each profile's ``trace_attrib`` summary (the eager call's
-    by ``model``'s modules).  The graph's kernel nodes must match the
+    by the program's owners).  The graph's kernel nodes must match the
     capture's ``launches`` (``check_nodes``), and a profiled replay must
     show every hand-written family the graph holds, never more often."""
     from svit_tpu_torch.tools import trace_attrib as ta
@@ -2703,7 +2712,7 @@ def eager_and_graph(what, eager_fn, graph_fn, torch, graph, launches,
         times[kind] += time_calls(fn, torch, n)
     out = {}
     for kind, fn in (("eager", eager_fn), ("graph", graph_fn)):
-        prof = profile_call(fn, torch, model if kind == "eager" else None)
+        prof = profile_call(fn, torch)
         ms = statistics.median(times[kind])
         out[kind] = dict(prof, ms=times[kind], median_ms=ms,
                          idle_share=max(0.0, 1 - prof["device_ms"] / ms))
@@ -2772,7 +2781,7 @@ def run_compiled_serving(cfg, arch, torch):
                                  "differ from the forward's")
             rows = eager_and_graph(f"serving forward batch {batch}", eager,
                                    lambda: pred.graph(x), torch,
-                                   entry.graph, entry.launches, pred.model)
+                                   entry.graph, entry.launches)
             full = statistics.median(time_calls(lambda: pred.forward(clips),
                                                 torch, 10))
             log(f"phase 10 serving batch {batch}: forward() with the pinned "
@@ -2867,8 +2876,7 @@ def run_compiled_train(cfg, torch, reference):
 
     rows = eager_and_graph("train step", lambda: step_e(state_e, video,
                                                         image, gen_e),
-                           replay, torch, entry.graph, entry.launches,
-                           state_e.model)
+                           replay, torch, entry.graph, entry.launches)
     peak = torch.cuda.max_memory_allocated()
     eager_calls = 2 * TIMED + 1
     per_call = {k: v / eager_calls for k, v in _lib.LAUNCHES.items()}
@@ -3008,8 +3016,7 @@ def run_compiled_eval(cfg, arch, torch):
             (entry,) = captured.entries.values()
             out[name].update(eager_and_graph(
                 f"test forward batch {TEST_BATCH}", lambda: fn(b),
-                lambda: captured(b), torch, entry.graph, entry.launches,
-                model))
+                lambda: captured(b), torch, entry.graph, entry.launches))
         del captured
     del model
     torch.cuda.empty_cache()

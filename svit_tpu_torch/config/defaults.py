@@ -399,7 +399,9 @@ _C.TPU.PARAM_DTYPE = "float32"      # master weights
 _C.TPU.USE_PALLAS_ATTENTION = True  # fused pooled-attention kernel where legal
 _C.TPU.REMAT = False            # jax.checkpoint each block (memory for FLOPs)
 _C.TPU.PREFETCH_DEPTH = 2       # host->device pipeline depth
-_C.TPU.PROFILE_DIR = ""         # jax.profiler trace output ("" = disabled)
+# torch.profiler trace of the first epoch and its device owners, as JSON
+# (engine/train.py; "" = disabled)
+_C.TPU.PROFILE_DIR = ""
 # Device-side training augmentation (svit_tpu/data/device_aug.py): the host
 # ships raw uint8 frames (canonical RAW_SIZE square) and the train step runs
 # crop/flip/shear/rotate/photometric/erasing/normalize on the accelerator.

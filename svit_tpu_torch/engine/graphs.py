@@ -24,7 +24,16 @@ signature into a ``torch.cuda.CUDAGraph`` and replayed:
   (``models/optimizer.py``), which the host sets before each replay;
 - the kernel wrappers count launches on the host, so a replay counts
   nothing: each graph keeps the counts taken while it was captured
-  (``launches``) and its number of replays.
+  (``launches``) and its number of replays;
+- the step's device owners (``utils/tracing.py``) put their marks into
+  the graph as it is captured, and each replay is reported to the
+  tracing module, which reads a graph's owners for its last replay.  A
+  step function names its graph's kind for that table with a ``kind``
+  attribute ("test", "serve"; the train step's is "train", any other
+  inference step's "eval").  While the profiler records, the capture,
+  the copies in, the launch and the copies out are host spans
+  (``graph.capture``, ``graph.copy_in``, ``graph.launch``,
+  ``graph.clone_out``).
 
 A step with ``TPU.REMAT`` captures as it is: each block's recompute runs
 inside the captured backward, with the masks its forward drew and kept
@@ -57,6 +66,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from svit_tpu_torch.ops import _lib
+from svit_tpu_torch.utils import tracing
 
 # warm-up calls before a capture: the first builds and caches, the second
 # runs as the capture will
@@ -207,6 +217,8 @@ class Entry:
 class _Graphs:
     """Graphs of one function, one per input signature."""
 
+    kind = "eval"
+
     def __init__(self, graph_factory: Optional[Callable[[], Any]] = None):
         self.graph_factory = graph_factory or CudaGraph
         self.forced = graph_factory is not None
@@ -222,13 +234,27 @@ class _Graphs:
         graph, its static outputs, the launches counted during the
         capture)."""
         graph = self.graph_factory()
-        with _side_stream(device):
-            for _ in range(WARMUP):
-                fn()
-        before = collections.Counter(_lib.LAUNCHES)
-        outputs = graph.capture(fn, generator)
-        launches = dict(collections.Counter(_lib.LAUNCHES) - before)
+        with tracing.span("graph.capture"):
+            with _side_stream(device):
+                for _ in range(WARMUP):
+                    fn()
+            before = collections.Counter(_lib.LAUNCHES)
+            with tracing.capturing(graph, self.kind, device) as rec:
+                outputs = graph.capture(rec.wrap(fn), generator)
+            launches = dict(collections.Counter(_lib.LAUNCHES) - before)
         return graph, outputs, launches
+
+    @staticmethod
+    def _replay(entry, inputs=None) -> None:
+        """Copy ``inputs`` into the entry's static inputs (none at its
+        capture) and replay its graph."""
+        if inputs is not None:
+            with tracing.span("graph.copy_in"):
+                _copy_into(entry.inputs, inputs)
+        with tracing.span("graph.launch"):
+            entry.graph.replay()
+        entry.replays += 1
+        tracing.replayed(entry.graph)
 
 
 class CapturedStep(_Graphs):
@@ -240,6 +266,7 @@ class CapturedStep(_Graphs):
     def __init__(self, fn, **kwargs):
         super().__init__(**kwargs)
         self.fn = fn
+        self.kind = getattr(fn, "kind", "eval")
 
     def __call__(self, batch):
         if not self.captures(batch):
@@ -252,11 +279,11 @@ class CapturedStep(_Graphs):
                 lambda: self.fn(inputs), tensors(inputs)[0].device)
             entry = self.entries[key] = Entry(graph, inputs, outputs,
                                               launches)
+            self._replay(entry)
         else:
-            _copy_into(entry.inputs, batch)
-        entry.graph.replay()
-        entry.replays += 1
-        return _clone(entry.outputs)
+            self._replay(entry, batch)
+        with tracing.span("graph.clone_out"):
+            return _clone(entry.outputs)
 
 
 class PinnedFeed:
@@ -329,6 +356,8 @@ class CapturedTrainStep(_Graphs):
     call and result as the step; the result is the graph's static output,
     which the next call overwrites (the train loop clones what it keeps)."""
 
+    kind = "train"
+
     def __init__(self, step, **kwargs):
         super().__init__(**kwargs)
         self.step = step
@@ -343,15 +372,14 @@ class CapturedTrainStep(_Graphs):
         if entry is None:
             entry = self.entries[key] = self._capture_step(
                 state, batch, generator)
+            self._replay(entry)
         elif _holds(state) != entry.holds:
             raise RuntimeError(
                 "the train step's graph was captured on other parameters or "
                 "optimizer state (reloaded or rebuilt since); build a new "
                 "CapturedTrainStep")
         else:
-            _copy_into(entry.inputs, batch)
-        entry.graph.replay()
-        entry.replays += 1
+            self._replay(entry, batch)
         state.step += 1
         return state, entry.outputs
 

@@ -59,6 +59,12 @@ The eval steps (``make_eval_step``, ``make_image_eval_step``,
 ``make_test_step``) run the model in eval mode under
 ``torch.inference_mode()`` and return detached tensors on the model's
 device; the batch lies there too.
+
+The steps' phases are device owners (``utils/tracing.py``): the train
+step's ``augment``, ``consistency``, ``video``, ``video_losses``,
+``image``, ``image_losses``, ``backward``, ``all_reduce`` (with a group)
+and ``optimizer`` (the clip and AdamW); the eval and test steps'
+``forward`` (the model's stem, blocks and head inside it).
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ from svit_tpu_torch.models.common import StepCache
 from svit_tpu_torch.models.losses import consistency_loss
 from svit_tpu_torch.models.optimizer import Transform
 from svit_tpu_torch.parallel import mesh as meshlib
+from svit_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -119,26 +126,30 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
         if with_consistency:
             B, T = clips.shape[:2]
             frames = clips.reshape(B * T, 1, *clips.shape[2:])
-            with torch.no_grad():
+            with tracing.owner("consistency"), torch.no_grad():
                 _, fe = m(frames, train=True, generator=generator,
                           cache=cache)
             desc = fe["obj_desc"]
             frames_extra = {"obj_desc": desc.reshape(B, T, -1, desc.shape[-1])}
-        logits, extra = m(clips, train=True, generator=generator,
-                          cache=cache)
-        vdict = loss_obj.video_losses(logits, video_batch["labels"], extra,
-                                      frames_extra, video_batch.get("weight"),
-                                      share)
-        total = video_weight * loss_obj.weighted_sum(vdict)
+        with tracing.owner("video"):
+            logits, extra = m(clips, train=True, generator=generator,
+                              cache=cache)
+        with tracing.owner("video_losses"):
+            vdict = loss_obj.video_losses(logits, video_batch["labels"],
+                                          extra, frames_extra,
+                                          video_batch.get("weight"), share)
+            total = video_weight * loss_obj.weighted_sum(vdict)
         metrics.update(vdict)
         if with_image and image_batch is not None:
-            _, iextra = m(image_batch["frames"], train=True,
-                          generator=generator, cache=cache)
-            idict = loss_obj.image_losses(
-                iextra, {"haog_bboxes": image_batch["haog_bboxes"],
-                         "contact_state": image_batch["contact_state"]},
-                image_batch.get("weight"), share)
-            total = total + image_weight * loss_obj.weighted_sum(idict)
+            with tracing.owner("image"):
+                _, iextra = m(image_batch["frames"], train=True,
+                              generator=generator, cache=cache)
+            with tracing.owner("image_losses"):
+                idict = loss_obj.image_losses(
+                    iextra, {"haog_bboxes": image_batch["haog_bboxes"],
+                             "contact_state": image_batch["contact_state"]},
+                    image_batch.get("weight"), share)
+                total = total + image_weight * loss_obj.weighted_sum(idict)
             metrics.update(idict)
         metrics["loss"] = total
         return total, metrics
@@ -146,25 +157,30 @@ def make_train_step(model, loss_obj, tx, video_weight: float,
     def device_step(state: TrainState, video_batch, image_batch, generator):
         generator = share.draws(generator)
         if device_aug_cfg is not None:
-            video_batch = dict(video_batch, clips=device_aug.device_augment(
-                video_batch["clips"], generator, device_aug_cfg))
-            if image_batch is not None:
-                # the paired affine gives normalised cxcywh HAOG targets
-                frames, haog = device_aug.device_augment_image(
-                    image_batch["frames"], image_batch["haog_bboxes"],
-                    generator, device_aug_cfg)
-                image_batch = dict(image_batch, frames=frames,
-                                   haog_bboxes=haog)
+            with tracing.owner("augment"):
+                clips = device_aug.device_augment(
+                    video_batch["clips"], generator, device_aug_cfg)
+                video_batch = dict(video_batch, clips=clips)
+                if image_batch is not None:
+                    # the paired affine gives normalised cxcywh HAOG targets
+                    frames, haog = device_aug.device_augment_image(
+                        image_batch["frames"], image_batch["haog_bboxes"],
+                        generator, device_aug_cfg)
+                    image_batch = dict(image_batch, frames=frames,
+                                       haog_bboxes=haog)
         m = state.model
         params = [p for p in m.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
         total, metrics = loss_fn(m, video_batch, image_batch, generator)
-        total.backward()
+        with tracing.owner("backward"):
+            total.backward()
         if share.group is not None:
-            meshlib.all_reduce_gradients(params, share.group)
-            metrics = meshlib.all_reduce_scalars(metrics, share.group)
-        metrics["grad_norm"] = state.tx.apply(params)
+            with tracing.owner("all_reduce"):
+                meshlib.all_reduce_gradients(params, share.group)
+                metrics = meshlib.all_reduce_scalars(metrics, share.group)
+        with tracing.owner("optimizer"):
+            metrics["grad_norm"] = state.tx.apply(params)
         return {k: v.detach() for k, v in metrics.items()}
 
     return _counted(device_step)
@@ -259,7 +275,8 @@ def make_eval_step(model, num_classes, loss_obj=None,
     def eval_step(batch) -> Dict[str, torch.Tensor]:
         with _evaluating(model):
             clips = batch["clips"]
-            logits, extra = model(clips, train=False)
+            with tracing.owner("forward"):
+                logits, extra = model(clips, train=False)
             labels = batch["labels"]
             first = logits[num_classes[0][0]] if multitask else logits
             w = _weights(batch, first.shape[0], first.device)
@@ -301,7 +318,8 @@ def make_eval_step(model, num_classes, loss_obj=None,
                 if with_consistency:
                     B, T = clips.shape[:2]
                     frames = clips.reshape(B * T, 1, *clips.shape[2:])
-                    _, fe = model(frames, train=False)
+                    with tracing.owner("consistency"):
+                        _, fe = model(frames, train=False)
                     desc = fe["obj_desc"]
                     key = f"video_image_desc_{loss_obj.consistency_kind}_loss"
                     vdict[key] = consistency_loss(
@@ -324,7 +342,8 @@ def make_image_eval_step(model, loss_obj):
 
     def image_eval_step(batch) -> Dict[str, torch.Tensor]:
         with _evaluating(model):
-            _, iextra = model(batch["frames"], train=False)
+            with tracing.owner("forward"):
+                _, iextra = model(batch["frames"], train=False)
             w = batch.get("weight")
             idict = loss_obj.image_losses(
                 iextra, {"haog_bboxes": batch["haog_bboxes"],
@@ -341,10 +360,11 @@ def make_test_step(model):
     """Multi-view test: per-clip softmax scores for host-side ensembling."""
 
     def test_step(batch) -> torch.Tensor:
-        with _evaluating(model):
+        with _evaluating(model), tracing.owner("forward"):
             logits, _ = model(batch["clips"], train=False)
             return logits
 
+    test_step.kind = "test"   # its graph's kind in the owner tables
     return test_step
 
 

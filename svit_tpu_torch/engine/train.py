@@ -33,7 +33,9 @@ loaders ship raw uint8 frames and the step augments them on the card
   it then saves a mid-epoch checkpoint and returns.
 - Multigrid long cycles rebuild the Trainer at a new (B, T, S), the
   parameters carried over by shape (``train_net.py:541-564``).
-- ``TPU.PROFILE_DIR`` takes a ``torch.profiler`` trace of the first epoch.
+- ``TPU.PROFILE_DIR`` takes a ``torch.profiler`` trace of the first epoch
+  and, beside it, the captured steps' device owners for their last
+  replays and the loop's host spans (``utils/tracing.py``), as JSON.
 - Stochastic depth and dropout draw from a generator on the model's device,
   seeded by (``RNG_SEED``, step) at every step as JAX folds the step into
   its key, so a resumed run draws what the uninterrupted one would; every
@@ -47,10 +49,10 @@ runs on the card, and raises without one.
 
 from __future__ import annotations
 
+import json
 import os
 import pprint
 import signal
-import time
 
 import numpy as np
 import torch
@@ -69,7 +71,7 @@ from svit_tpu_torch.models.optimizer import construct_optimizer
 from svit_tpu_torch.parallel import dist as du
 from svit_tpu_torch.parallel import mesh as meshlib
 from svit_tpu_torch.utils import checkpoint as cu
-from svit_tpu_torch.utils import converter, logging, misc
+from svit_tpu_torch.utils import converter, logging, misc, tracing
 from svit_tpu_torch.utils.lr_policy import get_lr_at_epoch
 
 logger = logging.get_logger(__name__)
@@ -148,8 +150,6 @@ class Trainer:
         self.pixel_dtype = (torch.bfloat16 if cfg.TRAIN.MIXED_PRECISION
                             else None)
         self.generator = torch.Generator(device=self.device)
-        # host seconds of each step's data wait (loader, then the copies)
-        self.data_seconds: list = []
         # the next batch's copies run here while the step replays
         self.copy_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
@@ -366,7 +366,12 @@ def _stop_profile(prof, profile_dir):
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"train_trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)
-    logger.info("Wrote the first epoch's trace to %s", path)
+    owners = os.path.join(profile_dir, f"train_owners_{os.getpid()}.json")
+    with open(owners, "w") as f:
+        json.dump({"graphs": tracing.owner_tables(),
+                   "host_spans": tracing.host_spans()}, f, indent=1)
+    logger.info("Wrote the first epoch's trace to %s and its owners to %s",
+                path, owners)
 
 
 def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
@@ -375,97 +380,121 @@ def train_epoch(cfg, trainer, state, train_meter, cur_epoch,
 
     Returns ``(state, preempted_at)``: ``preempted_at`` is the number of
     completed iterations when SIGTERM arrived (the caller saves a mid-epoch
-    checkpoint), or None when the epoch finished."""
-    image_iter = None
-    if trainer.image_loader is not None:
-        image_iter = trainer.image_loader.iter_batches(
-            start_iter % max(len(trainer.image_loader), 1))
-    mixup_fn = None
-    if cfg.MIXUP.ENABLE:
-        from svit_tpu_torch.data.mixup import MixUp
+    checkpoint), or None when the epoch finished.
 
-        nc = trainer.arch.num_classes
-        mixup_fn = MixUp(
-            mixup_alpha=cfg.MIXUP.ALPHA, cutmix_alpha=cfg.MIXUP.CUTMIX_ALPHA,
-            mix_prob=cfg.MIXUP.PROB, switch_prob=cfg.MIXUP.SWITCH_PROB,
-            label_smoothing=cfg.MIXUP.LABEL_SMOOTH_VALUE,
-            num_classes=nc if isinstance(nc, int) else 0,
-            rng=np.random.default_rng(cfg.RNG_SEED + cur_epoch))
-    # deferred metric fetch: the device vectors of a LOG_PERIOD window, then
-    # one stack and one copy; the NaN guard names the exact step, up to
-    # LOG_PERIOD - 1 steps late
-    pending = []   # (cur_iter, lr, batch count, device metric vector)
+    While the profiler records, the loop's host work is in spans
+    (``utils/tracing.py``) that tile each iteration, none enclosing one:
+    ``train.start`` (entry to the first fetch), ``train.fetch`` (the next
+    batch from the loaders, its copies issued), ``train.dispatch`` (the
+    wait for the copies, the generator's seed and the step's call),
+    ``train.clone`` (the metrics out of the graph), ``train.wait`` (the
+    flush's blocking fetch of a window's metrics) and ``train.meter`` (the
+    NaN guard, the meter, the log and the preemption poll)."""
+    span = tracing.span
+    with span("train.start"):
+        image_iter = None
+        if trainer.image_loader is not None:
+            image_iter = trainer.image_loader.iter_batches(
+                start_iter % max(len(trainer.image_loader), 1))
+        mixup_fn = None
+        if cfg.MIXUP.ENABLE:
+            from svit_tpu_torch.data.mixup import MixUp
 
-    def flush_pending():
-        if not pending:
-            return
-        fetched = torch.stack([m for (_, _, _, m) in pending]).cpu().numpy()
-        names = trainer.metric_names
-        for (it, lr_i, n_i, _), row in zip(pending, fetched):
-            md = dict(zip(names, row.tolist()))
-            steps.check_nan(md, f"(epoch {cur_epoch}, iter {it})")
-            train_meter.update_stats(lr_i, n_i, md)
-        pending.clear()
+            nc = trainer.arch.num_classes
+            mixup_fn = MixUp(
+                mixup_alpha=cfg.MIXUP.ALPHA,
+                cutmix_alpha=cfg.MIXUP.CUTMIX_ALPHA,
+                mix_prob=cfg.MIXUP.PROB, switch_prob=cfg.MIXUP.SWITCH_PROB,
+                label_smoothing=cfg.MIXUP.LABEL_SMOOTH_VALUE,
+                num_classes=nc if isinstance(nc, int) else 0,
+                rng=np.random.default_rng(cfg.RNG_SEED + cur_epoch))
+        # deferred metric fetch: the device vectors of a LOG_PERIOD window,
+        # then one stack and one copy; the NaN guard names the exact step,
+        # up to LOG_PERIOD - 1 steps late
+        pending = []   # (cur_iter, lr, batch count, device metric vector)
 
-    batches = enumerate(trainer.train_loader.iter_batches(start_iter),
-                        start=start_iter)
+        def flush_pending():
+            if not pending:
+                return
+            with span("train.wait"):
+                fetched = torch.stack([m for (_, _, _, m) in pending]) \
+                    .cpu().numpy()
+            with span("train.meter"):
+                names = trainer.metric_names
+                for (it, lr_i, n_i, _), row in zip(pending, fetched):
+                    md = dict(zip(names, row.tolist()))
+                    steps.check_nan(md, f"(epoch {cur_epoch}, iter {it})")
+                    train_meter.update_stats(lr_i, n_i, md)
+                pending.clear()
 
-    def fetch():
-        """The next batch from the loaders, its copies issued ahead."""
-        nonlocal image_iter
-        t_data = time.perf_counter()
-        try:
-            cur_iter, video_batch = next(batches)
-        except StopIteration:
-            return None
-        if mixup_fn is not None:
-            clips, soft = mixup_fn(video_batch["clips"], video_batch["labels"])
-            video_batch = dict(video_batch, clips=clips, labels=soft)
-        image_batch = None
-        if image_iter is not None:
-            try:
-                image_batch = next(image_iter)
-            except StopIteration:
-                image_iter = iter(trainer.image_loader)
-                image_batch = next(image_iter)
-            image_batch = {k: image_batch[k] for k in _IMAGE_KEYS}
-        on_device, ready = trainer.put_ahead(
-            {k: video_batch[k] for k in _VIDEO_KEYS}, image_batch)
-        trainer.data_seconds.append(time.perf_counter() - t_data)
-        return (cur_iter, int(video_batch["weight"].sum()), on_device,
-                ready)
+        batches = enumerate(trainer.train_loader.iter_batches(start_iter),
+                            start=start_iter)
 
-    train_meter.iter_tic()
+        def fetch():
+            """The next batch from the loaders, its copies issued ahead."""
+            nonlocal image_iter
+            with span("train.fetch"):
+                try:
+                    cur_iter, video_batch = next(batches)
+                except StopIteration:
+                    return None
+                if mixup_fn is not None:
+                    clips, soft = mixup_fn(video_batch["clips"],
+                                           video_batch["labels"])
+                    video_batch = dict(video_batch, clips=clips, labels=soft)
+                image_batch = None
+                if image_iter is not None:
+                    try:
+                        image_batch = next(image_iter)
+                    except StopIteration:
+                        image_iter = iter(trainer.image_loader)
+                        image_batch = next(image_iter)
+                    image_batch = {k: image_batch[k] for k in _IMAGE_KEYS}
+                on_device, ready = trainer.put_ahead(
+                    {k: video_batch[k] for k in _VIDEO_KEYS}, image_batch)
+                return (cur_iter, int(video_batch["weight"].sum()),
+                        on_device, ready)
+
+        train_meter.iter_tic()
     nxt = fetch()
     while nxt is not None:
-        cur_iter, n_videos, (vb, image_batch), ready = nxt
-        train_meter.data_toc()
-        trainer.wait_for((vb, image_batch), ready)
-        trainer.generator.manual_seed(step_seed(cfg.RNG_SEED, state.step))
-        state, metrics = trainer.step_fn(state, vb, image_batch,
-                                         trainer.generator)
-        lr = get_lr_at_epoch(cfg, cur_epoch
-                             + cur_iter / trainer.steps_per_epoch)
-        # the graph's output is overwritten by the next replay
-        pending.append((cur_iter, lr, n_videos, metrics.clone()))
+        with span("train.dispatch"):
+            cur_iter, n_videos, (vb, image_batch), ready = nxt
+            train_meter.data_toc()
+            trainer.wait_for((vb, image_batch), ready)
+            trainer.generator.manual_seed(step_seed(cfg.RNG_SEED,
+                                                    state.step))
+            state, metrics = trainer.step_fn(state, vb, image_batch,
+                                             trainer.generator)
+            lr = get_lr_at_epoch(cfg, cur_epoch
+                                 + cur_iter / trainer.steps_per_epoch)
+        with span("train.clone"):
+            # the graph's output is overwritten by the next replay
+            pending.append((cur_iter, lr, n_videos, metrics.clone()))
         # the next batch's wait and copies overlap the step; its wait is
         # this window's data time (``dt_data``, as JAX's loop counts it)
         train_meter.data_resume()
         nxt = fetch()
-        train_meter.data_toc()
-        train_meter.iter_toc()
+        with span("train.meter"):
+            train_meter.data_toc()
+            train_meter.iter_toc()
         at_log = (cur_iter + 1) % cfg.LOG_PERIOD == 0
         if at_log:
             flush_pending()
-            train_meter.log_iter_stats(cur_epoch, cur_iter)
-        if guard is not None and _stop_now(guard, at_log):
+        with span("train.meter"):
+            if at_log:
+                train_meter.log_iter_stats(cur_epoch, cur_iter)
+            stop = guard is not None and _stop_now(guard, at_log)
+            if not stop:
+                train_meter.iter_tic()
+        if stop:
             flush_pending()   # the mid-epoch checkpoint must be real
             train_meter.reset()
             return state, cur_iter + 1
-        train_meter.iter_tic()
     flush_pending()
-    train_meter.log_epoch_stats(cur_epoch)
-    train_meter.reset()
+    with span("train.meter"):
+        train_meter.log_epoch_stats(cur_epoch)
+        train_meter.reset()
     return state, None
 
 

@@ -57,6 +57,7 @@ from svit_tpu_torch.ops import attention as attn_ops
 from svit_tpu_torch.ops import ln_linear as ll
 from svit_tpu_torch.ops import pool, pooling
 from svit_tpu_torch.parallel import tensor
+from svit_tpu_torch.utils import tracing
 
 Triple = Tuple[int, ...]
 
@@ -160,7 +161,13 @@ class MultiScaleAttention(nn.Module):
         and v).  ``drop`` (train mode with ``MVIT.DROPOUT_RATE``) is applied
         to both outputs; ``cache`` is a train step's ``StepCache``.  Returns
         (grid_out [B, To, Ho, Wo, C], extras_out [B, E, C])."""
-        ops = _ops(use_kernels)
+        with tracing.owner("attn") as own:
+            grid, extras = own.inputs(grid, extras)
+            og, oe = self._attend(grid, extras, ln1, _ops(use_kernels),
+                                  dtype, drop, cache)
+            return own.outputs(og, oe)
+
+    def _attend(self, grid, extras, ln1, ops, dtype, drop, cache):
         B, E = grid.shape[0], extras.shape[1]
         C, heads, hd = self.dim_out, self.num_heads, self.head_dim
         scale = hd ** -0.5
@@ -216,7 +223,14 @@ class MultiScaleAttention(nn.Module):
         the exact multiplier and the same LN on the object tokens (cls
         passes).  max / avg: the grid alone, extras unchanged.  The tiled
         filters, LN parameters and multiplier are derived once a step
-        through ``cache``."""
+        through ``cache``.  The owner ``pool_<names>`` (``pool_q``,
+        ``pool_kv``)."""
+        with tracing.owner("pool_" + "".join(names), sub=True) as own:
+            grid, extras = own.inputs(grid, extras)
+            return own.outputs(*self._pool_pair(ops, grid, extras, names,
+                                                kernel, stride, cache))
+
+    def _pool_pair(self, ops, grid, extras, names, kernel, stride, cache):
         if self.mode != "conv":
             fn = pooling.max_pool3d if self.mode == "max" else \
                 pooling.avg_pool3d
@@ -320,13 +334,25 @@ class MultiScaleBlock(nn.Module):
             B = grid.shape[0]
             masks = (keep_mask(B, keep, generator, grid.device),
                      keep_mask(B, keep, generator, grid.device))
-        if drop is not None or (self.proj is not None
-                                and not self.dim_mul_in_att):
-            return self._unfused_tail(grid, extras, ag, ae, ln2, drop, masks,
-                                      keep, dtype, generator)
-        if self.mlp.tp is not None:
-            return self._sharded_tail(grid, extras, ag, ae, ln2, w1, w2,
-                                      masks, keep, use_kernels)
+        with tracing.owner("mlp") as own:
+            grid, extras, ag, ae = own.inputs(grid, extras, ag, ae)
+            if drop is not None or (self.proj is not None
+                                    and not self.dim_mul_in_att):
+                out = self._unfused_tail(grid, extras, ag, ae, ln2, drop,
+                                         masks, keep, dtype, generator)
+            elif self.mlp.tp is not None:
+                out = self._sharded_tail(grid, extras, ag, ae, ln2, w1, w2,
+                                         masks, keep, use_kernels)
+            else:
+                out = self._fused_tail(ops, grid, extras, ag, ae, ln2, w1,
+                                       w2, masks, keep)
+            return own.outputs(*out)
+
+    def _fused_tail(self, ops, grid, extras, ag, ae, ln2, w1, w2, masks,
+                    keep):
+        """The residual tail through K1's fused FFN (masked under
+        stochastic depth)."""
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if masks is None:
             out_g = ops.ffn_residual(grid, ag, *ln2, w1, fc1.bias, w2,
                                      fc2.bias)

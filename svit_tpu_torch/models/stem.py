@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from svit_tpu_torch.models.common import cast
+from svit_tpu_torch.utils import tracing
 
 
 class PatchEmbed(nn.Module):
@@ -27,9 +28,13 @@ class PatchEmbed(nn.Module):
     def forward(self, x: torch.Tensor, cache=None):
         """x: [B, T, H, W, C_in] -> (grid [B, T', H', W', dim_out], (T', H', W'));
         ``cache``: a train step's ``StepCache``."""
-        w = cast(self.proj.weight, x.dtype, cache)
-        b = cast(self.proj.bias, x.dtype, cache)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, self.proj.stride,
-                     self.proj.padding)
-        y = y.permute(0, 2, 3, 4, 1).contiguous()
+        with tracing.owner("stem") as own:
+            w = cast(self.proj.weight, x.dtype, cache)
+            b = cast(self.proj.bias, x.dtype, cache)
+            # the weights as used close the stem's backward (the clip
+            # wants no gradient)
+            w, b = own.inputs(w, b)
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, self.proj.stride,
+                         self.proj.padding)
+            y = own.outputs(y.permute(0, 2, 3, 4, 1).contiguous())
         return y, tuple(y.shape[1:4])

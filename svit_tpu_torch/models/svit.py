@@ -28,6 +28,10 @@ values.  The block's random draws are kept from its forward and handed to
 the recompute (``KeptDraws``), so the masks, the generator's state after
 the step, the loss and the gradients are those of the step without remat,
 bit for bit, eager and in a CUDA graph.
+
+The device owners of ``utils/tracing.py``: the stem (``stem``), each block
+(``blocks.<i>``, with its ``attn`` and ``mlp``) and the ``head``, forward
+and backward; under remat a block's recompute is one owner.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from svit_tpu_torch.models.attention import MultiScaleBlock
 from svit_tpu_torch.models.common import KeptDraws, LayerNorm, dropout
 from svit_tpu_torch.models.stem import PatchEmbed
 from svit_tpu_torch.ops import ln_linear as ll
+from svit_tpu_torch.utils import tracing
 
 Triple = Tuple[int, int, int]
 
@@ -424,22 +429,28 @@ class SViT(nn.Module):
 
         points, acts = {}, {}
         for i, blk in enumerate(self.blocks):
-            grid, extras = self._block(blk, grid, extras, train, generator,
-                                       cache)
+            with tracing.owner(f"blocks.{i}") as own:
+                grid, extras = own.inputs(grid, extras)
+                grid, extras = own.outputs(*self._block(
+                    blk, grid, extras, train, generator, cache))
             if capture_gradcam:
                 name = f"blocks_{i}_out"
                 acts[name] = grid
                 points[name] = torch.zeros_like(grid, requires_grad=True)
                 grid = grid + points[name]
 
-        if arch.cls_embed_on:
-            # LN is per-token: only [cls | obj] feeds the head
-            head_in = self.norm(extras)
-        else:
-            g = self.norm(grid)
-            cls_tok = g.reshape(B, -1, g.shape[-1]).mean(dim=1, keepdim=True)
-            head_in = torch.cat([cls_tok, self.norm(extras)], dim=1)
-        logits, extra = self.head(head_in, t_in, train, generator)
+        with tracing.owner("head") as own:
+            if arch.cls_embed_on:
+                # LN is per-token: only [cls | obj] feeds the head
+                head_in = self.norm(own.inputs(extras))
+            else:
+                grid, extras = own.inputs(grid, extras)
+                g = self.norm(grid)
+                cls_tok = g.reshape(B, -1, g.shape[-1]).mean(dim=1,
+                                                             keepdim=True)
+                head_in = torch.cat([cls_tok, self.norm(extras)], dim=1)
+            logits, extra = own.outputs(
+                *self.head(head_in, t_in, train, generator))
         if capture_gradcam:
             extra["perturbations"], extra["intermediates"] = points, acts
         return logits, extra
@@ -452,10 +463,12 @@ class SViT(nn.Module):
         if not (self.arch.remat and torch.is_grad_enabled()):
             return blk(grid, extras, *args, generator, cache)
         draws = KeptDraws(generator)
+        base = tracing.path()
 
         def run(grid, extras):
             draws.start()
-            return blk(grid, extras, *args, draws, cache)
+            with tracing.recompute(base, again=draws.runs > 1):
+                return blk(grid, extras, *args, draws, cache)
 
         return checkpoint(run, grid, extras, use_reentrant=False,
                           preserve_rng_state=False)

@@ -104,6 +104,8 @@ _SIGNATURES = {
         _F, _I,                            # scale, q_residual
         _I, _I, _I, _I, _P,                # q_stages, kv_stages, rk, splits, stream
     ],
+    # utils/tracing.py's device marks (not kernel launches: not counted)
+    "svit_stamp": [_P, _P],                # slot, stream
 }
 
 _lock = threading.Lock()
@@ -189,14 +191,20 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, counter: str, *args) -> None:
-    """Call ``name`` in the library, count it under ``counter`` and raise if
-    the launch was refused or a previous asynchronous error surfaced."""
+def call(name: str, *args) -> None:
+    """Call ``name`` in the library and raise if the call was refused or a
+    previous asynchronous error surfaced; counts nothing (the tracing
+    marks of ``utils/tracing.py`` call their functions so)."""
     lib = library()
     rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = lib.svit_error_string(rc).decode()
         raise RuntimeError(f"{name} failed: CUDA error {rc} ({msg})")
+
+
+def launch(name: str, counter: str, *args) -> None:
+    """``call`` a kernel's launch and count it under ``counter``."""
+    call(name, *args)
     LAUNCHES[counter] += 1
 
 

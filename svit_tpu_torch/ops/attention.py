@@ -42,18 +42,13 @@ import os
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from svit_tpu_torch.ops import _lib, ln_linear
 from svit_tpu_torch.ops import rel_pos as rp
 from svit_tpu_torch.ops.vjp import needs_grad
+from svit_tpu_torch.utils import tracing
 
 Triple = Tuple[int, int, int]
-
-
-# the builder's profiler ranges (forward, and its products' backward)
-BIAS_TAG = "svit::rel_pos_bias"
-BIAS_BWD_TAG = "svit::rel_pos_bias_bwd"
 
 
 def fault_injected() -> bool:
@@ -96,13 +91,12 @@ class _BiasTermFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, table = ctx.saved_tensors
-        with record_function(BIAS_BWD_TAG):
-            g = g.to(a.dtype)
-            da = dt = None
-            if ctx.needs_input_grad[0]:
-                da = _bmm(g, table).to(a.dtype)
-            if ctx.needs_input_grad[1]:
-                dt = _bmm(g.transpose(1, 2), a).to(table.dtype)
+        g = g.to(a.dtype)
+        da = dt = None
+        if ctx.needs_input_grad[0]:
+            da = _bmm(g, table).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            dt = _bmm(g.transpose(1, 2), a).to(table.dtype)
         return da, dt
 
 
@@ -134,12 +128,15 @@ def build_bias_inputs_grid(
     Each term is a product of the queries and a rel-pos table in the IO
     dtype with f32 accumulation, rounded to the IO dtype once (JAX
     ``build_bias_inputs_grid``'s einsums with ``preferred_element_type``);
-    a missing table gives zeros."""
+    a missing table gives zeros.  The builder is the owner ``bias``
+    (``utils/tracing.py``), forward and backward."""
     B, Tq, Hq, Wq, C = q_grid.shape
     k_t, k_h, k_w = k_shape
     dt = q_grid.dtype
     q_l = Tq * Hq * Wq
-    with record_function(BIAS_TAG):
+    with tracing.owner("bias", sub=True) as own:
+        q_grid, rel_pos_h, rel_pos_w, rel_pos_t = own.inputs(
+            q_grid, rel_pos_h, rel_pos_w, rel_pos_t)
         rq = q_grid.reshape(B, Tq, Hq, Wq, num_heads, C // num_heads)
         zeros = q_grid.new_zeros
 
@@ -153,7 +150,7 @@ def build_bias_inputs_grid(
         terms = [term(rel_pos_t, 0, k_t),
                  term(rel_pos_h if with_hw else None, 1, k_h),
                  term(rel_pos_w if with_hw else None, 2, k_w)]
-        return torch.cat(terms, dim=-1)
+        return own.outputs(torch.cat(terms, dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -552,40 +549,53 @@ def pooled_attention(q, kv, bias_src, k_shape: Triple, scale: float,
                               q_residual)
 
 
+def _attention_then_proj(q, kv, bias_src, k_shape, wp, bp, scale, heads,
+                         q_residual):
+    """(K4's output, the projection of it): the owners ``core`` and
+    ``proj``."""
+    with tracing.owner("core", sub=True):
+        base = pooled_attention_fwd(q, kv, bias_src, k_shape, scale, heads,
+                                    q_residual)
+    with tracing.owner("proj", sub=True):
+        return base, ln_linear.linear_proj(base, wp, bp)
+
+
 class _AttentionProjFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, kv, bias_src, wp, bp, k_shape, scale, heads,
                 q_residual):
-        base = pooled_attention_fwd(q, kv, bias_src, k_shape, scale, heads,
-                                    q_residual)
+        base, out = _attention_then_proj(q, kv, bias_src, k_shape, wp, bp,
+                                         scale, heads, q_residual)
         ctx.args = (tuple(k_shape), scale, heads, q_residual)
         ctx.save_for_backward(q, kv, bias_src, wp, base)
-        return ln_linear.linear_proj(base, wp, bp)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         q, kv, bias_src, wp, base = ctx.saved_tensors
         want = ctx.needs_input_grad
-        g2 = g.reshape(-1, g.shape[-1])
-        dbp = g2.float().sum(0) if want[4] else None
-        dwp = ((g2.t() @ base.reshape(-1, base.shape[-1])).to(wp.dtype)
-               if want[3] else None)
+        with tracing.owner("proj", sub=True):
+            g2 = g.reshape(-1, g.shape[-1])
+            dbp = g2.float().sum(0) if want[4] else None
+            dwp = ((g2.t() @ base.reshape(-1, base.shape[-1])).to(wp.dtype)
+                   if want[3] else None)
+            dbase = (g2 @ wp).view(g.shape) if any(want[:3]) else None
         dq = dkv = dbias = None
-        if any(want[:3]):
-            dbase = (g2 @ wp).view(g.shape)
-            dq, dkv, dbias = pooled_attention_bwd(q, kv, bias_src, dbase,
-                                                  *ctx.args)
+        if dbase is not None:
+            with tracing.owner("core", sub=True):
+                dq, dkv, dbias = pooled_attention_bwd(q, kv, bias_src, dbase,
+                                                      *ctx.args)
         return dq, dkv, dbias, dwp, dbp, None, None, None, None
 
 
 def fused_attention_proj(q, kv, bias_src, k_shape, wp, bp, scale, heads,
                          q_residual=False):
     """Attention (K4) then the out-projection (K1): ``proj(att (+ q))``.
-    Differentiable: the backward of JAX ``_bwd_proj``, with K5."""
+    Differentiable: the backward of JAX ``_bwd_proj``, with K5.  Each half
+    is an owner (``core``, ``proj``), forward and backward."""
     if not needs_grad(q, kv, bias_src, wp, bp):
-        base = pooled_attention_fwd(q, kv, bias_src, k_shape, scale, heads,
-                                    q_residual)
-        return ln_linear.linear_proj(base, wp, bp)
+        return _attention_then_proj(q, kv, bias_src, k_shape, wp, bp, scale,
+                                    heads, q_residual)[1]
     return _AttentionProjFn.apply(q, kv, bias_src, wp, bp, k_shape, scale,
                                   heads, q_residual)
 

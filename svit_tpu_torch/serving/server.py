@@ -32,7 +32,7 @@ from svit_tpu_torch.data import transform
 from svit_tpu_torch.engine import graphs
 from svit_tpu_torch.models import build_model
 from svit_tpu_torch.utils import checkpoint as cu
-from svit_tpu_torch.utils import logging
+from svit_tpu_torch.utils import logging, tracing
 
 logger = logging.get_logger(__name__)
 
@@ -77,9 +77,11 @@ class BatchedPredictor:
         return arr[idx]
 
     def _run(self, x):
-        with torch.inference_mode():
+        with torch.inference_mode(), tracing.owner("forward"):
             logits, extra = self.model(x)
             return logits.float(), extra["pred_bboxes"].float()
+
+    _run.kind = "serve"   # its graphs' kind in the owner tables
 
     @torch.inference_mode()
     def forward(self, clips: np.ndarray):

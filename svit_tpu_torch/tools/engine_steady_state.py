@@ -20,10 +20,11 @@ to the trailing metric fetch, which waits for the last step.
 
 It prints one JSON object and writes it to
 ``chiprun_out/engine_steady_state.json``: ``engine_step_ms``, ``steps``,
-``video_clips_per_sec_chip``, ``log_period``, ``bench_train_step_ms`` (from
-``SVIT_BENCH_TRAIN_STEP_MS``, else null) and ``overhead_vs_bench_pct``
-against it.  ``LOG_PERIOD`` is ``SVIT_ENGINE_LOG_PERIOD`` (10).  It runs
-on the card and raises without one unless given ``--device cpu``.
+``video_clips_per_sec_chip`` and ``log_period`` (the JAX tool's keys but
+its comparison with a bench's step time, which the benchmark,
+``port_bench/``, now measures).  ``LOG_PERIOD`` is
+``SVIT_ENGINE_LOG_PERIOD`` (10).  It runs on the card and raises without
+one unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def _staged(cfg, video, image, device):
 
 
 def measure(steps=30, warmup=4, device=None, cfg_file=None, opts=(),
-            bench_ms=None, verbose=True) -> dict:
+            verbose=True) -> dict:
     from svit_tpu_torch.engine import graphs
     from svit_tpu_torch.engine import meters as meters_lib
     from svit_tpu_torch.engine.train import train_epoch
@@ -113,7 +114,7 @@ def measure(steps=30, warmup=4, device=None, cfg_file=None, opts=(),
     trainer = SimpleNamespace(
         arch=arch, step_fn=graphs.CapturedTrainStep(step),
         metric_names=metric_names, steps_per_epoch=warmup + steps,
-        generator=torch.Generator(device=device), data_seconds=[],
+        generator=torch.Generator(device=device),
         put_ahead=put_ahead, wait_for=lambda batches, ready: None)
     trainer.train_loader, trainer.image_loader = loaders(warmup)
     if verbose:
@@ -132,18 +133,11 @@ def measure(steps=30, warmup=4, device=None, cfg_file=None, opts=(),
     # train_epoch's last metric fetch waits for the last step
     dt = time.perf_counter() - t0
 
-    engine_ms = dt / steps * 1e3
-    if bench_ms is None:
-        env = os.environ.get("SVIT_BENCH_TRAIN_STEP_MS")
-        bench_ms = float(env) if env else None
     return {
-        "engine_step_ms": engine_ms,
+        "engine_step_ms": dt / steps * 1e3,
         "steps": steps,
         "video_clips_per_sec_chip": TRAIN_BATCH_VIDEO / (dt / steps),
         "log_period": cfg.LOG_PERIOD,
-        "bench_train_step_ms": bench_ms,
-        "overhead_vs_bench_pct": ((engine_ms / bench_ms - 1) * 100
-                                  if bench_ms else None),
         "h2d_excluded": True,
         "note": ("the real train_epoch at the bench's shapes, the step a "
                  "CUDA graph; host data production and the host-to-device "

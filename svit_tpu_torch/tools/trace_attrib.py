@@ -21,17 +21,19 @@ per iteration (``--iters``):
 - ``--by-owner`` (the JAX tool's ``--by-meta``): each kernel maps to the
   runtime call that launched it by the event's ``correlation`` (or its
   ``ac2g`` flow), the call to the host op around it, and the op to its
-  owner: the innermost module scope above it (``module::<path>``, which
-  ``trace_forward.module_scopes`` records), else, on autograd's thread, the
-  owner of the forward op whose ``Sequence number`` its backward node
+  owner: the innermost owner range above it (``module::<path>``, which the
+  program records under the profiler, ``utils/tracing.py``: the names of
+  a replay's owner table), else, on autograd's thread, the owner of the
+  forward op whose ``Sequence number`` its backward node
   (``autograd::engine::evaluate_function``) carries (the profiler's
   ``fwdbwd`` flow, drawn from that number and the forward thread; a
   trace without flows is matched on the number), with "(backward)"
-  (the hand-written kernels' own ``autograd.Function``s and the rel-pos
-  bias builder's backward range among them), else its outermost op.  A
-  CUDA graph's replay launches its kernels in one call: they are counted
-  by family and owned by ``graph replay``.  Kernels whose launch the trace
-  lacks are ``unowned``, and their share is printed.
+  (the hand-written kernels' own ``autograd.Function``s among them), else
+  its outermost op.  A CUDA graph's replay launches its kernels in one
+  call: they are counted by family and owned by ``graph replay`` (a
+  replay's owners are the program's own table,
+  ``tracing.owner_tables``).  Kernels whose launch the trace lacks are
+  ``unowned``, and their share is printed.
 
 A trace without device events, or whose kernels carry neither a
 ``correlation`` nor a flow to their launch, raises: nothing is reported as
@@ -55,7 +57,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 OUT = os.path.join(REPO, "chiprun_out", "trace_attrib.json")
 
-MODULE = "module::"       # a module scope: its path follows
+MODULE = "module::"       # an owner range: its path follows
 NODE = "autograd::engine::evaluate_function: "
 BACKWARD = " (backward)"
 GRAPH = "graph replay"

@@ -16,10 +16,17 @@ as ``engine/steps.py`` builds it).  Each path runs twice under
 - ``graph``: the CUDA graph that ``engine/graphs.py`` captures, replayed
   ``--iters`` times: the device time per iteration as the entry points run
   it.  A replay's kernels have no launching op;
-- ``eager``: the same call op by op, ``--eager-iters`` times, with every
-  module's scope recorded (``module_scopes``: forward pre- and post-hooks
-  installed only while it traces), so that ``trace_attrib --by-owner``
-  maps each kernel to the module that launched it.
+- ``eager``: the same call op by op, ``--eager-iters`` times.  Under the
+  profiler the program records its device owners as ranges
+  (``utils/tracing.py``: ``module::<path>``), so that ``trace_attrib
+  --by-owner`` maps each kernel to the owner that launched it, under the
+  names of the replay's owner table.
+
+The graph path also reports the program's owner table: the device ms of
+each owner in its last replay, from the marks captured with it
+(``owner_table``), and ``attention``: each attention owner's ms summed
+over the blocks, by name and direction, in the replay and in the eager
+trace.
 
 Warm-up and capture (and the train step's restore after its warm-up
 steps) stay outside the traced window.  Each trace is exported as a
@@ -33,7 +40,6 @@ without one unless given ``--device cpu``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -44,41 +50,10 @@ import torch
 from svit_tpu_torch.tools import trace_attrib as ta
 from svit_tpu_torch.tools.common import (CFG, REPO, fixed_params, load_cfg,
                                          train_batches, train_state)
+from svit_tpu_torch.utils import tracing
 
 OUT_DIR = os.path.join(REPO, "chiprun_out", "traces")
 REPORT = os.path.join(REPO, "chiprun_out", "trace_forward.json")
-
-
-@contextlib.contextmanager
-def module_scopes(model, prefix: str = ta.MODULE):
-    """Record a profiler range ``<prefix><path>`` around every module's
-    forward (the model's own path is its class name) while the block
-    runs; the hooks go when it ends."""
-    from torch.autograd.profiler import record_function
-
-    open_ranges, hooks = [], []
-
-    def enter(path):
-        def pre(mod, args):
-            rf = record_function(prefix + path)
-            rf.__enter__()
-            open_ranges.append(rf)
-        return pre
-
-    def leave(mod, args, out):
-        open_ranges.pop().__exit__(None, None, None)
-
-    for path, mod in model.named_modules():
-        hooks.append(mod.register_forward_pre_hook(
-            enter(path or type(model).__name__)))
-        hooks.append(mod.register_forward_hook(leave))
-    try:
-        yield
-    finally:
-        for h in hooks:
-            h.remove()
-        while open_ranges:   # a forward that raised left its ranges open
-            open_ranges.pop().__exit__(None, None, None)
 
 
 def _forward_path(cfg, batch, device):
@@ -123,11 +98,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def profile_calls(fn, iters, device, path, model=None, warmup=1):
+def profile_calls(fn, iters, device, path, warmup=1):
     """``iters`` calls of ``fn`` under torch.profiler (after ``warmup``
-    calls outside it), with ``model``'s module scopes if given; the trace
-    exported to ``path`` and read back (None off the card, where it has
-    no device events)."""
+    calls outside it); the trace exported to ``path`` and read back (None
+    off the card, where it has no device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -136,9 +110,7 @@ def profile_calls(fn, iters, device, path, model=None, warmup=1):
     for _ in range(warmup):
         fn()
     _sync(device)
-    scopes = module_scopes(model) if model is not None else \
-        contextlib.nullcontext()
-    with profile(activities=acts) as prof, scopes:
+    with profile(activities=acts) as prof:
         for _ in range(iters):
             fn()
         _sync(device)
@@ -159,25 +131,52 @@ def trace(train=False, batch=16, iters=5, eager_iters=None, out=OUT_DIR,
     device = resolve_device(device)
     cfg = load_cfg(cfg_file or CFG, opts)
     what = "train" if train else "forward"
-    model, eager, graph = (_train_path if train else _forward_path)(
+    _, eager, graph = (_train_path if train else _forward_path)(
         cfg, batch, device)
     result = {"what": what, "batch": batch}
-    for kind, fn, n, scoped in (("graph", graph, iters, None),
-                                ("eager", eager, eager_iters or iters,
-                                 model)):
+    for kind, fn, n in (("graph", graph, iters),
+                        ("eager", eager, eager_iters or iters)):
         path = os.path.join(out, f"{what}_{kind}.json.gz")
-        tr = profile_calls(fn, n, device, path, scoped)
+        tr = profile_calls(fn, n, device, path)
         result[kind] = {"trace": path, "iters": n}
+        if kind == "graph":
+            result[kind]["owner_table"] = tracing.last_table(
+                "train" if train else "eval")
         if tr is None:         # no device events off the card
             continue
-        s = ta.summarize(tr, n, top)
+        s = ta.summarize(tr, n, top=None)    # every owner, for ``attention``
+        s["ops"] = s["ops"][:top]
         result[kind].update(s)
         if verbose:
             print(f"== {what}, {kind}: {s['device_ms']:.3f} device ms/iter "
                   f"(batch {batch}, {n} iterations)")
             for name, ms, count in s["ops"][:top]:
                 print(f"{ms:9.3f} ms {count:7.1f}x  {name[:110]}")
+    if result["graph"]["owner_table"] and "owners" in result["eager"]:
+        result["attention"] = attention_owners(
+            result["graph"]["owner_table"]["ms"],
+            {o: ms for o, ms, _ in result["eager"]["owners"]})
     return result
+
+
+def attention_owners(replay: dict, eager: dict) -> dict:
+    """{"<name>[ (backward)]": [replay ms, eager ms]}: each attention
+    owner (``attn`` and the owners inside it) summed over the blocks and
+    the step's forwards, from a replay's owner table and an eager trace's
+    ``trace_attrib`` owners, which share the names.  In the forward the
+    sub owners count as ``attn``, which holds them in a replay."""
+    out = {}
+    for src, i in ((replay, 0), (eager, 1)):
+        for label, ms in src.items():
+            names = tracing.parts(label)
+            if "attn" not in names:
+                continue
+            if label.endswith(tracing.BACKWARD):
+                key = names[-1] + tracing.BACKWARD
+            else:
+                key = "attn"
+            out.setdefault(key, [0.0, 0.0])[i] += ms
+    return out
 
 
 def main(argv=None, device=None):

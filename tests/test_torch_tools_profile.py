@@ -185,11 +185,12 @@ def test_engine_steady_state_reports_the_jax_tool_s_keys():
             "MVIT.POOL_Q_STRIDE", "[[0, 1, 1, 1], [1, 1, 2, 2]]",
             "TRAIN.MIXED_PRECISION", "False", "SVIT.CONSISTENCY_LOSS", "l1"]
     out = tess.measure(steps=2, warmup=1, device="cpu", opts=tiny,
-                       bench_ms=1000.0, verbose=False)
-    assert set(out) == _jax_engine_keys()
+                       verbose=False)
+    # the JAX tool's keys but its comparison with a bench's step time, an
+    # environment variable that nothing sets (the benchmark measures that)
+    assert set(out) == _jax_engine_keys() - {"bench_train_step_ms",
+                                             "overhead_vs_bench_pct"}
     assert out["steps"] == 2 and out["log_period"] == 10
     assert math.isfinite(out["engine_step_ms"]) and out["engine_step_ms"] > 0
     assert out["video_clips_per_sec_chip"] == pytest.approx(
         8 / out["engine_step_ms"] * 1e3)
-    assert out["overhead_vs_bench_pct"] == pytest.approx(
-        (out["engine_step_ms"] / 1000.0 - 1) * 100)

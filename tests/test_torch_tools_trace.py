@@ -6,15 +6,16 @@
   ``user_annotation`` ranges, ``cuda_runtime`` launches, ``kernel`` and
   ``gpu_memcpy`` events with a ``correlation``, ``ac2g`` flows): a forward
   op inside a module scope, a backward node linked to it by sequence
-  number (with the rel-pos bias builder's backward range inside), a graph
-  replay's kernels, a copy linked only by its flow and a kernel whose
-  launch is missing.  The family, owner and unowned sums are exact (the
-  durations are whole microseconds).
+  number (with a range of the backward's own inside), a graph replay's
+  kernels, a copy linked only by its flow and a kernel whose launch is
+  missing.  The family, owner and unowned sums are exact (the durations
+  are whole microseconds).
 - A trace without device events, or without links, raises.
-- ``module_scopes`` on a CPU profile of the tiny port model (conftest's
-  56 px, 4 frames): every block's scope is named, the hooks are gone after
-  it, and kernels stood in for the train step's aten ops map through the
-  profiler's fwdbwd flows to the module that ran their forward.
+- The program's owner ranges (``utils/tracing.py``) on a CPU profile of
+  the tiny port model's train step (conftest's 56 px, 4 frames): every
+  block's owners are named, no module holds a hook, and kernels stood in
+  for the train step's aten ops map through the profiler's fwdbwd flows
+  to the owner that ran their forward.
 """
 
 import gzip
@@ -24,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from svit_tpu_torch.ops import attention as tattn
 from svit_tpu_torch.tools import common
 from svit_tpu_torch.tools import trace_attrib as ta
 from svit_tpu_torch.tools import trace_forward as tf
@@ -35,6 +35,7 @@ TINY = ["DATA.TRAIN_CROP_SIZE", "56", "DATA.TEST_CROP_SIZE", "56",
         "MVIT.POOL_Q_STRIDE", "[[0, 1, 1, 1], [1, 1, 2, 2], [2, 1, 1, 1]]",
         "TRAIN.MIXED_PRECISION", "False"]
 HOST, MAIN, BWD, DEV, STREAM = 1234, 1234, 1300, 0, 7
+BWD_RANGE = "svit::rel_pos_bias_bwd"    # a range inside a backward node
 
 
 @pytest.fixture(autouse=True)
@@ -94,7 +95,7 @@ def _hand_trace():
                  **{"Sequence number": 6, "Fwd thread id": 1}))
     ev.append(_x("cpu_op", "_AttentionFnBackward", BWD, 501, 45,
                  **{"Sequence number": 6, "Fwd thread id": 1}))
-    ev.append(_x("user_annotation", tattn.BIAS_BWD_TAG, BWD, 505, 20))
+    ev.append(_x("user_annotation", BWD_RANGE, BWD, 505, 20))
     ev.append(_x("cpu_op", "aten::bmm", BWD, 506, 10))
     ev += _launch(BWD, 507, 13)
     ev += _kernel("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", 1200, 20, 13)
@@ -154,10 +155,10 @@ def test_trace_attrib_families_owners_and_unowned():
     bwd_gemm = by_name["sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n"]
     assert bwd_gemm.op.name == "aten::bmm"
     assert ta.anchor(bwd_gemm.op).name.startswith(ta.NODE)
-    assert ta.within(bwd_gemm.op, (tattn.BIAS_BWD_TAG,))
+    assert ta.within(bwd_gemm.op, (BWD_RANGE,))
     fwd_gemm = by_name["nvjet_tst_64x8_64x16_4x1_v_bz_TNT"]
     assert ta.anchor(fwd_gemm.op).name == "module::blocks.0.attn"
-    assert not ta.within(fwd_gemm.op, (tattn.BIAS_BWD_TAG,))
+    assert not ta.within(fwd_gemm.op, (BWD_RANGE,))
     assert by_name["void ln_linear_kernel<1>(CUtensorMap, CUtensorMap)"] \
         .op is None
 
@@ -231,8 +232,9 @@ def test_kernel_name_reads_demangled_and_mangled_names():
 
 
 def test_module_scopes_name_every_block_on_a_cpu_profile(tmp_path):
-    """The tiny train step traced on the CPU: every block's scope, and the
-    backward's ops owned by the module of their forward."""
+    """The tiny train step traced on the CPU: every block's owner ranges,
+    and the backward's ops owned by the owner of their forward, under the
+    names of a replay's owner table."""
     from svit_tpu_torch.models import build_model
 
     res = tf.trace(train=True, batch=2, iters=1, out=str(tmp_path),
@@ -240,9 +242,12 @@ def test_module_scopes_name_every_block_on_a_cpu_profile(tmp_path):
     events = ta.load(res["eager"]["trace"])
     scopes = {e["name"] for e in events if e.get("ph") == "X"
               and e["name"].startswith(ta.MODULE)}
-    assert {f"{ta.MODULE}blocks.{i}" for i in range(3)} <= scopes
-    assert {ta.MODULE + n for n in ("SViT", "patch_embed", "norm",
-                                    "head")} <= scopes
+    for phase in ("consistency", "video", "image"):
+        assert {f"{ta.MODULE}{phase}/blocks.{i}/attn{sub}" for i in range(3)
+                for sub in ("", "/bias", "/core")} <= scopes
+        assert {ta.MODULE + f"{phase}/{n}" for n in ("stem", "head")} \
+            <= scopes
+    assert {ta.MODULE + n for n in ("backward", "optimizer")} <= scopes
     # a kernel stood in for each product and multiply (launched inside
     # the op, as a CUDA op launches)
     extra, corr = [], 0
@@ -257,13 +262,12 @@ def test_module_scopes_name_every_block_on_a_cpu_profile(tmp_path):
     s = ta.summarize(ta.Trace(events + extra), top=1000)
     owners = {o for o, _, _ in s["owners"]}
     assert s["unowned_share"] == 0
-    assert {f"blocks.{i}.attn{ta.BACKWARD}" for i in range(3)} <= owners
-    # no backward node is left without its forward's module or op
+    assert {f"video/blocks.{i}/attn{ta.BACKWARD}" for i in range(3)} <= owners
+    assert {f"image/blocks.{i}/mlp{ta.BACKWARD}" for i in range(3)} <= owners
+    # no backward node is left without its forward's owner or op
     assert not [o for o in owners if "Backward" in o]
-    # the hooks go with the block
+    # the owners need no hooks on the model
     model, _ = build_model(common.load_cfg(opts=TINY), device="cpu")
-    with tf.module_scopes(model):
-        assert model.blocks[0]._forward_pre_hooks
     assert not any(m._forward_pre_hooks or m._forward_hooks
                    for m in model.modules())
     np.testing.assert_equal(res["eager"]["iters"], 1)

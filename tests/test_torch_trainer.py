@@ -23,6 +23,7 @@ augmentation and the consistency term on and the random rates at 0.
 """
 
 import glob
+import json
 import os
 
 import jax
@@ -284,12 +285,19 @@ def test_preemption_resumes_at_iter(root, tmp_path, monkeypatch):
 
 
 def test_profile_dir_and_val_only(root, tmp_path, monkeypatch):
-    """``TPU.PROFILE_DIR`` writes a trace of the first epoch;
-    ``TRAIN.VAL_ONLY`` runs one eval epoch and no step."""
+    """``TPU.PROFILE_DIR`` writes a trace of the first epoch and, beside
+    it, the owner tables (none off the card, where no graph is captured)
+    and the loop's host spans; ``TRAIN.VAL_ONLY`` runs one eval epoch and
+    no step."""
     cfg, _ = _cfgs(root, str(tmp_path / "p"),
                    **{"TPU.PROFILE_DIR": str(tmp_path / "trace")})
     assert ttrain.train(cfg, device="cpu").step == 2
     assert glob.glob(str(tmp_path / "trace" / "train_trace_*.json"))
+    (owners,) = glob.glob(str(tmp_path / "trace" / "train_owners_*.json"))
+    with open(owners) as f:
+        got = json.load(f)
+    assert got["graphs"] == []
+    assert got["host_spans"]["train.dispatch"][0] >= 1
     evals = []
     eval_fn = ttrain.eval_epoch
     monkeypatch.setattr(ttrain, "eval_epoch",
